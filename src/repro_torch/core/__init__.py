@@ -1,0 +1,18 @@
+"""The paper's live loop in PyTorch: probes (``probe``), lazy buffers
+(``lazy``), the MGB schedulers (``scheduler``), the live executor
+(``executor``) and the open-arrival front-end (``cluster``).
+
+Port of ``src/repro/core/__init__.py``: ``Cluster``/``JobHandle``/
+``JobStatus`` are re-exported lazily (PEP 562), so task-only consumers do not
+import torch's CUDA machinery through the executor.
+"""
+from repro_torch.core.task import Job, ResourceVector, Task, UnitTask  # noqa: F401
+
+_CLUSTER_EXPORTS = ("Cluster", "JobHandle", "JobStatus")
+
+
+def __getattr__(name):
+    if name in _CLUSTER_EXPORTS:
+        from repro_torch.core import cluster
+        return getattr(cluster, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,7 @@
+"""Observability modules copied from ``src/repro/obs/`` so far: the event
+schema and tracer (``events``) and decision verdicts (``explain``), which the
+scheduler base emits into. Export, metrics, profiling, calibration and replay
+come in a later slice."""
+from repro_torch.obs import events, explain  # noqa: F401
+from repro_torch.obs.events import Event, Tracer, attach_tracer  # noqa: F401
+from repro_torch.obs.explain import Explainer, Verdict, attach_explainer  # noqa: F401
