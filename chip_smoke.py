@@ -8,23 +8,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (one ``nvcc`` per source, all at once) and print ptxas' resource lines and
    the card's name and power limit (``nvidia-smi``).
 2. kernels: hold each kernel against its plain PyTorch version at the main
-   path's shapes (bf16 atol = rtol = 2e-2, f32 1e-4) and time kernel, plain
-   version and, as a yardstick only, the PyTorch library call that computes
-   the same function: device time of a CUDA-graph replay, after warm-up.
-3. reduced: the reduced gemma2-9b served path on the card (hand kernels)
-   against the same weights on the CPU (plain versions): last-token logits
-   and 8 greedy tokens.
-4. serve: full-width, full-depth gemma2-9b in bf16 through probe -> MGB
-   admission -> executor: 32 requests in 8 batches of 4, prompt 1000,
-   32 generated tokens. Launch counters are zeroed just before and read just
-   after; flash attention must have launched 42 times per prefill and RMSNorm
-   85 times per prefill and per decode step. Then one batch alone, for the
-   probe's memory against ``torch.cuda.max_memory_allocated`` and an
-   unqueued TTFT, and four batches again with four pool workers, each on
-   its own stream, so the admitted batches share the card.
-5. decode: one decode step of the same model and batch, eager (host wall
-   time) against the same step replayed from a CUDA graph (device time, no
-   host gaps): the difference is the time the card waits on the host.
+   paths' shapes and at edge cases (bf16 atol = rtol = 2e-2, f32 1e-4) and
+   time kernel, plain version and, as a yardstick only, the PyTorch library
+   call that computes the same function where there is one: device time of
+   a CUDA-graph replay, after warm-up. The selective scan has no library
+   call.
+3. reduced: the reduced gemma2-9b and falcon-mamba-7b served paths on the
+   card (hand kernels) against the same weights on the CPU (plain
+   versions): last-token logits within 2e-3 and 8 greedy tokens equal.
+4. serve, one main path per model, each through probe -> MGB admission ->
+   executor with the launch counters zeroed just before and read just
+   after, every kernel's count checked exactly:
+   - gemma2-9b, full width and depth, bf16: 32 requests in 8 batches of 4,
+     prompt 1000, 32 generated tokens; flash attention 42 launches per
+     prefill, RMSNorm 85 per prefill and per decode step. Then one batch
+     alone (probe against ``torch.cuda.max_memory_allocated``, unqueued
+     TTFT), and four batches with four pool workers sharing the card.
+   - falcon-mamba-7b, full width and depth, bf16: 32 requests in 8 batches
+     of 4, prompt 1024 (a multiple of the reference's scan chunk, 256),
+     32 generated tokens, one worker; the selective scan 64 launches per
+     prefill, RMSNorm 65 per prefill and per decode step. Then one batch
+     alone.
+5. decode: for each model at batch 4, the device time of one prefill and
+   of one decode step by kernel (``torch.profiler``), and one decode step
+   eager (host wall time) against the same step replayed from a CUDA graph
+   (device time, no host gaps): the difference is the time the card waits
+   on the host.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -126,10 +135,11 @@ def phase_build(torch):
 
 
 def phase_kernels(torch):
-    """Every kernel against its plain version at the main path's shapes;
+    """Every kernel against its plain version at the main paths' shapes;
     returns {kernel: entry of the JSON table} for the main-path case."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as SC
     from repro_torch.kernels import rmsnorm as RN
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -139,10 +149,16 @@ def phase_kernels(torch):
         return (torch.randn(shape, generator=gen, device=dev) * scale) \
             .to(dtype)
 
+    # gemma2-9b's prefill and decode rows (d 3584), falcon-mamba-7b's
+    # (d 4096), then a narrow edge case
     for shape, dtype in [((4000, 3584), torch.bfloat16),
                          ((4000, 3584), torch.float32),
                          ((4, 3584), torch.bfloat16),
                          ((4, 3584), torch.float32),
+                         ((4096, 4096), torch.bfloat16),
+                         ((4096, 4096), torch.float32),
+                         ((4, 4096), torch.bfloat16),
+                         ((4, 4096), torch.float32),
                          ((1000, 512), torch.float32),
                          ((1000, 512), torch.bfloat16)]:
         x = randn(shape, dtype)
@@ -223,62 +239,132 @@ def phase_kernels(torch):
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=None)
         print(line, flush=True)
+
+    # the selective scan: edge cases (S = 1, S = 7, B*E*N off the block
+    # size, E*N not a multiple of 4, N = 64), then falcon-mamba-7b's prefill
+    # shape, timed. a = exp(-|randn|) as tests/test_kernels.py:108.
+    for shape in [(2, 1, 8, 4), (1, 7, 5, 3), (3, 33, 17, 64),
+                  (2, 96, 128, 64), (1, 64, 128, 16), (2, 300, 1000, 16),
+                  (4, 1024, 8192, 16)]:
+        a = torch.exp(-randn(shape, torch.float32).abs_())
+        b = randn(shape, torch.float32)
+        h_all, h_last = SC.mamba_scan(a, b)
+        torch.cuda.synchronize()
+        want_all, want_last = SC.mamba_scan_plain(a, b)
+        err = max(compare(torch, h_all, want_all, torch.float32,
+                          f"mamba_scan {shape} h_all"),
+                  compare(torch, h_last, want_last, torch.float32,
+                          f"mamba_scan {shape} h_last"))
+        del h_all, h_last, want_all, want_last
+        line = f"[kernels] mamba_scan {shape} f32: max_abs_err {err:.3e}"
+        if shape == (4, 1024, 8192, 16):
+            ms = time_ms(torch, lambda: SC.mamba_scan(a, b), 10)
+            plain_ms = time_ms(torch, lambda: SC.mamba_scan_plain(a, b), 2)
+            # a, b read once, h_all and h_last written once
+            nbytes = 3 * a.numel() * 4 + a[:, 0].numel() * 4
+            t_bytes, t_ops = nbytes / H100_HBM_BW, 2 * a.numel() \
+                / H100_F32_FLOPS
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes > t_ops else "operations"
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+                     f"library call, bound {bound:.4f} ms ({by}), "
+                     f"{nbytes / ms / 1e6:.1f} GB/s = "
+                     f"{100 * bound / ms:.1f}% of the bound")
+            table["mamba_scan"] = dict(
+                name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan.py:73",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+        del a, b
+        print(line, flush=True)
     return table
 
 
-def phase_reduced(torch):
-    """Reduced gemma2-9b: the card (hand kernels) against the CPU (plain
+def to_device(tree, dev):
+    """A nested dict/list of tensors, moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def phase_reduced(torch, arch: str, seq: int):
+    """A reduced model: the card (hand kernels) against the CPU (plain
     versions) on the same weights and prompts."""
     from repro_torch.configs.registry import get_arch
-    from repro_torch.models import decode as D
     from repro_torch.models.model import init_params
-    from repro_torch.serve.decode import greedy_generate, make_prefill_step
-    cfg = get_arch("gemma2-9b").reduced()
+    from repro_torch.serve.decode import (decode_cache, greedy_generate,
+                                          make_prefill_step)
+    cfg = get_arch(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          torch.float32, torch.device("cpu"))
-    tokens = torch.randint(0, cfg.vocab, (2, 100),
+    tokens = torch.randint(0, cfg.vocab, (2, seq),
                            generator=torch.Generator().manual_seed(1))
     prefill = make_prefill_step(cfg)
     results = {}
     for dev in (torch.device("cpu"), torch.device("cuda", 0)):
-        p = {"embed": params["embed"].to(dev),
-             "final_norm": params["final_norm"].to(dev),
-             "layers": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                             if isinstance(v, dict) else v.to(dev))
-                         for k, v in lp.items()} for lp in params["layers"]]}
+        p = to_device(params, dev)
         logits, cache = prefill(p, {"tokens": tokens.to(dev)})
         first = torch.argmax(logits, -1).to(torch.int32)
-        full = D.cache_insert(D.init_cache(cfg, 2, 100 + 8, device=dev),
-                              cache, 0)
-        toks, _ = greedy_generate(cfg, p, full, first, 100, 8)
+        toks, _ = greedy_generate(cfg, p, decode_cache(cfg, cache, seq + 8),
+                                  first, seq, 8)
         results[dev.type] = (logits.cpu(), toks.cpu())
     err = float((results["cpu"][0] - results["cuda"][0]).abs().max())
     same = bool(torch.equal(results["cpu"][1], results["cuda"][1]))
-    print(f"[reduced] gemma2-9b-reduced prefill logits card vs CPU max abs "
-          f"err {err:.3e}; 8 greedy tokens equal: {same}", flush=True)
+    print(f"[reduced] {cfg.name} prefill logits card vs CPU max abs err "
+          f"{err:.3e}; 8 greedy tokens equal: {same}", flush=True)
     if err > 2e-3 or not same:
-        fail("reduced gemma2-9b on the card disagrees with the CPU")
+        fail(f"reduced {arch} on the card disagrees with the CPU")
 
 
-def phase_serve(torch):
-    from repro_torch.configs.registry import get_arch
+def counters():
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import mamba_scan as SC
     from repro_torch.kernels import rmsnorm as RN
+    return {"rmsnorm": RN.LAUNCHES, "flash_attention": FA.LAUNCHES,
+            "mamba_scan": SC.LAUNCHES}
+
+
+def expected_launches(cfg, prefills: int, steps: int) -> dict:
+    """Each kernel's launches on a serve path: per prefill, one scan per
+    Mamba layer or one flash attention per attention layer; per prefill and
+    per decode step, one RMSNorm per norm of a layer plus the final norm."""
+    if cfg.family == "ssm":
+        return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
+                "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills}
+    return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps),
+            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
+
+
+def fresh_card(torch) -> None:
+    """Nothing of an earlier run may stay allocated while one is measured."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_serve(torch, arch: str, prompt_len: int, wide: bool):
+    """One main path: full ``arch`` in bf16 through ``serve()``, with every
+    kernel's launch count checked exactly; then one batch alone and, with
+    ``wide``, four batches on four pool workers."""
+    from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import serve
-    cfg = get_arch("gemma2-9b")
+    cfg = get_arch(arch)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
-              prompt_len=1000, gen_len=32, num_devices=1)
-    RN.LAUNCHES.reset()
-    FA.LAUNCHES.reset()
-    res = serve("gemma2-9b", requests=32, **kw)
-    launches = {"rmsnorm": RN.LAUNCHES.value,
-                "flash_attention": FA.LAUNCHES.value}
-    prefills, steps = res["batches"], res["batches"] * (kw["gen_len"] - 1)
-    want = {"flash_attention": cfg.n_layers * prefills,
-            "rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps)}
+              prompt_len=prompt_len, gen_len=32, num_devices=1)
+    fresh_card(torch)
+    for c in counters().values():
+        c.reset()
+    res = serve(arch, requests=32, **kw)
+    launches = {name: c.value for name, c in counters().items()}
+    want = expected_launches(cfg, res["batches"],
+                             res["batches"] * (kw["gen_len"] - 1))
     vec = res["probe"]
-    print(f"[serve] gemma2-9b full ({cfg.n_layers} layers, bf16): "
-          f"{res['completed']}/{res['batches']} batches done, "
+    print(f"[serve] {arch} full ({cfg.n_layers} layers, bf16, prompt "
+          f"{prompt_len}): {res['completed']}/{res['batches']} batches done, "
           f"{res['crashed']} crashed, {res['tokens_generated']} tokens in "
           f"{res['wall_s']:.2f} s = {res['tokens_per_s']:.1f} tok/s; TTFT "
           f"p50/p99 {res['p50_ttft_s'] * 1e3:.1f}/"
@@ -286,84 +372,120 @@ def phase_serve(torch):
           f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
           f"{res['sched_attempts']} admission attempts; scheduler HBM "
           f"{res['hbm_per_device'] / 2**30:.2f} GiB/device", flush=True)
-    print(f"[serve] probe per batch: hbm {vec.hbm_bytes / 2**30:.3f} GiB, "
-          f"{vec.flops:.4e} flops, est {vec.est_seconds * 1e3:.2f} ms",
-          flush=True)
-    print(f"[serve] launches {launches}, expected {want}", flush=True)
+    print(f"[serve] {arch} probe per batch: hbm {vec.hbm_bytes} B "
+          f"({vec.hbm_bytes / 2**30:.3f} GiB), {vec.flops:.4e} flops, "
+          f"{vec.bytes_accessed:.4e} bytes accessed, est "
+          f"{vec.est_seconds * 1e3:.2f} ms, core demand "
+          f"{vec.core_demand:.3f}, bw demand {vec.bw_demand:.3f}", flush=True)
+    print(f"[serve] {arch} launches {launches}, expected {want}", flush=True)
     for err in res["errors"]:
         print(f"[serve] error: {err}", flush=True)
     if res["crashed"] or res["completed"] < res["batches"] \
             or res["batches"] != 8:
-        fail(f"serve: {res['completed']}/{res['batches']} completed, "
+        fail(f"serve {arch}: {res['completed']}/{res['batches']} completed, "
              f"{res['crashed']} crashed")
     if launches != want:
-        fail(f"serve: kernel launches {launches} != expected {want}")
+        fail(f"serve {arch}: kernel launches {launches} != expected {want}")
     for i, g in enumerate(res["generated"]):
         if g is None or g.shape != (4, kw["gen_len"]) or g.min() < 0 \
                 or g.max() >= cfg.vocab:
-            fail(f"serve: batch {i} generated "
+            fail(f"serve {arch}: batch {i} generated "
                  f"{None if g is None else g.shape} tokens out of range")
 
-    # nothing of the first run may stay allocated while one batch is measured
     del res
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    alone = serve("gemma2-9b", requests=4, **kw)
+    fresh_card(torch)
+    alone = serve(arch, requests=4, **kw)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     if alone["crashed"] or alone["completed"] != 1:
-        fail("serve: the single-batch run did not complete")
+        fail(f"serve {arch}: the single-batch run did not complete")
     ratio = alone["probe"].hbm_bytes / peak
-    print(f"[serve] one batch alone: probe hbm {alone['probe'].hbm_bytes} B "
-          f"vs observed max_memory_allocated {peak} B (probe/observed "
-          f"{ratio:.4f}); batch wall {alone['wall_s']:.2f} s, TTFT "
-          f"{alone['p50_ttft_s'] * 1e3:.1f} ms, TPOT "
-          f"{alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
+    print(f"[serve] {arch} one batch alone: probe hbm "
+          f"{alone['probe'].hbm_bytes} B vs observed max_memory_allocated "
+          f"{peak} B (probe/observed {ratio:.4f}); batch wall "
+          f"{alone['wall_s']:.2f} s, TTFT {alone['p50_ttft_s'] * 1e3:.1f} "
+          f"ms, TPOT {alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
+    if not wide:
+        return launches
 
     # four batches, all admitted at once (4 probed reservations fit the
     # card), each on its own pool worker and stream: they share the card
     del alone
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    wide = serve("gemma2-9b", requests=16, workers=4, **kw)
-    print(f"[serve] 4 pool workers: {wide['completed']}/{wide['batches']} "
-          f"done, {wide['crashed']} crashed, {wide['tokens_per_s']:.1f} "
-          f"tok/s; TTFT p50/p99 {wide['p50_ttft_s'] * 1e3:.1f}/"
-          f"{wide['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50/p99 "
-          f"{wide['p50_tpot_s'] * 1e3:.2f}/{wide['p99_tpot_s'] * 1e3:.2f} "
-          f"ms; peak allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-    if wide["crashed"] or wide["completed"] != wide["batches"]:
-        fail(f"serve with 4 workers: {wide['errors']}")
+    fresh_card(torch)
+    wide_res = serve(arch, requests=16, workers=4, **kw)
+    print(f"[serve] {arch} 4 pool workers: {wide_res['completed']}/"
+          f"{wide_res['batches']} done, {wide_res['crashed']} crashed, "
+          f"{wide_res['tokens_per_s']:.1f} tok/s; TTFT p50/p99 "
+          f"{wide_res['p50_ttft_s'] * 1e3:.1f}/"
+          f"{wide_res['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50/p99 "
+          f"{wide_res['p50_tpot_s'] * 1e3:.2f}/"
+          f"{wide_res['p99_tpot_s'] * 1e3:.2f} ms; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if wide_res["crashed"] or wide_res["completed"] != wide_res["batches"]:
+        fail(f"serve {arch} with 4 workers: {wide_res['errors']}")
     return launches
 
 
-def phase_decode(torch):
-    """Full gemma2-9b in bf16, batch 4 after a 1000-token prefill: the wall
-    time of an eager decode step against the device time of the same step
-    replayed from a CUDA graph."""
+def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
+    """Run ``fn()`` once under ``torch.profiler`` and print the device time
+    by kernel: the busy total against the host wall time, and the ``top``
+    kernels. The profiler's own cost inflates the wall time, not the
+    kernels' device times."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    # only events that ran on the card: the aten ops that launch kernels
+    # are credited with their kernels' time too, and CUPTI's "Command
+    # Buffer Full" marks the host waiting on a full launch queue
+    rows, full_ms = [], 0.0
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if e.key == "Command Buffer Full":
+            full_ms += ms
+        elif ms > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ms, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] {label}: device busy {busy:.2f} ms over "
+          f"{sum(r[1] for r in rows)} kernels in {wall_ms:.2f} ms of host "
+          f"wall (profiled); launch queue full for {full_ms:.2f} ms",
+          flush=True)
+    for ms, count, name in rows[:top]:
+        print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}% "
+              f"x{count:<5d} {name[:110]}", flush=True)
+
+
+def phase_decode(torch, arch: str, s: int):
+    """Full ``arch`` in bf16, batch 4 after an ``s``-token prefill: the
+    device time of the prefill and of one decode step by kernel, and the
+    wall time of an eager decode step against the device time of the same
+    step replayed from a CUDA graph."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import decode as D
     from repro_torch.models.model import init_params
-    from repro_torch.serve.decode import make_prefill_step
+    from repro_torch.serve.decode import decode_cache, make_prefill_step
     from torch.utils._pytree import tree_leaves
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = get_arch("gemma2-9b")
+    fresh_card(torch)
+    cfg = get_arch(arch)
     dev = torch.device("cuda", 0)
-    b, s, steps = 4, 1000, 8
+    b, steps = 4, 8
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          torch.bfloat16, dev)
     tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
-    logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+    prefill = make_prefill_step(cfg)
+    logits, cache = prefill(params, {"tokens": tokens})
+    del logits, cache
+    device_breakdown(torch, f"{arch} prefill, batch {b} x {s}",
+                     lambda: prefill(params, {"tokens": tokens}))
+    logits, cache = prefill(params, {"tokens": tokens})
     tok = torch.argmax(logits, -1).to(torch.int32)
-    full = D.cache_insert(D.init_cache(cfg, b, s + steps + 2, device=dev),
-                          cache, 0)
+    full = decode_cache(cfg, cache, s + steps + 2)
     del cache, logits
     logits, _ = D.decode_step(params, cfg, full, tok, s)  # warm-up
     torch.cuda.synchronize()
@@ -374,14 +496,16 @@ def phase_decode(torch):
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t) / steps * 1e3
     if not bool(torch.isfinite(logits).all()):
-        fail("decode: non-finite logits")
+        fail(f"decode {arch}: non-finite logits")
+    device_breakdown(torch, f"{arch} decode step, batch {b}",
+                     lambda: D.decode_step(params, cfg, full, tok, s + steps))
     graph_ms = time_ms(
         torch, lambda: D.decode_step(params, cfg, full, tok, s + steps + 1), 3)
     weights, cache_bytes = (sum(t.numel() * t.element_size()
                                 for t in tree_leaves(tree))
                             for tree in (params, full))
     bound = (weights + cache_bytes) / H100_HBM_BW * 1e3
-    print(f"[decode] gemma2-9b full, batch {b}, position {s}: eager step "
+    print(f"[decode] {arch} full, batch {b}, position {s}: eager step "
           f"{eager_ms:.2f} ms (host wall, mean of {steps}), CUDA-graph "
           f"replay {graph_ms:.2f} ms (device), card idle "
           f"{100 * (1 - graph_ms / eager_ms):.1f}% of an eager step; bound "
@@ -396,13 +520,19 @@ def main() -> None:
     gpu = card_line()
     phase_build(torch)
     table = phase_kernels(torch)
-    phase_reduced(torch)
-    launches = phase_serve(torch)
-    phase_decode(torch)
+    phase_reduced(torch, "gemma2-9b", 100)
+    phase_reduced(torch, "falcon-mamba-7b", 128)
+    by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
+               "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
+                                              1024, False)}
+    phase_decode(torch, "gemma2-9b", 1000)
+    phase_decode(torch, "falcon-mamba-7b", 1024)
     for name, entry in table.items():
-        entry["launches"] = launches[name]
+        entry["launches_by_path"] = {arch: launches[name]
+                                     for arch, launches in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         if not entry["launches"]:
-            fail(f"{name} was never launched on the main path")
+            fail(f"{name} was never launched on a main path")
     print(gpu)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

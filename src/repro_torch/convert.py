@@ -44,9 +44,10 @@ def _map(fn, tree):
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device=None) -> Params:
-    """The port's parameters from a dense JAX ``init_params`` tree (numpy
-    leaves): embed / final_norm / lm_head as they are, ``layers`` unstacked
-    into ``cfg.n_layers`` per-layer dicts with the same keys."""
+    """The port's parameters from a dense or ssm JAX ``init_params`` tree
+    (numpy leaves): embed / final_norm / lm_head as they are, ``layers``
+    (``{norm1, norm2, attn, mlp}`` or ``{norm, mamba}``, stacked on [L])
+    unstacked into ``cfg.n_layers`` per-layer dicts with the same keys."""
     check_supported(cfg)
     out: Params = {k: to_torch(tree[k], device)
                    for k in ("embed", "final_norm", "lm_head") if k in tree}
@@ -54,3 +55,11 @@ def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                           tree["layers"])
                      for i in range(cfg.n_layers)]
     return out
+
+
+def cache_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """The port's decode cache from a JAX one (numpy leaves). Both stack
+    over layers in the same layouts (KV ``[L, B, Hkv, S, hd]``; ssm conv
+    ``[L, B, W-1, E]`` and state ``[L, B, E, N]``), so each entry crosses
+    as it is."""
+    return {k: to_torch(v, device) for k, v in tree.items()}

@@ -17,7 +17,9 @@ Differences from the reference:
   * decode runs over a cache padded to ``prompt_len + gen_len`` positions,
     as the continuous engine does (``src/repro/models/decode.py:210-233``).
     The reference hands the prompt-deep prefill cache to the decode loop,
-    whose every step then overwrites the last prompt token's KV;
+    whose every step then overwrites the last prompt token's KV. A state
+    cache (the ssm family) has no positions: decode runs on the prefill
+    cache as it is, as in the reference;
   * ``full=True`` serves the published configuration instead of
     ``.reduced()``, and ``param_dtype`` is passed through;
   * each runner synchronises its stream before it stamps a time, so TTFT
@@ -25,10 +27,15 @@ Differences from the reference:
 
 Preemption, tracing and continuous batching come in later slices.
 
+It serves the dense attention and Mamba-1 (ssm) families.
+
 Usage (on a machine with an NVIDIA card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --full --param-dtype bfloat16 --requests 32 --batch 4 \
         --prompt-len 1000 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --full --param-dtype bfloat16 --requests 32 \
+        --batch 4 --prompt-len 1024 --gen-len 32
 """
 from __future__ import annotations
 
@@ -46,9 +53,10 @@ from repro_torch.core.probe import probe_fn
 from repro_torch.core.scheduler import MGBAlg3Scheduler
 from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
-from repro_torch.models import decode as D
-from repro_torch.models.model import DENSE_FAMILIES, init_params
-from repro_torch.serve.decode import greedy_generate, make_prefill_step
+from repro_torch.models.model import FAMILIES, init_params
+from repro_torch.serve.decode import (
+    decode_cache, greedy_generate, make_prefill_step,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -136,12 +144,9 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             _sync(dev)
             marks[i][1] = time.time()
-            full_cache = D.cache_insert(
-                D.init_cache(cfg, batch, prompt_len + gen_len, device=dev),
-                cache, 0)
-            del cache
-            out, _ = greedy_generate(cfg, p, full_cache, first_tok,
-                                     prompt_len, gen_len - 1)
+            cache = decode_cache(cfg, cache, prompt_len + gen_len)
+            out, _ = greedy_generate(cfg, p, cache, first_tok, prompt_len,
+                                     gen_len - 1)
             toks = torch.cat([first_tok[:, None], out], dim=1)
             generated[i] = toks[:rows[i]].cpu().numpy()  # synchronises
             marks[i][2] = time.time()
@@ -189,10 +194,10 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
 
 
 def main():
-    dense = sorted(a for a, c in ARCHS.items()
-                   if c.family in DENSE_FAMILIES and c.moe is None)
+    served = sorted(a for a, c in ARCHS.items()
+                    if c.family in FAMILIES and c.moe is None)
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-9b", choices=dense)
+    ap.add_argument("--arch", default="gemma2-9b", choices=served)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,18 +1,21 @@
-"""One-token decode over a dense model's KV cache.
+"""One-token decode over a model's cache: a dense model's KV cache or the
+Mamba-1 family's recurrent states.
 
 Port of ``src/repro/models/decode.py:29-174, 189-233`` for the dense
-attention family: the cache is KV stacked over layers
+attention and ssm families. A dense cache is KV stacked over layers
 ``[L, B, Hkv, Smax, hd]`` in bf16, or int8 codes with per-(position, head)
-scales (``cfg.kv_cache_dtype == "int8"``). ``decode_step`` takes one scalar
-position for the whole batch. Ring caches (pure sliding-window archs), SSM
-and hybrid states, and per-row positions come in later slices.
+scales (``cfg.kv_cache_dtype == "int8"``); an ssm cache is the conv state
+``[L, B, W-1, E]`` in the cache dtype and the SSM state ``[L, B, E, N]`` in
+f32, O(1) in the context. ``decode_step`` takes one scalar position for the
+whole batch. Ring caches (pure sliding-window archs), hybrid states and
+per-row positions come in later slices.
 
 The port updates caches IN PLACE (``decode_step``, ``cache_insert``) where
 the reference returns updated copies, so one cache stays resident per task.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,8 +23,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
     Params, attn_decode_block, check_supported, kv_shape, logits_from_hidden,
-    scale_embedding, _layer_window,
+    scale_embedding, ssm_state_shapes, _layer_window,
 )
+from repro_torch.models.ssm import mamba1_decode_step
 
 Cache = Dict[str, torch.Tensor]
 
@@ -39,8 +43,13 @@ def _check(cfg: ArchConfig) -> None:
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
-    """Zeroed cache for ``batch`` rows of up to ``max_seq`` positions."""
+    """Zeroed cache for ``batch`` rows of up to ``max_seq`` positions (an
+    ssm cache does not depend on ``max_seq``)."""
     _check(cfg)
+    if cfg.family == "ssm":
+        conv, ssm = ssm_state_shapes(cfg, batch)
+        return {"conv": torch.zeros(conv, dtype=dtype, device=device),
+                "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
     shape = kv_shape(cfg, batch, max_seq)
     if cfg.kv_cache_dtype == "int8":
         return {
@@ -56,9 +65,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
                 tokens: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Cache]:
     """tokens: [B] int; pos: the current position (0-based), one for the
-    whole batch. Returns (logits [B, V] f32, the cache, updated in place)."""
+    whole batch (unused by the ssm family). Returns (logits [B, V] f32, the
+    cache, updated in place)."""
     _check(cfg)
     x = scale_embedding(cfg, params["embed"][tokens])  # [B, d]
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            x = x + mamba1_decode_step(
+                lp["mamba"], L.rms_norm(x, lp["norm"]),
+                {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg.ssm)
+        x = L.rms_norm(x, params["final_norm"])
+        return logits_from_hidden(cfg, params, x[:, None])[:, 0], cache
     q8 = cfg.kv_cache_dtype == "int8"
     for i, lp in enumerate(params["layers"]):
         a = attn_decode_block(
@@ -76,9 +93,10 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     return logits, cache
 
 
-# per-key (batch_axis, seq_axis) of the dense cache layouts
-CACHE_AXES: Dict[str, Tuple[int, int]] = {
+# per-key (batch_axis, seq_axis or None) of the dense and ssm cache layouts
+CACHE_AXES: Dict[str, Tuple[int, Optional[int]]] = {
     "k": (1, 3), "v": (1, 3), "k_s": (1, 3), "v_s": (1, 3),
+    "conv": (1, None), "ssm": (1, None),
 }
 
 
@@ -89,14 +107,17 @@ def cache_insert(cache: Cache, row_cache: Cache, row: int) -> Cache:
     (a prompt-length prefill cache joining a buffer sized for prompt plus
     generation): it lands at the front, and the slots after it are left as
     they are; decode masks them (``cache_len``) until it writes them. A
-    LONGER sequence axis is an error."""
+    LONGER sequence axis is an error. A state cache (ssm) has no sequence
+    axis: its rows are copied as they are."""
     for key, t in cache.items():
         bax, sax = CACHE_AXES[key]
         rt = row_cache[key]
-        if rt.shape[sax] > t.shape[sax]:
-            raise ValueError(
-                f"cache_insert: row cache {key} seq {rt.shape[sax]} "
-                f"exceeds resident buffer seq {t.shape[sax]}")
-        t.narrow(bax, row, rt.shape[bax]).narrow(sax, 0, rt.shape[sax]) \
-            .copy_(rt)
+        dst = t.narrow(bax, row, rt.shape[bax])
+        if sax is not None:
+            if rt.shape[sax] > t.shape[sax]:
+                raise ValueError(
+                    f"cache_insert: row cache {key} seq {rt.shape[sax]} "
+                    f"exceeds resident buffer seq {t.shape[sax]}")
+            dst = dst.narrow(sax, 0, rt.shape[sax])
+        dst.copy_(rt)
     return cache

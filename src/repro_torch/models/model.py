@@ -1,14 +1,16 @@
 """Decoder model of the dense attention family (dense, and the vlm/audio
-stacks that feed precomputed embeddings), in PyTorch.
+stacks that feed precomputed embeddings) and of the Mamba-1 family (ssm:
+falcon-mamba), in PyTorch.
 
-Port of ``src/repro/models/model.py`` (dense family only; MoE, SSM and the
-hybrid come in later slices and raise ``NotImplementedError`` here). Where
-the reference stacks layer weights on a leading [L] dim and ``lax.scan``s
-over them, the port keeps a list of per-layer dicts and runs a Python loop,
-so ``_layer_window`` returns a plain int per layer and gemma2's alternating
-window reaches the attention kernel as a runtime argument. Parameters keep
-the reference's layouts (``wq: [d, h, hd]``, ``wo: [h, hd, d]``), so
-``repro_torch.convert`` moves JAX weights over unchanged.
+Port of ``src/repro/models/model.py`` (dense and ssm families; MoE and the
+zamba2 hybrid come in later slices and raise ``NotImplementedError`` here).
+Where the reference stacks layer weights on a leading [L] dim and
+``lax.scan``s over them, the port keeps a list of per-layer dicts and runs a
+Python loop, so ``_layer_window`` returns a plain int per layer and gemma2's
+alternating window reaches the attention kernel as a runtime argument.
+Parameters keep the reference's layouts (``wq: [d, h, hd]``, ``wo: [h, hd,
+d]``, ``in_proj: [d, 2E]``), so ``repro_torch.convert`` moves JAX weights
+over unchanged.
 
 ``attn_impl`` picks the prefill attention: ``"flash_kernel"`` (the hand CUDA
 kernel; its plain version on CPU tensors), ``"flash_plain"`` (chunked
@@ -22,17 +24,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
-DENSE_FAMILIES = ("dense", "vlm", "audio")
+FAMILIES = ("dense", "vlm", "audio", "ssm")
 ATTN_IMPLS = ("flash_kernel", "flash_plain", "naive")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in DENSE_FAMILIES or cfg.moe is not None:
+    if cfg.family not in FAMILIES or cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense attention family so far "
-            f"(family {cfg.family!r}, moe={cfg.moe is not None})")
+            f"{cfg.name}: the port runs the dense attention and Mamba-1 "
+            f"families so far (family {cfg.family!r}, "
+            f"moe={cfg.moe is not None})")
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +75,26 @@ def _mlp_params(gen, cfg: ArchConfig, dtype, device) -> Params:
     return p
 
 
+def _mamba1_params(gen, cfg: ArchConfig, dtype, device) -> Params:
+    """``A_log`` and ``D`` stay f32 whatever the parameter dtype."""
+    d = cfg.d_model
+    e, n, w = cfg.ssm.expand * d, cfg.ssm.state_dim, cfg.ssm.conv_width
+    r = max(1, d // 16)  # dt_rank
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device)).expand(e, n).clone()
+    return {
+        "in_proj": _init(gen, (d, 2 * e), dtype, device),
+        "conv_w": _init(gen, (e, w), dtype, device, 0.2),
+        "conv_b": torch.zeros(e, dtype=dtype, device=device),
+        "x_proj": _init(gen, (e, r + 2 * n), dtype, device),
+        "dt_proj_w": _init(gen, (r, e), dtype, device),
+        "dt_proj_b": torch.full((e,), -4.0, dtype=dtype, device=device),
+        "A_log": a_log,
+        "D": torch.ones(e, dtype=torch.float32, device=device),
+        "out_proj": _init(gen, (e, d), dtype, device),
+    }
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 param_dtype: torch.dtype = torch.float32,
                 device=None) -> Params:
@@ -82,11 +106,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     zeros = dict(dtype=param_dtype, device=device)
     params: Params = {"embed": _init(generator, (v, d), param_dtype, device,
                                      1.0)}
-    params["layers"] = [
-        {"norm1": torch.zeros(d, **zeros), "norm2": torch.zeros(d, **zeros),
-         "attn": _attn_params(generator, cfg, param_dtype, device),
-         "mlp": _mlp_params(generator, cfg, param_dtype, device)}
-        for _ in range(cfg.n_layers)]
+    if cfg.family == "ssm":
+        params["layers"] = [
+            {"norm": torch.zeros(d, **zeros),
+             "mamba": _mamba1_params(generator, cfg, param_dtype, device)}
+            for _ in range(cfg.n_layers)]
+    else:
+        params["layers"] = [
+            {"norm1": torch.zeros(d, **zeros),
+             "norm2": torch.zeros(d, **zeros),
+             "attn": _attn_params(generator, cfg, param_dtype, device),
+             "mlp": _mlp_params(generator, cfg, param_dtype, device)}
+            for _ in range(cfg.n_layers)]
     params["final_norm"] = torch.zeros(d, **zeros)
     if not cfg.tie_embeddings:
         params["lm_head"] = _init(generator, (d, v), param_dtype, device)
@@ -207,35 +238,62 @@ def logits_from_hidden(cfg: ArchConfig, params: Params,
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, attn_impl: str = "flash_kernel", collect_cache: bool = False):
     """Full-sequence forward. Returns (hidden [B, S, d], aux loss 0) — plus
-    the KV cache ``{"k", "v": [L, B, Hkv, S, hd]}`` when ``collect_cache``
-    (prefill). The cache is written layer by layer into one preallocated
-    stack, so no second copy of it is ever live."""
+    the decode cache when ``collect_cache`` (prefill): the KV cache
+    ``{"k", "v": [L, B, Hkv, S, hd]}``, or for the ssm family the states
+    ``{"conv": [L, B, W-1, E], "ssm": [L, B, E, N] f32}``. The cache is
+    written layer by layer into preallocated stacks, so no second copy of
+    it is ever live."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, batch)
     bsz, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)
     cache: Optional[Dict[str, torch.Tensor]] = None
-    if collect_cache:
-        shape = kv_shape(cfg, bsz, s)
-        cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i, lp in enumerate(params["layers"]):
-        a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]), cfg,
-                               positions=positions,
-                               window=_layer_window(cfg, i),
-                               attn_impl=attn_impl, return_kv=True)
-        if cache is not None:
-            cache["k"][i].copy_(k)
-            cache["v"][i].copy_(v)
-        del k, v
-        x = x + a
-        x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"]),
-                            cfg.mlp_act)
+    if cfg.family == "ssm":
+        if collect_cache:
+            conv, ssm = ssm_state_shapes(cfg, bsz)
+            cache = {"conv": torch.empty(conv, dtype=x.dtype,
+                                         device=x.device),
+                     "ssm": torch.empty(ssm, dtype=torch.float32,
+                                        device=x.device)}
+        for i, lp in enumerate(params["layers"]):
+            y, st = SSM.mamba1_apply(lp["mamba"], L.rms_norm(x, lp["norm"]),
+                                     cfg.ssm, return_state=True)
+            if cache is not None:
+                cache["conv"][i].copy_(st["conv"])
+                cache["ssm"][i].copy_(st["ssm"])
+            del st
+            x = x + y
+    else:
+        positions = torch.arange(s, device=x.device)
+        if collect_cache:
+            shape = kv_shape(cfg, bsz, s)
+            cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                     "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+        for i, lp in enumerate(params["layers"]):
+            a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]),
+                                   cfg, positions=positions,
+                                   window=_layer_window(cfg, i),
+                                   attn_impl=attn_impl, return_kv=True)
+            if cache is not None:
+                cache["k"][i].copy_(k)
+                cache["v"][i].copy_(v)
+            del k, v
+            x = x + a
+            x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"]),
+                                cfg.mlp_act)
     x = L.rms_norm(x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if collect_cache:
         return x, aux, cache
     return x, aux
+
+
+def ssm_state_shapes(cfg: ArchConfig, batch: int
+                     ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Shapes of the stacked Mamba-1 decode states: conv [L, B, W-1, E] and
+    ssm [L, B, E, N]."""
+    e = cfg.ssm.expand * cfg.d_model
+    return ((cfg.n_layers, batch, cfg.ssm.conv_width - 1, e),
+            (cfg.n_layers, batch, e, cfg.ssm.state_dim))
 
 
 def kv_shape(cfg: ArchConfig, batch: int, seq: int) -> Tuple[int, ...]:

@@ -1,8 +1,9 @@
-"""Serving steps: prefill (prompt -> last-token logits + KV cache) and the
-greedy decode loop. These are the "GPU task" bodies of the static serving
-path.
+"""Serving steps: prefill (prompt -> last-token logits + decode cache) and
+the greedy decode loop. These are the "GPU task" bodies of the static
+serving path.
 
-Port of ``src/repro/serve/decode.py:21-105`` for the dense attention family.
+Port of ``src/repro/serve/decode.py:21-105`` for the dense attention and
+ssm families.
 ``greedy_generate`` is a Python loop over ``decode_step`` (the reference's
 ``lax.scan``). Ring-cache rotation comes with the ring caches, in a later
 slice.
@@ -22,15 +23,16 @@ from repro_torch.models.model import forward, logits_from_hidden
 def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "flash_kernel"):
     """prefill(params, batch) -> (last-token logits [B, V] f32, cache).
 
-    The cache is prompt-deep. With ``cfg.kv_cache_dtype == "int8"`` it is
+    A KV cache is prompt-deep. With ``cfg.kv_cache_dtype == "int8"`` it is
     quantized as the reference does (per-(position, head) absmax, bf16
     scales), one layer at a time so the f32 temporaries stay one layer big.
+    An ssm cache (conv and SSM states) is returned as it is.
     """
     def prefill(params, batch: Dict[str, torch.Tensor]):
         hidden, _, cache = forward(params, cfg, batch, attn_impl=attn_impl,
                                    collect_cache=True)
         logits = logits_from_hidden(cfg, params, hidden[:, -1:])[:, 0]
-        if cfg.kv_cache_dtype == "int8":
+        if cfg.kv_cache_dtype == "int8" and "k" in cache:
             q8 = {}
             for name in ("k", "v"):
                 t = cache.pop(name)
@@ -49,13 +51,29 @@ def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "flash_kernel"):
     return prefill
 
 
+def decode_cache(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
+    """The prefill ``cache`` made ready for ``max_seq`` positions of decode.
+
+    A prompt-deep KV cache is copied to the front of a zeroed one
+    ``max_seq`` deep (``models.decode.cache_insert``). An ssm cache holds
+    states with no positions to pad: it is returned as it is, in its own
+    dtypes, as the reference decodes on its prefill cache.
+    """
+    if cfg.family == "ssm":
+        return cache
+    k = cache["k"]
+    return D.cache_insert(D.init_cache(cfg, k.shape[1], max_seq,
+                                       device=k.device), cache, 0)
+
+
 def greedy_generate(cfg: ArchConfig, params, cache: D.Cache,
                     first_tokens: torch.Tensor, start_pos: int,
                     num_steps: int) -> Tuple[torch.Tensor, D.Cache]:
     """Greedy generation: ``num_steps`` decode steps from ``first_tokens``
     at position ``start_pos``. Returns (tokens [B, num_steps] int32, cache).
-    The cache must hold ``start_pos + num_steps`` positions; the caller pads
-    a prompt-deep prefill cache first (``models.decode.cache_insert``).
+    A KV cache must hold ``start_pos + num_steps`` positions; the caller
+    pads a prompt-deep prefill cache first (``decode_cache``). An ssm cache
+    holds states, whatever the position.
     ``num_steps=0`` returns an empty [B, 0] block with the cache untouched.
     """
     b = first_tokens.shape[0]
