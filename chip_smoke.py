@@ -12,10 +12,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    time kernel, plain version and, as a yardstick only, the PyTorch library
    call that computes the same function where there is one: device time of
    a CUDA-graph replay, after warm-up. The selective scan has no library
-   call.
-3. reduced: the reduced gemma2-9b and falcon-mamba-7b served paths on the
-   card (hand kernels) against the same weights on the CPU (plain
-   versions): last-token logits within 2e-3 and 8 greedy tokens equal.
+   call; the grouped matmul's is ``torch._grouped_mm``.
+3. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
+   paths on the card (hand kernels) against the same weights on the CPU
+   (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
+   tokens equal. mixtral's prompt (128) is past its window (64), so the
+   ring rotates; a disagreement reports how many expert choices flipped.
 4. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
    after, every kernel's count checked exactly:
@@ -29,11 +31,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      32 generated tokens, one worker; the selective scan 64 launches per
      prefill, RMSNorm 65 per prefill and per decode step. Then one batch
      alone.
+   - mixtral-8x7b, every published width, depth cut to 24 of 32 layers
+     (32 are 93.4e9 B in bf16, more than the card), bf16: 32 requests in 8
+     batches of 4, prompt 1024 (a multiple of the reference's 512-token MoE
+     group), 32 generated tokens, one worker; flash attention 24 launches
+     per prefill, RMSNorm 49 and the grouped matmul 72 (3 a layer) per
+     prefill and per decode step. Then one batch alone.
 5. decode: for each model at batch 4, the device time of one prefill and
    of one decode step by kernel (``torch.profiler``), and one decode step
    eager (host wall time) against the same step replayed from a CUDA graph
    (device time, no host gaps): the difference is the time the card waits
-   on the host.
+   on the host. The step's bound reads its weights once (for MoE only the
+   experts the step routed to) and the cache's filled slots.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -51,6 +60,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA H100 SXM datasheet
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_HBM_BW = 3.35e12      # bytes/s
+# mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
+# 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
+MIXTRAL_LAYERS = 24
 
 
 def fail(msg: str) -> None:
@@ -71,6 +83,8 @@ def setup():
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # plain versions reduce in f32 (cuBLAS may otherwise split K in bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch
 
 
@@ -188,7 +202,11 @@ def phase_kernels(torch):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=lib_ms)
 
+    # gemma2-9b's prefill (softcap 50, window 4096 on alternate layers) and
+    # mixtral-8x7b's (D 128, Hq/Hkv = 4, window 4096 past the prompt, no
+    # softcap: SDPA computes the same function there)
     cases = [((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 50.0, 4096),
+             ((4, 32, 8, 1024, 1024, 128), torch.bfloat16, 0.0, 4096),
              ((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 50.0, 0),
              ((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 0.0, 0),
              ((1, 16, 8, 5000, 5000, 256), torch.bfloat16, 50.0, 4096)]
@@ -218,7 +236,7 @@ def phase_kernels(torch):
             plain_ms = time_ms(
                 torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3)
             lib_ms = None
-            if cap == 0.0 and win == 0:
+            if cap == 0.0 and (win == 0 or win >= sk):
                 lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True), 5)
             nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
@@ -238,7 +256,13 @@ def phase_kernels(torch):
                     replaces="src/repro/kernels/flash_attention.py:93",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound, bound_by=by, library_ms=None)
+            if (b, hq, sq, d) == (4, 32, 1024, 128):
+                mixtral_flash = dict(shape=[b, hq, hkv, sq, sk, d],
+                                     window=win, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by,
+                                     library_ms=lib_ms)
         print(line, flush=True)
+    table["flash_attention"]["mixtral_case"] = mixtral_flash
 
     # the selective scan: edge cases (S = 1, S = 7, B*E*N off the block
     # size, E*N not a multiple of 4, N = 64), then falcon-mamba-7b's prefill
@@ -278,7 +302,114 @@ def phase_kernels(torch):
                 bound_by=by, library_ms=None)
         del a, b
         print(line, flush=True)
+    phase_gmm(torch, randn, table)
     return table
+
+
+def grouped_mm_library(torch, x, w, gs):
+    """The yardstick for the grouped matmul, never used by the port: one
+    ``torch._grouped_mm`` call, or None when this build refuses the inputs.
+    Tried once eagerly, so a refusal never happens inside a graph
+    capture."""
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    try:
+        torch._grouped_mm(x, w, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, TypeError) as exc:
+        print(f"[kernels] torch._grouped_mm refused the inputs: "
+              f"{str(exc).splitlines()[0][:160]}", flush=True)
+        return None
+    return lambda: torch._grouped_mm(x, w, offs=offs)
+
+
+def phase_gmm(torch, randn, table) -> None:
+    """The grouped matmul against its plain version: mixtral-8x7b's
+    prefill (batch 4 x 1024 tokens, top-2: 8192 (token, slot) rows over 8
+    experts, sizes uneven and a few slots dropped past the groups) and
+    decode (8 rows) shapes, both bf16 and timed; f32 at a middle shape; then
+    edge cases on both bf16 tile shapes and in f32."""
+    from repro_torch.kernels import moe_gmm as MG
+    dev = torch.device("cuda", 0)
+    prefill = [1100, 950, 1280, 1005, 870, 1200, 760, 1020]  # 8185 rows
+    decode = [2, 1, 0, 1, 2, 1, 0, 1]
+    timed = [("prefill wi", 8192, 4096, 14336, prefill),
+             ("prefill wo", 8192, 14336, 4096, prefill),
+             ("decode wi", 8, 4096, 14336, decode),
+             ("decode wo", 8, 14336, 4096, decode)]
+    edges = [("mid", 1024, 512, 1024, [300, 0, 1, 129, 200, 77, 250, 60]),
+             ("ragged, empty expert, rows past", 200, 72, 136,
+              [0, 64, 1, 100]),
+             ("groups of 1", 4, 64, 64, [1, 1, 1, 1]),
+             ("all rows in one", 300, 128, 256, [0, 300, 0]),
+             ("widths off 8", 77, 50, 70, [13, 0, 33, 31]),
+             ("no rows", 0, 64, 64, [0, 0])]
+
+    def inputs(t, d, f, sizes, dtype):
+        x = randn((t, d), dtype)
+        w = randn((len(sizes), d, f), dtype, d ** -0.5)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        return x, w, gs
+
+    def check(out, x, w, gs, sizes, dtype, what):
+        err = compare(torch, out, MG.moe_gmm_plain(x, w, gs), dtype, what) \
+            if out.numel() else 0.0
+        if out.shape != (x.shape[0], w.shape[2]) or out.dtype != x.dtype \
+                or bool(out[sum(sizes):].ne(0).any()):
+            fail(f"{what}: wrong shape or dtype, or rows past the groups "
+                 f"not zero")
+        return err
+
+    for label, t, d, f, sizes in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, gs = inputs(t, d, f, sizes, dtype)
+            errs = [check(MG.moe_gmm(x, w, gs), x, w, gs, sizes, dtype,
+                          f"moe_gmm {label} {str(dtype)[6:]}")]
+            if dtype == torch.bfloat16:
+                for few in (False, True):
+                    errs.append(check(MG._launch(x, w, gs, few_rows=few), x,
+                                      w, gs, sizes, dtype,
+                                      f"moe_gmm {label} bf16 few_rows={few}"))
+            torch.cuda.synchronize()
+            print(f"[kernels] moe_gmm {label} ({t}, {d}, {f}) groups "
+                  f"{sizes} {str(dtype)[6:]}: max_abs_err {max(errs):.3e}",
+                  flush=True)
+
+    for label, t, d, f, sizes in timed:
+        x, w, gs = inputs(t, d, f, sizes, torch.bfloat16)
+        out = MG.moe_gmm(x, w, gs)
+        torch.cuda.synchronize()
+        what = f"moe_gmm {label} ({t}, {d}, {f}) bf16"
+        err = check(out, x, w, gs, sizes, torch.bfloat16, what)
+        iters = 5 if t > 8 else 20
+        ms = time_ms(torch, lambda: MG.moe_gmm(x, w, gs), iters)
+        plain_ms = time_ms(torch, lambda: MG.moe_gmm_plain(x, w, gs), 2)
+        lib = grouped_mm_library(torch, x, w, gs)
+        lib_ms = time_ms(torch, lib, iters) if lib else None
+        n, used = sum(sizes), sum(1 for z in sizes if z)
+        # x's rows in the groups read, the used experts' weights read, the
+        # whole output written; the products of the rows in the groups
+        nbytes = 2 * (n * d + used * d * f + t * f)
+        t_bytes, t_ops = nbytes / H100_HBM_BW, 2 * n * d * f \
+            / H100_BF16_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes > t_ops else "operations"
+        print(f"[kernels] {what} groups {sizes}: max_abs_err {err:.3e}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              + (f"torch._grouped_mm {lib_ms:.4f} ms, " if lib else
+                 "torch._grouped_mm refused, ")
+              + f"bound {bound:.4f} ms ({by}), "
+              f"{2 * n * d * f / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound / ms:.1f}% of the bound", flush=True)
+        entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=lib_ms, max_abs_err=err)
+        if label == "prefill wi":
+            table["moe_gmm"] = dict(
+                name="moe_gmm", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+                replaces="src/repro/kernels/moe_gmm.py:54", **entry)
+        else:
+            table["moe_gmm"][label.replace(" ", "_") + "_case"] = entry
+        del x, w, gs, out
 
 
 def to_device(tree, dev):
@@ -290,9 +421,30 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
+class RouteLog:
+    """Records every MoE layer's expert choices and kept slots (copied to
+    the host) while active. For checks outside the measured runs only: the
+    copies stall the host."""
+
+    def __init__(self):
+        from repro_torch.models import moe as MOE
+        self._moe, self._route, self.calls = MOE, MOE.route, []
+
+    def __enter__(self):
+        def route(*args, **kwargs):
+            out = self._route(*args, **kwargs)
+            self.calls.append((out[1].cpu(), out[2].cpu()))
+            return out
+        self._moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
 def phase_reduced(torch, arch: str, seq: int):
     """A reduced model: the card (hand kernels) against the CPU (plain
-    versions) on the same weights and prompts."""
+    versions) on the same weights and prompts, in f32."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models.model import init_params
     from repro_torch.serve.decode import (decode_cache, greedy_generate,
@@ -303,18 +455,29 @@ def phase_reduced(torch, arch: str, seq: int):
     tokens = torch.randint(0, cfg.vocab, (2, seq),
                            generator=torch.Generator().manual_seed(1))
     prefill = make_prefill_step(cfg)
-    results = {}
+    results, routes = {}, {}
     for dev in (torch.device("cpu"), torch.device("cuda", 0)):
         p = to_device(params, dev)
-        logits, cache = prefill(p, {"tokens": tokens.to(dev)})
-        first = torch.argmax(logits, -1).to(torch.int32)
-        toks, _ = greedy_generate(cfg, p, decode_cache(cfg, cache, seq + 8),
-                                  first, seq, 8)
+        with RouteLog() as log:
+            logits, cache = prefill(p, {"tokens": tokens.to(dev)})
+            first = torch.argmax(logits, -1).to(torch.int32)
+            toks, _ = greedy_generate(cfg, p,
+                                      decode_cache(cfg, cache, seq + 8),
+                                      first, seq, 8)
         results[dev.type] = (logits.cpu(), toks.cpu())
+        routes[dev.type] = log.calls
     err = float((results["cpu"][0] - results["cuda"][0]).abs().max())
     same = bool(torch.equal(results["cpu"][1], results["cuda"][1]))
-    print(f"[reduced] {cfg.name} prefill logits card vs CPU max abs err "
-          f"{err:.3e}; 8 greedy tokens equal: {same}", flush=True)
+    line = (f"[reduced] {cfg.name} prefill logits card vs CPU max abs err "
+            f"{err:.3e}; 8 greedy tokens equal: {same}")
+    if cfg.moe is not None:
+        pairs = list(zip(routes["cpu"], routes["cuda"]))
+        flips = sum(int(((ci != gi) | (ck != gk)).sum())
+                    for (ci, ck), (gi, gk) in pairs)
+        total = sum(ci.numel() for (ci, _), _ in pairs)
+        line += (f"; expert choices flipped card vs CPU: {flips} of {total}"
+                 f" (token, slot) pairs over {len(pairs)} MoE layer calls")
+    print(line, flush=True)
     if err > 2e-3 or not same:
         fail(f"reduced {arch} on the card disagrees with the CPU")
 
@@ -322,39 +485,60 @@ def phase_reduced(torch, arch: str, seq: int):
 def counters():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mamba_scan as SC
+    from repro_torch.kernels import moe_gmm as MG
     from repro_torch.kernels import rmsnorm as RN
     return {"rmsnorm": RN.LAUNCHES, "flash_attention": FA.LAUNCHES,
-            "mamba_scan": SC.LAUNCHES}
+            "mamba_scan": SC.LAUNCHES, "moe_gmm": MG.LAUNCHES}
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Each kernel's launches on a serve path: per prefill, one scan per
     Mamba layer or one flash attention per attention layer; per prefill and
-    per decode step, one RMSNorm per norm of a layer plus the final norm."""
+    per decode step, one RMSNorm per norm of a layer plus the final norm,
+    and for an MoE layer one grouped matmul per expert weight (wi, wg, wo)."""
     if cfg.family == "ssm":
         return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
-                "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills}
+                "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills,
+                "moe_gmm": 0}
+    per_layer = 0 if cfg.moe is None else \
+        (3 if cfg.mlp_act.endswith("gated") else 2)
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps),
-            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0}
+            "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0,
+            "moe_gmm": per_layer * cfg.n_layers * (prefills + steps)}
 
 
 def fresh_card(torch) -> None:
-    """Nothing of an earlier run may stay allocated while one is measured."""
+    """Nothing of an earlier run may stay allocated while one is measured
+    (mixtral's weights alone take 70.2e9 B of the card)."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    if torch.cuda.memory_allocated() >= 1e9:
+        fail(f"{torch.cuda.memory_allocated()} B still allocated from an "
+             f"earlier phase")
 
 
-def phase_serve(torch, arch: str, prompt_len: int, wide: bool):
-    """One main path: full ``arch`` in bf16 through ``serve()``, with every
-    kernel's launch count checked exactly; then one batch alone and, with
-    ``wide``, four batches on four pool workers."""
+def full_cfg(arch: str, n_layers=None):
+    """The published configuration, its depth cut to ``n_layers``."""
+    import dataclasses
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.serve import serve
     cfg = get_arch(arch)
+    return cfg if n_layers is None else \
+        dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
+                n_layers=None):
+    """One main path: ``arch`` at every published width (depth cut to
+    ``n_layers`` if given) in bf16 through ``serve()``, with every kernel's
+    launch count checked exactly; then one batch alone and, with ``wide``,
+    four batches on four pool workers."""
+    from repro_torch.launch.serve import serve
+    cfg = full_cfg(arch, n_layers)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
-              prompt_len=prompt_len, gen_len=32, num_devices=1)
+              prompt_len=prompt_len, gen_len=32, num_devices=1,
+              n_layers=n_layers)
     fresh_card(torch)
     for c in counters().values():
         c.reset()
@@ -363,8 +547,9 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool):
     want = expected_launches(cfg, res["batches"],
                              res["batches"] * (kw["gen_len"] - 1))
     vec = res["probe"]
-    print(f"[serve] {arch} full ({cfg.n_layers} layers, bf16, prompt "
-          f"{prompt_len}): {res['completed']}/{res['batches']} batches done, "
+    print(f"[serve] {arch} full width, {res['n_layers']} of "
+          f"{res['published_layers']} layers, bf16, prompt {prompt_len}: "
+          f"{res['completed']}/{res['batches']} batches done, "
           f"{res['crashed']} crashed, {res['tokens_generated']} tokens in "
           f"{res['wall_s']:.2f} s = {res['tokens_per_s']:.1f} tok/s; TTFT "
           f"p50/p99 {res['p50_ttft_s'] * 1e3:.1f}/"
@@ -460,18 +645,18 @@ def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
               f"x{count:<5d} {name[:110]}", flush=True)
 
 
-def phase_decode(torch, arch: str, s: int):
-    """Full ``arch`` in bf16, batch 4 after an ``s``-token prefill: the
-    device time of the prefill and of one decode step by kernel, and the
-    wall time of an eager decode step against the device time of the same
-    step replayed from a CUDA graph."""
-    from repro_torch.configs.registry import get_arch
+def phase_decode(torch, arch: str, s: int, n_layers=None):
+    """``arch`` at every published width (depth cut to ``n_layers`` if
+    given) in bf16, batch 4 after an ``s``-token prefill: the device time of
+    the prefill and of one decode step by kernel, and the wall time of an
+    eager decode step against the device time of the same step replayed
+    from a CUDA graph."""
     from repro_torch.models import decode as D
     from repro_torch.models.model import init_params
     from repro_torch.serve.decode import decode_cache, make_prefill_step
     from torch.utils._pytree import tree_leaves
     fresh_card(torch)
-    cfg = get_arch(arch)
+    cfg = full_cfg(arch, n_layers)
     dev = torch.device("cuda", 0)
     b, steps = 4, 8
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -485,7 +670,7 @@ def phase_decode(torch, arch: str, s: int):
                      lambda: prefill(params, {"tokens": tokens}))
     logits, cache = prefill(params, {"tokens": tokens})
     tok = torch.argmax(logits, -1).to(torch.int32)
-    full = decode_cache(cfg, cache, s + steps + 2)
+    full = decode_cache(cfg, cache, s + steps + 3)
     del cache, logits
     logits, _ = D.decode_step(params, cfg, full, tok, s)  # warm-up
     torch.cuda.synchronize()
@@ -501,16 +686,37 @@ def phase_decode(torch, arch: str, s: int):
                      lambda: D.decode_step(params, cfg, full, tok, s + steps))
     graph_ms = time_ms(
         torch, lambda: D.decode_step(params, cfg, full, tok, s + steps + 1), 3)
-    weights, cache_bytes = (sum(t.numel() * t.element_size()
-                                for t in tree_leaves(tree))
-                            for tree in (params, full))
-    bound = (weights + cache_bytes) / H100_HBM_BW * 1e3
-    print(f"[decode] {arch} full, batch {b}, position {s}: eager step "
-          f"{eager_ms:.2f} ms (host wall, mean of {steps}), CUDA-graph "
-          f"replay {graph_ms:.2f} ms (device), card idle "
+    pos = s + steps + 2
+    # the step's bound: every weight read once, but of the experts only
+    # those the step routed a kept slot to, and the cache's filled slots
+    experts = 0
+    if cfg.moe is not None:
+        with RouteLog() as log:
+            D.decode_step(params, cfg, full, tok, pos)
+        used = [set(i[k].tolist()) for i, k in log.calls]
+        per_expert = sum(t[0].numel() * t.element_size()
+                         for name, t in params["layers"][0]["moe"].items()
+                         if name != "router")
+        experts = per_expert * sum(map(len, used))
+        skip = {id(t) for lp in params["layers"] for name, t
+                in lp["moe"].items() if name != "router"}
+    else:
+        skip = set()
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params)
+                  if id(t) not in skip)
+    cache_bytes = sum(t.numel() * t.element_size() for t in full.values())
+    smax = full["k"].shape[3] if "k" in full else 1
+    filled = min(pos + 1, smax) / smax if "k" in full else 1.0
+    bound = (weights + experts + cache_bytes * filled) / H100_HBM_BW * 1e3
+    routed = (f", experts routed to {experts / 1e9:.2f} GB "
+              f"({sum(map(len, used)) / len(used):.2f} of "
+              f"{cfg.moe.num_experts} a layer)") if cfg.moe else ""
+    print(f"[decode] {arch} {cfg.n_layers} layers, batch {b}, position {s}: "
+          f"eager step {eager_ms:.2f} ms (host wall, mean of {steps}), "
+          f"CUDA-graph replay {graph_ms:.2f} ms (device), card idle "
           f"{100 * (1 - graph_ms / eager_ms):.1f}% of an eager step; bound "
-          f"{bound:.2f} ms (weights {weights / 1e9:.2f} GB + cache "
-          f"{cache_bytes / 1e9:.2f} GB read once)", flush=True)
+          f"{bound:.2f} ms (weights {weights / 1e9:.2f} GB{routed} + "
+          f"cache {cache_bytes * filled / 1e9:.2f} GB read once)", flush=True)
 
 
 def main() -> None:
@@ -522,11 +728,15 @@ def main() -> None:
     table = phase_kernels(torch)
     phase_reduced(torch, "gemma2-9b", 100)
     phase_reduced(torch, "falcon-mamba-7b", 128)
+    phase_reduced(torch, "mixtral-8x7b", 128)
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
                "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
-                                              1024, False)}
+                                              1024, False),
+               "mixtral-8x7b": phase_serve(torch, "mixtral-8x7b", 1024,
+                                           False, MIXTRAL_LAYERS)}
     phase_decode(torch, "gemma2-9b", 1000)
     phase_decode(torch, "falcon-mamba-7b", 1024)
+    phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

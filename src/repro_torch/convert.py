@@ -44,10 +44,11 @@ def _map(fn, tree):
 
 def params_from_jax(tree: Dict[str, Any], cfg: ArchConfig,
                     device=None) -> Params:
-    """The port's parameters from a dense or ssm JAX ``init_params`` tree
-    (numpy leaves): embed / final_norm / lm_head as they are, ``layers``
-    (``{norm1, norm2, attn, mlp}`` or ``{norm, mamba}``, stacked on [L])
-    unstacked into ``cfg.n_layers`` per-layer dicts with the same keys."""
+    """The port's parameters from a dense, moe or ssm JAX ``init_params``
+    tree (numpy leaves): embed / final_norm / lm_head as they are,
+    ``layers`` (``{norm1, norm2, attn, mlp or moe}`` or ``{norm, mamba}``,
+    stacked on [L]) unstacked into ``cfg.n_layers`` per-layer dicts with the
+    same keys."""
     check_supported(cfg)
     out: Params = {k: to_torch(tree[k], device)
                    for k in ("embed", "final_norm", "lm_head") if k in tree}

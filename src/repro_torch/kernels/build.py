@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("rmsnorm", "flash_attention", "mamba_scan")
+SOURCES = ("rmsnorm", "flash_attention", "mamba_scan", "moe_gmm")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v: the build log lists each kernel's registers, shared memory
 # and spills

@@ -22,12 +22,17 @@ Differences from the reference:
     cache as it is, as in the reference;
   * ``full=True`` serves the published configuration instead of
     ``.reduced()``, and ``param_dtype`` is passed through;
+  * ``n_layers`` cuts the depth of the configuration (every width stays
+    the published one): mixtral-8x7b's 32 layers are 93.4e9 B in bf16 and
+    exceed one 80 GB card, while 24 (70.2e9 B) leave room for the
+    activations and the ring cache. Serving all 32 needs placement across
+    cards, which the port does not have yet;
   * each runner synchronises its stream before it stamps a time, so TTFT
     and TPOT measure work, not launches.
 
 Preemption, tracing and continuous batching come in later slices.
 
-It serves the dense attention and Mamba-1 (ssm) families.
+It serves the dense attention, MoE and Mamba-1 (ssm) families.
 
 Usage (on a machine with an NVIDIA card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
@@ -36,10 +41,14 @@ Usage (on a machine with an NVIDIA card):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --full --param-dtype bfloat16 --requests 32 \
         --batch 4 --prompt-len 1024 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --full --n-layers 24 --param-dtype bfloat16 --requests 32 \
+        --batch 4 --prompt-len 1024 --gen-len 32
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -95,8 +104,15 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
           num_devices: int = 1, workers: int = 0, deadline_s: float = 5.0,
           shed_late: bool = False, full: bool = False,
           param_dtype: torch.dtype = torch.float32,
-          device: Optional[str] = None) -> dict:
+          device: Optional[str] = None,
+          n_layers: Optional[int] = None) -> dict:
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    published_layers = cfg.n_layers
+    if n_layers is not None:
+        if not 1 <= n_layers <= cfg.n_layers:
+            raise ValueError(f"n_layers={n_layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     devices, hbm = serving_devices(num_devices, device)
     # one copy of the weights per card, made from the seed on the card
     params = {}
@@ -176,7 +192,9 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     met = [h for h in handles if h.status is JobStatus.DONE
            and h.records and h.records[-1].t_end <= h.job.deadline_t]
     shed = [h for h in handles if h.status is JobStatus.SHED]
-    return {"arch": cfg.name, "requests": requests, "batches": n_batches,
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "published_layers": published_layers,
+            "requests": requests, "batches": n_batches,
             "tokens_generated": toks, "wall_s": wall,
             "tokens_per_s": toks / wall,
             "mean_batch_latency_s": float(np.mean(lat)) if lat else 0.0,
@@ -194,8 +212,7 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
 
 
 def main():
-    served = sorted(a for a, c in ARCHS.items()
-                    if c.family in FAMILIES and c.moe is None)
+    served = sorted(a for a, c in ARCHS.items() if c.family in FAMILIES)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-9b", choices=served)
     ap.add_argument("--requests", type=int, default=16)
@@ -212,6 +229,10 @@ def main():
                          "(JobStatus.SHED) instead of serving them late")
     ap.add_argument("--full", action="store_true",
                     help="serve the published configuration, not .reduced()")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth to this many layers (every width "
+                         "stays; mixtral-8x7b needs 24 to fit one 80 GB "
+                         "card)")
     ap.add_argument("--param-dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, choices=["cpu"],
                     help="run on the CPU (default: CUDA)")
@@ -221,8 +242,10 @@ def main():
                 num_devices=args.num_devices, workers=args.workers,
                 deadline_s=args.deadline_s, shed_late=args.shed_late,
                 full=args.full, param_dtype=DTYPES[args.param_dtype],
-                device=args.device)
-    print(f"[serve] {res['arch']}: {res['completed']}/{res['batches']} "
+                device=args.device, n_layers=args.n_layers)
+    print(f"[serve] {res['arch']} ({res['n_layers']} of "
+          f"{res['published_layers']} layers): {res['completed']}/"
+          f"{res['batches']} "
           f"batches done, {res['crashed']} crashed, "
           f"{res['tokens_generated']} tokens in {res['wall_s']:.1f}s "
           f"({res['tokens_per_s']:.1f} tok/s, "

@@ -1,14 +1,16 @@
-"""One-token decode over a model's cache: a dense model's KV cache or the
-Mamba-1 family's recurrent states.
+"""One-token decode over a model's cache: an attention model's KV cache or
+the Mamba-1 family's recurrent states.
 
-Port of ``src/repro/models/decode.py:29-174, 189-233`` for the dense
-attention and ssm families. A dense cache is KV stacked over layers
-``[L, B, Hkv, Smax, hd]`` in bf16, or int8 codes with per-(position, head)
-scales (``cfg.kv_cache_dtype == "int8"``); an ssm cache is the conv state
-``[L, B, W-1, E]`` in the cache dtype and the SSM state ``[L, B, E, N]`` in
-f32, O(1) in the context. ``decode_step`` takes one scalar position for the
-whole batch. Ring caches (pure sliding-window archs), hybrid states and
-per-row positions come in later slices.
+Port of ``src/repro/models/decode.py:29-174, 189-233`` for the dense, moe
+and ssm families. A KV cache is stacked over layers ``[L, B, Hkv, Smax,
+hd]`` in bf16, or int8 codes with per-(position, head) scales
+(``cfg.kv_cache_dtype == "int8"``). Pure sliding-window archs (mixtral) keep
+a ring of ``min(max_seq, window)`` slots: position p lives at slot
+``p % Smax`` and the overwrite enforces the window, so the cache costs
+O(window) whatever the context. An ssm cache is the conv state ``[L, B, W-1,
+E]`` in the cache dtype and the SSM state ``[L, B, E, N]`` in f32, O(1) in
+the context. ``decode_step`` takes one scalar position for the whole batch.
+Hybrid states and per-row positions come in later slices.
 
 The port updates caches IN PLACE (``decode_step``, ``cache_insert``) where
 the reference returns updated copies, so one cache stays resident per task.
@@ -25,6 +27,7 @@ from repro_torch.models.model import (
     Params, attn_decode_block, check_supported, kv_shape, logits_from_hidden,
     scale_embedding, ssm_state_shapes, _layer_window,
 )
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import mamba1_decode_step
 
 Cache = Dict[str, torch.Tensor]
@@ -34,23 +37,21 @@ def uses_ring(cfg: ArchConfig) -> bool:
     return cfg.sliding_window > 0 and not cfg.local_global_alternate
 
 
-def _check(cfg: ArchConfig) -> None:
-    check_supported(cfg)
-    if uses_ring(cfg):
-        raise NotImplementedError(f"{cfg.name}: ring KV caches come in a "
-                                  f"later slice of the port")
+def cache_seq_len(cfg: ArchConfig, max_seq: int) -> int:
+    return min(max_seq, cfg.sliding_window) if uses_ring(cfg) else max_seq
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
-    """Zeroed cache for ``batch`` rows of up to ``max_seq`` positions (an
-    ssm cache does not depend on ``max_seq``)."""
-    _check(cfg)
+    """Zeroed cache for ``batch`` rows of up to ``max_seq`` positions (a
+    ring holds ``cache_seq_len`` slots; an ssm cache does not depend on
+    ``max_seq``)."""
+    check_supported(cfg)
     if cfg.family == "ssm":
         conv, ssm = ssm_state_shapes(cfg, batch)
         return {"conv": torch.zeros(conv, dtype=dtype, device=device),
                 "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
-    shape = kv_shape(cfg, batch, max_seq)
+    shape = kv_shape(cfg, batch, cache_seq_len(cfg, max_seq))
     if cfg.kv_cache_dtype == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -67,7 +68,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     """tokens: [B] int; pos: the current position (0-based), one for the
     whole batch (unused by the ssm family). Returns (logits [B, V] f32, the
     cache, updated in place)."""
-    _check(cfg)
+    check_supported(cfg)
     x = scale_embedding(cfg, params["embed"][tokens])  # [B, d]
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
@@ -77,16 +78,20 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         x = L.rms_norm(x, params["final_norm"])
         return logits_from_hidden(cfg, params, x[:, None])[:, 0], cache
     q8 = cfg.kv_cache_dtype == "int8"
+    ring = uses_ring(cfg)
     for i, lp in enumerate(params["layers"]):
         a = attn_decode_block(
             lp["attn"], L.rms_norm(x, lp["norm1"])[:, None], cfg, pos=pos,
             kcache=cache["k"][i], vcache=cache["v"][i],
             kscale=cache["k_s"][i] if q8 else None,
             vscale=cache["v_s"][i] if q8 else None,
-            window=_layer_window(cfg, i))
+            window=_layer_window(cfg, i), ring=ring)
         x = x + a[:, 0]
-        m = L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"])[:, None],
-                        cfg.mlp_act)
+        hn = L.rms_norm(x, lp["norm2"])[:, None]
+        if cfg.moe is not None:
+            m, _ = moe_apply(lp["moe"], hn, cfg.moe, cfg.mlp_act)
+        else:
+            m = L.mlp_apply(lp["mlp"], hn, cfg.mlp_act)
         x = x + m[:, 0]
     x = L.rms_norm(x, params["final_norm"])
     logits = logits_from_hidden(cfg, params, x[:, None])[:, 0]

@@ -1,16 +1,18 @@
-"""Decoder model of the dense attention family (dense, and the vlm/audio
-stacks that feed precomputed embeddings) and of the Mamba-1 family (ssm:
-falcon-mamba), in PyTorch.
+"""Decoder model of the attention families (dense, the vlm/audio stacks that
+feed precomputed embeddings, and moe: mixtral, dbrx) and of the Mamba-1
+family (ssm: falcon-mamba), in PyTorch.
 
-Port of ``src/repro/models/model.py`` (dense and ssm families; MoE and the
-zamba2 hybrid come in later slices and raise ``NotImplementedError`` here).
+Port of ``src/repro/models/model.py`` (dense, moe and ssm families; the
+zamba2 hybrid comes in a later slice and raises ``NotImplementedError``
+here).
 Where the reference stacks layer weights on a leading [L] dim and
 ``lax.scan``s over them, the port keeps a list of per-layer dicts and runs a
 Python loop, so ``_layer_window`` returns a plain int per layer and gemma2's
 alternating window reaches the attention kernel as a runtime argument.
 Parameters keep the reference's layouts (``wq: [d, h, hd]``, ``wo: [h, hd,
-d]``, ``in_proj: [d, 2E]``), so ``repro_torch.convert`` moves JAX weights
-over unchanged.
+d]``, ``in_proj: [d, 2E]``, experts ``router: [d, E]``, ``wi/wg: [E, d, f]``,
+``wo: [E, f, d]``), so ``repro_torch.convert`` moves JAX weights over
+unchanged.
 
 ``attn_impl`` picks the prefill attention: ``"flash_kernel"`` (the hand CUDA
 kernel; its plain version on CPU tensors), ``"flash_plain"`` (chunked
@@ -24,19 +26,19 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "vlm", "audio", "ssm")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
 ATTN_IMPLS = ("flash_kernel", "flash_plain", "naive")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.moe is not None:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense attention and Mamba-1 "
-            f"families so far (family {cfg.family!r}, "
-            f"moe={cfg.moe is not None})")
+            f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families "
+            f"so far (family {cfg.family!r})")
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +74,25 @@ def _mlp_params(gen, cfg: ArchConfig, dtype, device) -> Params:
          "wo": _init(gen, (f, d), dtype, device)}
     if cfg.mlp_act.endswith("gated"):
         p["wg"] = _init(gen, (d, f), dtype, device)
+    return p
+
+
+def _init_experts(gen: torch.Generator, shape, dtype, device):
+    """An [E, fan_in, out] expert stack made one expert at a time, so the
+    f32 draw is one expert big (0.23e9 B at mixtral's widths, not 1.9e9)."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    for e in range(shape[0]):
+        w[e] = _init(gen, shape[1:], dtype, device)
+    return w
+
+
+def _moe_params(gen, cfg: ArchConfig, dtype, device) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    p = {"router": _init(gen, (d, e), dtype, device),
+         "wi": _init_experts(gen, (e, d, f), dtype, device),
+         "wo": _init_experts(gen, (e, f, d), dtype, device)}
+    if cfg.mlp_act.endswith("gated"):
+        p["wg"] = _init_experts(gen, (e, d, f), dtype, device)
     return p
 
 
@@ -112,11 +133,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
              "mamba": _mamba1_params(generator, cfg, param_dtype, device)}
             for _ in range(cfg.n_layers)]
     else:
+        ffn, ffn_params = ("moe", _moe_params) if cfg.moe is not None \
+            else ("mlp", _mlp_params)
         params["layers"] = [
             {"norm1": torch.zeros(d, **zeros),
              "norm2": torch.zeros(d, **zeros),
              "attn": _attn_params(generator, cfg, param_dtype, device),
-             "mlp": _mlp_params(generator, cfg, param_dtype, device)}
+             ffn: ffn_params(generator, cfg, param_dtype, device)}
             for _ in range(cfg.n_layers)]
     params["final_norm"] = torch.zeros(d, **zeros)
     if not cfg.tie_embeddings:
@@ -164,21 +187,25 @@ def attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 def attn_decode_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                       pos: int, kcache: torch.Tensor, vcache: torch.Tensor,
-                      window: int, kscale: Optional[torch.Tensor] = None,
+                      window: int, ring: bool = False,
+                      kscale: Optional[torch.Tensor] = None,
                       vscale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token attention for a batch at one position ``pos``. x: [B, 1, d];
     caches: [B, Hkv, Smax, D] (int8 with per-(position, head) scales when
     ``kscale``/``vscale`` are given). The new token's K/V are written INTO the
-    caches in place at slot ``min(pos, Smax - 1)`` (the reference returns
-    updated copies; the port updates in place to keep one cache resident).
-    Returns the attention output [B, 1, d]."""
+    caches in place (the reference returns updated copies; the port updates
+    in place to keep one cache resident) at slot ``min(pos, Smax - 1)``, or
+    for a ``ring`` cache (pure sliding-window archs, Smax = the window) at
+    ``pos % Smax``, where the overwrite enforces the window and no window
+    mask is applied. Returns the attention output [B, 1, d]."""
     q, k, v = _project_qkv(p, x)  # [B, H, 1, hd]
     posv = torch.full((1, 1, 1), pos, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, posv, cfg.rope_theta)
     k = L.apply_rope(k, posv, cfg.rope_theta)
     smax = kcache.shape[2]
-    slot = min(pos, smax - 1)
+    slot = pos % smax if ring else min(pos, smax - 1)
     cache_len = min(pos + 1, smax)
+    window = 0 if ring else window
     if kscale is not None:
         k_q, k_s = L.quantize_kv(k, kscale.dtype)
         v_q, v_s = L.quantize_kv(v, vscale.dtype)
@@ -237,7 +264,8 @@ def logits_from_hidden(cfg: ArchConfig, params: Params,
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, attn_impl: str = "flash_kernel", collect_cache: bool = False):
-    """Full-sequence forward. Returns (hidden [B, S, d], aux loss 0) — plus
+    """Full-sequence forward. Returns (hidden [B, S, d], the MoE aux loss
+    summed over layers, 0 without experts) — plus
     the decode cache when ``collect_cache`` (prefill): the KV cache
     ``{"k", "v": [L, B, Hkv, S, hd]}``, or for the ssm family the states
     ``{"conv": [L, B, W-1, E], "ssm": [L, B, E, N] f32}``. The cache is
@@ -246,6 +274,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     check_supported(cfg)
     x = embed_tokens(cfg, params, batch)
     bsz, s, _ = x.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache: Optional[Dict[str, torch.Tensor]] = None
     if cfg.family == "ssm":
         if collect_cache:
@@ -278,10 +307,14 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 cache["v"][i].copy_(v)
             del k, v
             x = x + a
-            x = x + L.mlp_apply(lp["mlp"], L.rms_norm(x, lp["norm2"]),
-                                cfg.mlp_act)
+            hn = L.rms_norm(x, lp["norm2"])
+            if cfg.moe is not None:
+                m, aux_l = MOE.moe_apply(lp["moe"], hn, cfg.moe, cfg.mlp_act)
+                aux = aux + aux_l
+            else:
+                m = L.mlp_apply(lp["mlp"], hn, cfg.mlp_act)
+            x = x + m
     x = L.rms_norm(x, params["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if collect_cache:
         return x, aux, cache
     return x, aux

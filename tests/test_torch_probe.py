@@ -10,7 +10,10 @@ multiple of its chunk (32 reduced), and its associative scan holds ~8 MB of
 chunk-sized temporaries whatever S is, which would swamp the per-token
 activations the band is about at a shorter prompt. FLOPs
 are held to an analytic count of the matmuls and the visible attention pairs
-(XLA counts each ``scan`` body once, so its number is no reference).
+(XLA counts each ``scan`` body once, so its number is no reference). For an
+MoE model the count has the router's ``2·d·E`` a token and the experts'
+``2·n_mlp·d·f`` for each of the ``k·T`` (token, slot) rows: the grouped
+matmul's flop formula charges every slot, the static worst case.
 """
 import numpy as np
 import pytest
@@ -32,7 +35,7 @@ from repro_torch.models.model import _layer_window  # noqa: E402
 from repro_torch.serve import decode as TS  # noqa: E402
 
 B, S = 2, 100
-ARCHS = ["gemma2-9b", "llama3-405b"]
+ARCHS = ["gemma2-9b", "llama3-405b", "mixtral-8x7b"]
 SEQ = {"falcon-mamba-7b": 256}
 
 
@@ -50,8 +53,10 @@ def _analytic_flops(cfg, b, s):
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     h, kv = cfg.n_heads, cfg.n_kv_heads
     n_mlp = 3 if cfg.mlp_act.endswith("gated") else 2
-    per_token = 2 * (d * h * hd + 2 * d * kv * hd + h * hd * d
-                     + n_mlp * d * f)
+    ffn = n_mlp * d * f
+    if cfg.moe is not None:
+        ffn = cfg.moe.top_k * ffn + d * cfg.moe.num_experts
+    per_token = 2 * (d * h * hd + 2 * d * kv * hd + h * hd * d + ffn)
     attn = sum(4 * b * h * hd * visible_pairs(
         s, s, causal=True, window=_layer_window(cfg, i))
         for i in range(cfg.n_layers))
