@@ -11,8 +11,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    paths' shapes and at edge cases (bf16 atol = rtol = 2e-2, f32 1e-4) and
    time kernel, plain version and, as a yardstick only, the PyTorch library
    call that computes the same function where there is one: device time of
-   a CUDA-graph replay, after warm-up. The selective scan has no library
-   call; the grouped matmul's is ``torch._grouped_mm``.
+   a CUDA-graph replay, after warm-up. Flash attention has two routes, bf16
+   on the tensor cores (wgmma, TMA) and f32 on the CUDA cores, each held
+   at its own cases; its yardsticks are SDPA at mixtral's shape (no
+   softcap) and ``flex_attention`` (softcap as a score_mod, causal + window
+   as a block mask, compiled once before timing) at gemma2's. The
+   selective scan has no library call; the grouped matmul's is
+   ``torch._grouped_mm``.
 3. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
@@ -60,6 +65,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA H100 SXM datasheet
 H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_HBM_BW = 3.35e12      # bytes/s
+# the port's kernel functions, as the profiler names them
+PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
+                "mamba_scan_kernel", "gmm_bf16_kernel", "gmm_bf16_pipe_kernel",
+                "gmm_f32_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
 MIXTRAL_LAYERS = 24
@@ -144,15 +153,15 @@ def phase_build(torch):
           f"under {build.BUILD_DIR}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling entry", "C7519")):
+                print(f"[build] {name}: {line.strip()[:160]}")
 
 
 def phase_kernels(torch):
     """Every kernel against its plain version at the main paths' shapes;
     returns {kernel: entry of the JSON table} for the main-path case."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mamba_scan as SC
     from repro_torch.kernels import rmsnorm as RN
     dev = torch.device("cuda", 0)
@@ -202,67 +211,7 @@ def phase_kernels(torch):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=lib_ms)
 
-    # gemma2-9b's prefill (softcap 50, window 4096 on alternate layers) and
-    # mixtral-8x7b's (D 128, Hq/Hkv = 4, window 4096 past the prompt, no
-    # softcap: SDPA computes the same function there)
-    cases = [((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 50.0, 4096),
-             ((4, 32, 8, 1024, 1024, 128), torch.bfloat16, 0.0, 4096),
-             ((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 50.0, 0),
-             ((4, 16, 8, 1000, 1000, 256), torch.bfloat16, 0.0, 0),
-             ((1, 16, 8, 5000, 5000, 256), torch.bfloat16, 50.0, 4096)]
-    for shape in [(2, 4, 2, 128, 128, 64), (1, 8, 1, 256, 256, 32),
-                  (2, 2, 2, 128, 384, 64), (1, 4, 4, 512, 512, 128),
-                  (1, 4, 2, 100, 100, 256)]:
-        for dtype in (torch.float32, torch.bfloat16):
-            cases.append((shape, dtype, 0.0, 0))
-    cases += [((1, 2, 2, 256, 256, 64), torch.float32, 0.0, w)
-              for w in (32, 96, 128)]
-    cases += [((1, 2, 2, 128, 128, 64), torch.float32, cap, 0)
-              for cap in (20.0, 50.0)]
-    for (b, hq, hkv, sq, sk, d), dtype, cap, win in cases:
-        q = randn((b, hq, sq, d), dtype)
-        k = randn((b, hkv, sk, d), dtype)
-        v = randn((b, hkv, sk, d), dtype)
-        kw = dict(causal=True, window=win, logit_softcap=cap)
-        out = FA.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        what = f"flash {(b, hq, hkv, sq, sk, d)} {str(dtype)[6:]} " \
-               f"softcap {cap:g} window {win}"
-        err = compare(torch, out, FA.flash_attention_plain(q, k, v, **kw),
-                      dtype, what)
-        line = f"[kernels] {what}: max_abs_err {err:.3e}"
-        if sq >= 1000:
-            ms = time_ms(torch, lambda: FA.flash_attention(q, k, v, **kw), 5)
-            plain_ms = time_ms(
-                torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3)
-            lib_ms = None
-            if cap == 0.0 and (win == 0 or win >= sk):
-                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), 5)
-            nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
-            flops = 4 * b * hq * d * FA.visible_pairs(sq, sk, causal=True,
-                                                      window=win)
-            t_bytes, t_ops = nbytes / H100_HBM_BW, flops / H100_BF16_FLOPS
-            bound = max(t_bytes, t_ops) * 1e3
-            by = "bytes" if t_bytes > t_ops else "operations"
-            line += (f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                     + (f"SDPA {lib_ms:.3f} ms, " if lib_ms else "")
-                     + f"bound {bound:.4f} ms ({by}), "
-                     f"{flops / ms / 1e9:.1f} TFLOP/s")
-            if (b, sq, cap, win) == (4, 1000, 50.0, 4096):
-                table["flash_attention"] = dict(
-                    name="flash_attention", route="cuda",
-                    source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                    replaces="src/repro/kernels/flash_attention.py:93",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=None)
-            if (b, hq, sq, d) == (4, 32, 1024, 128):
-                mixtral_flash = dict(shape=[b, hq, hkv, sq, sk, d],
-                                     window=win, ms=ms, plain_ms=plain_ms,
-                                     bound_ms=bound, bound_by=by,
-                                     library_ms=lib_ms)
-        print(line, flush=True)
-    table["flash_attention"]["mixtral_case"] = mixtral_flash
+    phase_flash(torch, randn, table)
 
     # the selective scan: edge cases (S = 1, S = 7, B*E*N off the block
     # size, E*N not a multiple of 4, N = 64), then falcon-mamba-7b's prefill
@@ -304,6 +253,179 @@ def phase_kernels(torch):
         print(line, flush=True)
     phase_gmm(torch, randn, table)
     return table
+
+
+def flex_library(torch, q, k, v, cap: float, win: int):
+    """gemma2's yardstick, never used by the port: one
+    ``torch.nn.attention.flex_attention`` call with the softcap as a
+    ``score_mod`` and causal + window as a block mask, compiled once here,
+    outside any timed graph. Returns (call, its max abs error against the
+    plain version) or (None, None) when this build refuses the inputs."""
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        sq, sk = q.shape[2], k.shape[2]
+
+        def mask_mod(b, h, qi, ki):
+            keep = qi >= ki
+            return keep & (qi - ki < win) if win > 0 else keep
+
+        def score_mod(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        kw = dict(block_mask=create_block_mask(mask_mod, None, None, sq, sk,
+                                               device=q.device),
+                  enable_gqa=True)
+        if cap:
+            kw["score_mod"] = score_mod
+        fn = torch.compile(flex_attention, dynamic=False)
+        out = fn(q, k, v, **kw)
+        torch.cuda.synchronize()
+    except Exception as exc:  # a refusal is a finding: printed and recorded
+        print(f"[kernels] flex_attention refused {tuple(q.shape)}: "
+              f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}",
+              flush=True)
+        return None, None
+    from repro_torch.kernels import flash_attention as FA
+    want = FA.flash_attention_plain(q, k, v, causal=True, window=win,
+                                    logit_softcap=cap)
+    err = float((out.float() - want.float()).abs().max())
+    return (lambda: fn(q, k, v, **kw)), err
+
+
+def phase_flash(torch, randn, table) -> None:
+    """Flash attention against its plain version. bfloat16 takes the
+    tensor-core route (wgmma, TMA), float32 the CUDA-core route. Main-path
+    shapes: gemma2-9b's prefill (softcap 50, window 4096 on alternate
+    layers) and mixtral-8x7b's (D 128, Hq/Hkv = 4, window 4096 past the
+    prompt, no softcap: SDPA computes the same function there), timed with
+    flex_attention (gemma2) and SDPA (mixtral) as yardsticks. Then edge
+    cases on both routes: every head dim with Sk a multiple of 64 (random,
+    so distinct, V columns: a wrong V layout cannot pass), ragged lengths,
+    top-left causal with Sq != Sk, windows below, at and above a tile,
+    softcaps on scores scaled up, non-causal, and q, k, v as the model's
+    einsum views (a [B, S, H, D] buffer seen as [B, H, S, D])."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (shape, dtype, softcap, window, score scale, einsum views, causal)
+    timed = [((4, 16, 8, 1000, 1000, 256), bf16, 50.0, 4096, 1.0, False, True),
+             ((4, 32, 8, 1024, 1024, 128), bf16, 0.0, 4096, 1.0, False, True),
+             ((4, 16, 8, 1000, 1000, 256), bf16, 50.0, 0, 1.0, False, True),
+             ((4, 16, 8, 1000, 1000, 256), bf16, 0.0, 0, 1.0, False, True),
+             ((1, 16, 8, 5000, 5000, 256), bf16, 50.0, 4096, 1.0, False, True),
+             ((4, 16, 8, 1000, 1000, 256), f32, 50.0, 4096, 1.0, False, True)]
+    cases = []
+    for d in (32, 64, 128, 256):
+        cases += [((1, 4, 2, 256, 256, d), bf16, 0.0, 0, 1.0, False, True),
+                  ((2, 2, 1, 128, 192, d), bf16, 0.0, 0, 1.0, False, False),
+                  ((1, 4, 2, 100, 100, d), bf16, 0.0, 0, 1.0, False, True)]
+    cases += [((2, 4, 2, 1000, 1000, 128), bf16, 0.0, 0, 1.0, False, True),
+              ((1, 4, 2, 1000, 1000, 256), bf16, 0.0, 0, 1.0, False, True)]
+    for shape in [(2, 4, 2, 128, 128, 64), (1, 8, 1, 256, 256, 32),
+                  (2, 2, 2, 128, 384, 64), (1, 4, 4, 512, 512, 128),
+                  (1, 4, 2, 100, 100, 256)]:
+        for dtype in (f32, bf16):
+            cases.append((shape, dtype, 0.0, 0, 1.0, False, True))
+    for w in (32, 96, 128):
+        cases += [((1, 2, 2, 256, 256, 64), dtype, 0.0, w, 1.0, False, True)
+                  for dtype in (f32, bf16)]
+        cases += [((1, 2, 2, 300, 300, d), bf16, 0.0, w, 1.0, False, True)
+                  for d in (128, 256)]
+    for cap in (20.0, 50.0):
+        cases += [((1, 2, 2, 128, 128, 64), dtype, cap, 0, 3.0, False, True)
+                  for dtype in (f32, bf16)]
+        cases.append(((1, 4, 2, 200, 200, 256), bf16, cap, 0, 3.0, False,
+                      True))
+    cases += [((2, 8, 4, 1000, 1000, 256), bf16, 50.0, 4096, 1.0, True, True),
+              ((2, 8, 2, 1024, 1024, 128), bf16, 0.0, 4096, 1.0, True, True),
+              ((1, 4, 2, 100, 100, 64), f32, 0.0, 0, 1.0, True, True)]
+
+    def operands(b, h, s, d, dtype, scale, views):
+        if views:
+            return randn((b, s, h, d), dtype, scale).transpose(1, 2)
+        return randn((b, h, s, d), dtype, scale)
+
+    worst = {bf16: 0.0, f32: 0.0}
+    for case in timed + cases:
+        (b, hq, hkv, sq, sk, d), dtype, cap, win, scale, views, causal = case
+        q = operands(b, hq, sq, d, dtype, scale, views)
+        k = operands(b, hkv, sk, d, dtype, scale, views)
+        v = operands(b, hkv, sk, d, dtype, 1.0, views)
+        kw = dict(causal=causal, window=win, logit_softcap=cap)
+        out = FA.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        route = "tensor cores" if dtype == bf16 else "CUDA cores"
+        what = (f"flash {(b, hq, hkv, sq, sk, d)} {str(dtype)[6:]} ({route})"
+                f" softcap {cap:g} window {win}"
+                + (f" scores x{scale:g}" if scale != 1.0 else "")
+                + (" einsum views" if views else "")
+                + ("" if causal else " non-causal"))
+        err = compare(torch, out, FA.flash_attention_plain(q, k, v, **kw),
+                      dtype, what)
+        worst[dtype] = max(worst[dtype], err)
+        line = f"[kernels] {what}: max_abs_err {err:.3e}"
+        if case not in timed:
+            print(line, flush=True)
+            continue
+        iters = 20 if dtype == bf16 else 3
+        ms = time_ms(torch, lambda: FA.flash_attention(q, k, v, **kw), iters)
+        plain_ms = time_ms(
+            torch, lambda: FA.flash_attention_plain(q, k, v, **kw), 3)
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        flops = 4 * b * hq * d * FA.visible_pairs(sq, sk, causal=True,
+                                                  window=win)
+        peak = H100_BF16_FLOPS if dtype == bf16 else H100_F32_FLOPS
+        t_bytes, t_ops = nbytes / H100_HBM_BW, flops / peak
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes > t_ops else "operations"
+        lib_ms, lib = None, None
+        if dtype == bf16 and cap == 0.0 and (win == 0 or win >= sk):
+            lib = "SDPA"
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20)
+        elif dtype == bf16 and b == 4 and win == 4096:
+            lib = "flex_attention"
+            call, lib_err = flex_library(torch, q, k, v, cap, win)
+            if call is None:
+                lib = "flex_attention refused"
+            else:
+                lib_ms = time_ms(torch, call, 20)
+                line += f", flex_attention max_abs_err {lib_err:.3e}"
+        line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                 + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
+                    f"{lib}, " if lib else "")
+                 + f"bound {bound:.4f} ms ({by}), "
+                 f"{flops / ms / 1e9:.1f} TFLOP/s = "
+                 f"{100 * bound / ms:.1f}% of the bound")
+        print(line, flush=True)
+        entry = dict(shape=[b, hq, hkv, sq, sk, d], softcap=cap, window=win,
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                     library=lib)
+        if (b, sq, cap, win) == (4, 1000, 50.0, 4096) and dtype == bf16:
+            table["flash_attention"] = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:93",
+                **{k: entry[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "library")},
+                routes={"bfloat16": dict(
+                            kernel="flash_tc_kernel",
+                            design="tensor cores: wgmma, TMA into an "
+                                   "mbarrier ring, warp-specialised"),
+                        "float32": dict(kernel="flash_fwd_kernel",
+                                        design="CUDA cores")})
+        elif d == 128:
+            table["flash_attention"]["mixtral_case"] = entry
+        elif dtype == f32:
+            table["flash_attention"]["routes"]["float32"]["gemma2_case"] = \
+                entry
+    table["flash_attention"]["routes"]["bfloat16"]["max_abs_err_all_cases"] \
+        = worst[bf16]
+    table["flash_attention"]["routes"]["float32"]["max_abs_err_all_cases"] \
+        = worst[f32]
 
 
 def grouped_mm_library(torch, x, w, gs):
@@ -613,9 +735,9 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
 
 def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
     """Run ``fn()`` once under ``torch.profiler`` and print the device time
-    by kernel: the busy total against the host wall time, and the ``top``
-    kernels. The profiler's own cost inflates the wall time, not the
-    kernels' device times."""
+    by kernel: the busy total against the host wall time, the ``top``
+    kernels, and the port's own kernels below them. The profiler's own cost
+    inflates the wall time, not the kernels' device times."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -643,6 +765,11 @@ def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
     for ms, count, name in rows[:top]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}% "
               f"x{count:<5d} {name[:110]}", flush=True)
+    # the port's own kernels, wherever they rank
+    for ms, count, name in rows[top:]:
+        if any(k in name for k in PORT_KERNELS):
+            print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}% "
+                  f"x{count:<5d} {name[:110]} (port kernel)", flush=True)
 
 
 def phase_decode(torch, arch: str, s: int, n_layers=None):

@@ -3,8 +3,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C function and compiles on its own into
 ``<repo>/build/kernels/<name>-<hash>.so`` (``/build/`` is git-ignored), for
-``sm_90a``. The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing here runs at import:
+``sm_90a``. The hash covers the source, every header in ``csrc`` (``*.cuh``,
+such as the Hopper helpers in ``hopper.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is. Nothing here runs at import:
 ``load`` builds on the first call of a kernel's wrapper, and ``build_all``
 starts one ``nvcc`` per source, all at once, for a caller that wants every
 kernel ready up front (``chip_smoke.py``).
@@ -69,9 +70,13 @@ def nvcc_path() -> str:
                        "port's CUDA kernels are built from source at first use")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(ARCH_FLAGS + FLAGS).encode())
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    """The library's path: named by a hash of the source, of every header
+    beside it (a source may include any of them) and of the flags."""
+    digest = hashlib.sha1((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

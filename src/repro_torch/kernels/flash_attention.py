@@ -4,9 +4,11 @@ a sliding window, f32 accumulation, output in q's dtype.
 Port of the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention``. The CUDA kernel is
 ``csrc/flash_attention.cu`` (its header says what bounds it on the card and
-how it is laid out); ``flash_attention_plain`` is the same function in plain
-PyTorch. ``flash_attention`` takes the plain version only for CPU tensors; for
-CUDA tensors it launches the kernel or raises. Unlike the Pallas wrapper
+how it is laid out) with two routes picked by dtype: bfloat16 on the tensor
+cores (wgmma fed by TMA, helpers in ``csrc/hopper.cuh``), float32 on the CUDA
+cores. ``flash_attention_plain`` is the same function in plain PyTorch.
+``flash_attention`` takes the plain version only for CPU tensors; for CUDA
+tensors it launches the kernel or raises. Unlike the Pallas wrapper
 (``src/repro/kernels/ops.py:24-27``) the window is a runtime int, so gemma2's
 alternating per-layer window goes through the kernel, and Sq, Sk need not
 divide any block size.
@@ -67,6 +69,30 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
+def tma_strides(t: torch.Tensor) -> tuple:
+    """Element strides of dims B, H, S; a dim of size 0 or 1 takes the
+    stride it would have if dense (its own stride is never used, and TMA
+    checks it)."""
+    out, dense = [0, 0, 0], t.shape[3]
+    for i in (2, 1, 0):
+        out[i] = dense if t.shape[i] <= 1 else t.stride(i)
+        dense = out[i] * max(t.shape[i], 1)
+    return tuple(out)
+
+
+def check_tma_layout(q, k, v, strides) -> None:
+    """The bf16 route reads q, k, v with TMA: each must start on 16 bytes
+    and every stride must be a multiple of 16 bytes (8 elements). A layout
+    that breaks this raises; nothing is copied behind the caller's back."""
+    for name, t, st in zip("qkv", (q, k, v), strides):
+        if t.data_ptr() % 16 or any(x % 8 for x in st):
+            raise ValueError(
+                f"flash kernel (bf16, TMA): {name} needs a 16-byte aligned "
+                f"start and B, H, S strides that are multiples of 8 "
+                f"elements, got data_ptr % 16 = {t.data_ptr() % 16}, "
+                f"strides {st}")
+
+
 def _launch(q, k, v, causal: bool, window: int,
             logit_softcap: float) -> torch.Tensor:
     b, hq, sq, d = q.shape
@@ -83,15 +109,18 @@ def _launch(q, k, v, causal: bool, window: int,
             or not (q.device == k.device == v.device):
         raise ValueError("flash kernel needs unit stride along the head dim "
                          "and q, k, v on one device")
+    strides = [tma_strides(t) for t in (q, k, v)]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        check_tma_layout(q, k, v, strides)
     fn = build.load("flash_attention", "repro_flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, hq, hkv, sq, sk, d,
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *strides[0], *strides[1], *strides[2],
                 int(causal), int(window), float(logit_softcap),
                 _DTYPES[q.dtype], stream)
     build.check(rc, "flash_attention")

@@ -8,6 +8,9 @@ jax); the Pallas flash kernel does not (``pl.load`` is gone), so flash is
 checked against ``kernels/ref.py`` and ``layers.flash_attention_jnp``. The
 CUDA kernels run only on the card: the ``gpu`` tests skip here.
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -19,6 +22,7 @@ from repro.kernels import ops  # noqa: E402
 from repro.kernels import ref as R  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.convert import to_numpy, to_torch  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 
@@ -134,6 +138,93 @@ def test_flash_flop_formula_counts_visible_pairs():
             == int(mask.sum())
 
 
+def test_flash_tma_strides_fill_size_one_dims():
+    """A dim of size 1 passes the stride it would have if dense (TMA checks
+    every stride, and a view may give a size-1 dim any stride); other dims
+    keep their own, as the einsum views of the model's q, k, v have."""
+    base = torch.zeros(3, 10, 4, 64)                  # [B, S, H, D] buffer
+    q = base.transpose(1, 2)                          # [B, H, S, D] view
+    assert FA.tma_strides(q) == (2560, 64, 256)
+    one = torch.zeros(1, 10, 1, 64).transpose(1, 2)   # B = H = 1
+    assert FA.tma_strides(one) == (640, 640, 64)
+    assert FA.tma_strides(torch.zeros(2, 3, 1, 32)) == (96, 32, 32)
+
+
+def test_flash_tma_layout_raises_on_bad_stride():
+    """The bf16 route never copies: a sequence stride off 8 elements (16
+    bytes) raises with the offending operand named."""
+    q = torch.zeros(1, 2, 10, 68, dtype=torch.bfloat16)[..., :64]
+    k = torch.zeros(1, 2, 10, 64, dtype=torch.bfloat16)
+    FA.check_tma_layout(k, k, k, [FA.tma_strides(k)] * 3)
+    with pytest.raises(ValueError, match="q needs"):
+        FA.check_tma_layout(q, k, k, [FA.tma_strides(t) for t in (q, k, k)])
+    odd = torch.zeros(1, 2, 10, 66, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="v needs"):
+        FA.check_tma_layout(k, k, odd, [FA.tma_strides(t) for t in (k, k, odd)])
+
+
+# ---------------------------------------------------------------------------
+# building and binding the CUDA sources
+# ---------------------------------------------------------------------------
+
+def test_build_target_covers_headers(tmp_path):
+    """An edit to a header in csrc (the Hopper helpers in hopper.cuh) gives
+    every source a new library name, so the next load rebuilds it."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = {n: build._target(n, csrc) for n in build.SOURCES}
+    assert before == {n: build._target(n, csrc) for n in build.SOURCES}
+    assert before["flash_attention"] == build._target("flash_attention")
+    header = csrc / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: build._target(n, csrc) for n in build.SOURCES}
+    assert all(after[n] != before[n] for n in build.SOURCES)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build._target("rmsnorm", csrc) != after["rmsnorm"]
+
+
+_CTYPE_OF = {"pointer": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_params(source: str, symbol: str) -> list:
+    """The parameter kinds of ``extern "C" int symbol(...)`` in a source."""
+    m = re.search(r'extern\s+"C"\s+int\s+' + symbol + r'\s*\(([^)]*)\)',
+                  source)
+    assert m, f"no extern \"C\" int {symbol}(...)"
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        if "*" in words:
+            kinds.append("pointer")
+        else:
+            kinds.append(" ".join(w for w in words[:-1] if w != "const"))
+    return kinds
+
+
+def test_build_sources_are_every_cu_file():
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) \
+        == sorted(build.SOURCES)
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_ctypes_argtypes_match_c_signature(name):
+    """Each wrapper's ``_ARGTYPES`` against its C function: the same count,
+    ``c_void_p`` for every pointer and the stream, ``c_longlong`` for every
+    ``long long``, ``c_int`` and ``c_float`` for ints and floats. A mismatch
+    would otherwise show only as a crash on the card."""
+    import importlib
+    module = importlib.import_module(f"repro_torch.kernels.{name}")
+    kinds = _c_params((build.CSRC / f"{name}.cu").read_text(),
+                      f"repro_{name}")
+    assert len(kinds) == len(module._ARGTYPES)
+    for i, (kind, argtype) in enumerate(zip(kinds, module._ARGTYPES)):
+        assert kind in _CTYPE_OF, f"parameter {i}: unknown C type {kind!r}"
+        assert argtype is _CTYPE_OF[kind], \
+            f"parameter {i} is {kind} in C but {argtype} in _ARGTYPES"
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels themselves (run on the card only)
 # ---------------------------------------------------------------------------
@@ -158,3 +249,18 @@ def test_cuda_kernels_match_plain_on_card():
             FA.flash_attention(q, k, v, **kw).float(),
             FA.flash_attention_plain(q, k, v, **kw).float(),
             atol=tol, rtol=tol)
+    # the bf16 tensor-core route at D = 128 and 256: ragged lengths, GQA,
+    # windows below, at and above a K tile, softcap on scores scaled up, and
+    # q, k, v as [B, S, H, D] buffers seen as [B, H, S, D]
+    for (b, hq, hkv, s, d), window, cap in [
+            ((2, 8, 2, 1000, 128), 0, 0.0), ((1, 4, 4, 100, 128), 96, 0.0),
+            ((1, 8, 2, 300, 128), 128, 20.0), ((2, 4, 2, 1000, 256), 0, 50.0),
+            ((1, 8, 4, 300, 256), 32, 50.0), ((1, 4, 1, 200, 256), 64, 0.0)]:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .mul(3.0 if cap and i < 2 else 1.0).to(torch.bfloat16)
+                   .transpose(1, 2) for i, h in enumerate((hq, hkv, hkv)))
+        kw = dict(window=window, logit_softcap=cap)
+        torch.testing.assert_close(
+            FA.flash_attention(q, k, v, **kw).float(),
+            FA.flash_attention_plain(q, k, v, **kw).float(),
+            atol=2e-2, rtol=2e-2)
