@@ -17,7 +17,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    softcap) and ``flex_attention`` (softcap as a score_mod, causal + window
    as a block mask, compiled once before timing) at gemma2's. The
    selective scan has no library call; the grouped matmul's is
-   ``torch._grouped_mm``.
+   ``torch._grouped_mm``. The grouped matmul has three routes (bf16 wgmma
+   fed by TMA for many rows an expert, bf16 small tiles for a few, f32 on
+   the CUDA cores) and a gated variant (act(x wi) * (x wg) in one launch),
+   each route and act forced at every edge case it takes.
 3. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
@@ -40,8 +43,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (32 are 93.4e9 B in bf16, more than the card), bf16: 32 requests in 8
      batches of 4, prompt 1024 (a multiple of the reference's 512-token MoE
      group), 32 generated tokens, one worker; flash attention 24 launches
-     per prefill, RMSNorm 49 and the grouped matmul 72 (3 a layer) per
-     prefill and per decode step. Then one batch alone.
+     per prefill, RMSNorm 49 and the grouped matmul 48 (2 a layer: the
+     gated wi/wg launch, 24, and wo) per prefill and per decode step. Then
+     one batch alone.
 5. decode: for each model at batch 4, the device time of one prefill and
    of one decode step by kernel (``torch.profiler``), and one decode step
    eager (host wall time) against the same step replayed from a CUDA graph
@@ -67,7 +71,7 @@ H100_F32_FLOPS = 67e12     # f32 outside the tensor cores
 H100_HBM_BW = 3.35e12      # bytes/s
 # the port's kernel functions, as the profiler names them
 PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
-                "mamba_scan_kernel", "gmm_bf16_kernel", "gmm_bf16_pipe_kernel",
+                "mamba_scan_kernel", "gmm_tma_kernel", "gmm_small_kernel",
                 "gmm_f32_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
@@ -154,7 +158,7 @@ def phase_build(torch):
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry", "C7519")):
+                                       "Compiling entry", "C75")):
                 print(f"[build] {name}: {line.strip()[:160]}")
 
 
@@ -444,94 +448,188 @@ def grouped_mm_library(torch, x, w, gs):
     return lambda: torch._grouped_mm(x, w, offs=offs)
 
 
+GMM_ACTS = (None, "silu_gated", "gelu_gated")  # None: the plain product
+
+
 def phase_gmm(torch, randn, table) -> None:
-    """The grouped matmul against its plain version: mixtral-8x7b's
-    prefill (batch 4 x 1024 tokens, top-2: 8192 (token, slot) rows over 8
-    experts, sizes uneven and a few slots dropped past the groups) and
-    decode (8 rows) shapes, both bf16 and timed; f32 at a middle shape; then
-    edge cases on both bf16 tile shapes and in f32."""
+    """The grouped matmul, plain and gated (silu and tanh gelu), against
+    its plain versions on every route: f32 (CUDA cores), and in bf16 the
+    wgmma/TMA route and the small-tile route, each forced at every edge
+    case it takes: tiles that straddle experts (sizes off 128), groups of
+    1, every row in one expert, an empty expert, rows past the groups
+    (exactly zero), T below 64, widths that are multiples of 8 but not of
+    64, widths off 8 (small-tile and f32 only). Then mixtral-8x7b's prefill
+    (batch 4 x 1024 tokens, top-2: 8192 (token, slot) rows over 8 experts,
+    sizes uneven and a few slots dropped past the groups) and decode (8
+    rows) shapes in bf16, timed on the route the wrapper picks, each beside
+    ``torch._grouped_mm``: wi and wo plain, and the gated pair (wi, wg,
+    silu) in one launch against two plain launches of the same route +
+    silu + mul, and against two ``torch._grouped_mm`` calls + silu + mul."""
+    import torch.nn.functional as F
     from repro_torch.kernels import moe_gmm as MG
     dev = torch.device("cuda", 0)
+    bf16, f32 = torch.bfloat16, torch.float32
     prefill = [1100, 950, 1280, 1005, 870, 1200, 760, 1020]  # 8185 rows
     decode = [2, 1, 0, 1, 2, 1, 0, 1]
-    timed = [("prefill wi", 8192, 4096, 14336, prefill),
-             ("prefill wo", 8192, 14336, 4096, prefill),
-             ("decode wi", 8, 4096, 14336, decode),
-             ("decode wo", 8, 14336, 4096, decode)]
     edges = [("mid", 1024, 512, 1024, [300, 0, 1, 129, 200, 77, 250, 60]),
+             ("straddling, many tiles", 2048, 1024, 1024,
+              [300, 700, 129, 500, 400]),
              ("ragged, empty expert, rows past", 200, 72, 136,
               [0, 64, 1, 100]),
              ("groups of 1", 4, 64, 64, [1, 1, 1, 1]),
              ("all rows in one", 300, 128, 256, [0, 300, 0]),
+             ("T below 64", 40, 128, 264, [17, 0, 20]),
+             ("widths off 64", 392, 200, 328, [130, 70, 128, 60]),
              ("widths off 8", 77, 50, 70, [13, 0, 33, 31]),
              ("no rows", 0, 64, 64, [0, 0])]
 
-    def inputs(t, d, f, sizes, dtype):
+    def inputs(t, d, f, sizes, dtype, n_w=1):
         x = randn((t, d), dtype)
-        w = randn((len(sizes), d, f), dtype, d ** -0.5)
+        ws = [randn((len(sizes), d, f), dtype, d ** -0.5) for _ in range(n_w)]
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-        return x, w, gs
+        return x, ws, gs
 
-    def check(out, x, w, gs, sizes, dtype, what):
-        err = compare(torch, out, MG.moe_gmm_plain(x, w, gs), dtype, what) \
+    def plain(x, ws, gs, act):
+        if act is None:
+            return MG.moe_gmm_plain(x, ws[0], gs)
+        return MG.moe_gmm_gated_plain(x, ws[0], ws[1], gs, act)
+
+    def check(out, x, ws, gs, sizes, act, what):
+        err = compare(torch, out, plain(x, ws, gs, act), x.dtype, what) \
             if out.numel() else 0.0
-        if out.shape != (x.shape[0], w.shape[2]) or out.dtype != x.dtype \
-                or bool(out[sum(sizes):].ne(0).any()):
+        if out.shape != (x.shape[0], ws[0].shape[2]) \
+                or out.dtype != x.dtype or bool(out[sum(sizes):].ne(0).any()):
             fail(f"{what}: wrong shape or dtype, or rows past the groups "
                  f"not zero")
         return err
 
+    worst = {}
     for label, t, d, f, sizes in edges:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w, gs = inputs(t, d, f, sizes, dtype)
-            errs = [check(MG.moe_gmm(x, w, gs), x, w, gs, sizes, dtype,
-                          f"moe_gmm {label} {str(dtype)[6:]}")]
-            if dtype == torch.bfloat16:
-                for few in (False, True):
-                    errs.append(check(MG._launch(x, w, gs, few_rows=few), x,
-                                      w, gs, sizes, dtype,
-                                      f"moe_gmm {label} bf16 few_rows={few}"))
-            torch.cuda.synchronize()
-            print(f"[kernels] moe_gmm {label} ({t}, {d}, {f}) groups "
-                  f"{sizes} {str(dtype)[6:]}: max_abs_err {max(errs):.3e}",
-                  flush=True)
+        for dtype in (f32, bf16):
+            routes = ["f32"] if dtype == f32 else \
+                ["small"] + (["wgmma"] if d % 8 == 0 and f % 8 == 0 else [])
+            x, ws, gs = inputs(t, d, f, sizes, dtype, 2)
+            for act in GMM_ACTS:
+                gate = {} if act is None else dict(wg=ws[1], act=act)
+                errs = []
+                for route in routes:
+                    what = (f"moe_gmm{'' if act is None else ' ' + act} "
+                            f"{label} {str(dtype)[6:]} route {route}")
+                    out = MG._launch(x, ws[0], gs, route=route, **gate)
+                    torch.cuda.synchronize()
+                    errs.append(check(out, x, ws, gs, sizes, act, what))
+                    key = (route, act is not None)
+                    worst[key] = max(worst.get(key, 0.0), errs[-1])
+                # and through the public wrapper, on the route it picks
+                out = MG.moe_gmm(x, ws[0], gs) if act is None else \
+                    MG.moe_gmm_gated(x, ws[0], ws[1], gs, act)
+                torch.cuda.synchronize()
+                errs.append(check(out, x, ws, gs, sizes, act,
+                                  f"moe_gmm {act} {label} wrapper"))
+                route = MG.gmm_route(dtype, t, d, f, len(sizes), True) \
+                    if t else "none"
+                print(f"[kernels] moe_gmm {act or 'plain'} {label} "
+                      f"({t}, {d}, {f}) groups {sizes} {str(dtype)[6:]}: "
+                      f"routes {routes} (wrapper: {route}), max_abs_err "
+                      f"{max(errs):.3e}", flush=True)
+            del x, ws, gs
 
-    for label, t, d, f, sizes in timed:
-        x, w, gs = inputs(t, d, f, sizes, torch.bfloat16)
-        out = MG.moe_gmm(x, w, gs)
-        torch.cuda.synchronize()
-        what = f"moe_gmm {label} ({t}, {d}, {f}) bf16"
-        err = check(out, x, w, gs, sizes, torch.bfloat16, what)
-        iters = 5 if t > 8 else 20
-        ms = time_ms(torch, lambda: MG.moe_gmm(x, w, gs), iters)
-        plain_ms = time_ms(torch, lambda: MG.moe_gmm_plain(x, w, gs), 2)
-        lib = grouped_mm_library(torch, x, w, gs)
-        lib_ms = time_ms(torch, lib, iters) if lib else None
-        n, used = sum(sizes), sum(1 for z in sizes if z)
+    def bound_of(n, t, d, f, used, n_w):
         # x's rows in the groups read, the used experts' weights read, the
         # whole output written; the products of the rows in the groups
-        nbytes = 2 * (n * d + used * d * f + t * f)
-        t_bytes, t_ops = nbytes / H100_HBM_BW, 2 * n * d * f \
-            / H100_BF16_FLOPS
-        bound = max(t_bytes, t_ops) * 1e3
+        nbytes = 2 * (n * d + n_w * used * d * f + t * f)
+        t_bytes = nbytes / H100_HBM_BW
+        t_ops = 2 * n_w * n * d * f / H100_BF16_FLOPS
         by = "bytes" if t_bytes > t_ops else "operations"
+        return max(t_bytes, t_ops) * 1e3, by
+
+    timed = [("prefill wi", 8192, 4096, 14336, prefill, None),
+             ("prefill wo", 8192, 14336, 4096, prefill, None),
+             ("decode wi", 8, 4096, 14336, decode, None),
+             ("decode wo", 8, 14336, 4096, decode, None),
+             ("prefill gated", 8192, 4096, 14336, prefill, "silu_gated"),
+             ("decode gated", 8, 4096, 14336, decode, "silu_gated")]
+    for label, t, d, f, sizes, act in timed:
+        n_w = 1 if act is None else 2
+        x, ws, gs = inputs(t, d, f, sizes, bf16, n_w)
+        route = MG.gmm_route(bf16, t, d, f, len(sizes), True)
+        what = f"moe_gmm {label} ({t}, {d}, {f}) bf16 route {route}"
+        iters = 5 if t > 8 else 20
+        n, used = sum(sizes), sum(1 for z in sizes if z)
+        bound, by = bound_of(n, t, d, f, used, n_w)
+        lib = [grouped_mm_library(torch, x, w, gs) for w in ws]
+        lib_ms = time_ms(torch, lib[0], iters) if lib[0] else None
+        if act is None:
+            out = MG.moe_gmm(x, ws[0], gs)
+            torch.cuda.synchronize()
+            err = check(out, x, ws, gs, sizes, act, what)
+            ms = time_ms(torch, lambda: MG.moe_gmm(x, ws[0], gs), iters)
+            plain_ms = time_ms(torch, lambda: plain(x, ws, gs, act), 2)
+            extra, line = {}, ""
+        else:
+            out = MG.moe_gmm_gated(x, ws[0], ws[1], gs, act)
+            torch.cuda.synchronize()
+            err = check(out, x, ws, gs, sizes, act, what)
+
+            def unfused():
+                h = MG._launch(x, ws[0], gs, route=route)
+                F.silu(h, inplace=True)
+                return h.mul_(MG._launch(x, ws[1], gs, route=route))
+
+            def composed():
+                h = lib[0]()
+                F.silu(h, inplace=True)
+                return h.mul_(lib[1]())
+
+            err_unfused = check(unfused(), x, ws, gs, sizes, act,
+                                f"{what}, two launches + silu + mul")
+            ms = time_ms(torch, lambda: MG.moe_gmm_gated(
+                x, ws[0], ws[1], gs, act), iters)
+            unfused_ms = time_ms(torch, unfused, iters)
+            ms_again = time_ms(torch, lambda: MG.moe_gmm_gated(
+                x, ws[0], ws[1], gs, act), iters)
+            plain_ms = time_ms(torch, lambda: plain(x, ws, gs, act), 2)
+            lib_one_ms = lib_ms
+            lib_ms = None  # no one PyTorch call computes the gated pair
+            composed_ms = time_ms(torch, composed, iters) \
+                if all(lib) else None
+            extra = dict(ms_second=ms_again, unfused_ms=unfused_ms,
+                         unfused_max_abs_err=err_unfused,
+                         library_composed_ms=composed_ms,
+                         library_one_product_ms=lib_one_ms)
+            line = (f"; again {ms_again:.4f} ms; two launches + silu + mul "
+                    f"{unfused_ms:.4f} ms; 2 x torch._grouped_mm + silu + "
+                    f"mul " + (f"{composed_ms:.4f} ms" if composed_ms
+                               else "refused")
+                    + (f", one torch._grouped_mm {lib_one_ms:.4f} ms"
+                       if lib_one_ms else ""))
+        flops = 2 * n_w * n * d * f
         print(f"[kernels] {what} groups {sizes}: max_abs_err {err:.3e}, "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              + (f"torch._grouped_mm {lib_ms:.4f} ms, " if lib else
-                 "torch._grouped_mm refused, ")
+              + (f"torch._grouped_mm {lib_ms:.4f} ms, " if lib_ms else "")
               + f"bound {bound:.4f} ms ({by}), "
-              f"{2 * n * d * f / ms / 1e9:.1f} TFLOP/s, "
-              f"{100 * bound / ms:.1f}% of the bound", flush=True)
+              f"{flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bound / ms:.1f}% of the bound" + line, flush=True)
         entry = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                     library_ms=lib_ms, max_abs_err=err)
-        if label == "prefill wi":
-            table["moe_gmm"] = dict(
-                name="moe_gmm", route="cuda",
+                     library_ms=lib_ms, max_abs_err=err, kernel_route=route,
+                     **extra)
+        name = "moe_gmm" if act is None else "moe_gmm_gated"
+        if name not in table:
+            table[name] = dict(
+                name=name, route="cuda",
                 source="src/repro_torch/kernels/csrc/moe_gmm.cu",
-                replaces="src/repro/kernels/moe_gmm.py:54", **entry)
+                replaces="src/repro/kernels/moe_gmm.py:54", **entry,
+                routes={"bfloat16 many rows": "gmm_tma_kernel: wgmma fed by "
+                        "TMA through a 4-stage mbarrier ring, "
+                        "warp-specialised",
+                        "bfloat16 few rows": "gmm_small_kernel: wmma, two "
+                        "slices in flight through registers",
+                        "float32": "gmm_f32_kernel: CUDA cores"},
+                max_abs_err_all_cases={f"{r}{' gated' if g else ''}": v
+                                       for (r, g), v in worst.items()})
         else:
-            table["moe_gmm"][label.replace(" ", "_") + "_case"] = entry
-        del x, w, gs, out
+            table[name][label.replace(" ", "_") + "_case"] = entry
+        del x, ws, gs, out, lib
 
 
 def to_device(tree, dev):
@@ -610,23 +708,26 @@ def counters():
     from repro_torch.kernels import moe_gmm as MG
     from repro_torch.kernels import rmsnorm as RN
     return {"rmsnorm": RN.LAUNCHES, "flash_attention": FA.LAUNCHES,
-            "mamba_scan": SC.LAUNCHES, "moe_gmm": MG.LAUNCHES}
+            "mamba_scan": SC.LAUNCHES, "moe_gmm": MG.LAUNCHES,
+            "moe_gmm_gated": MG.GATED_LAUNCHES}
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
     """Each kernel's launches on a serve path: per prefill, one scan per
     Mamba layer or one flash attention per attention layer; per prefill and
     per decode step, one RMSNorm per norm of a layer plus the final norm,
-    and for an MoE layer one grouped matmul per expert weight (wi, wg, wo)."""
+    and for an MoE layer two grouped-matmul launches (``moe_gmm`` counts
+    both): the gated one (wi, wg) and wo, or wi and wo ungated."""
     if cfg.family == "ssm":
         return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
                 "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills,
-                "moe_gmm": 0}
-    per_layer = 0 if cfg.moe is None else \
-        (3 if cfg.mlp_act.endswith("gated") else 2)
+                "moe_gmm": 0, "moe_gmm_gated": 0}
+    moe_layers = 0 if cfg.moe is None else cfg.n_layers
+    gated = moe_layers if cfg.mlp_act.endswith("gated") else 0
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps),
             "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0,
-            "moe_gmm": per_layer * cfg.n_layers * (prefills + steps)}
+            "moe_gmm": 2 * moe_layers * (prefills + steps),
+            "moe_gmm_gated": gated * (prefills + steps)}
 
 
 def fresh_card(torch) -> None:

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_gated
 
 
 def capacity(cfg: MoEConfig, group_tokens: int) -> int:
@@ -73,15 +73,12 @@ def route(p: Dict[str, torch.Tensor], xg: torch.Tensor, cfg: MoEConfig):
 
 def expert_ffn(p: Dict[str, torch.Tensor], rows: torch.Tensor,
                group_sizes: torch.Tensor, act: str) -> torch.Tensor:
-    """rows [n, d] sorted by expert -> [n, d]: three grouped matmuls (two
-    for an ungated act); rows past the groups stay zero."""
+    """rows [n, d] sorted by expert -> [n, d]: two grouped-matmul launches,
+    ``act(rows @ wi) * (rows @ wg)`` in one (a gated act, rounded once) or
+    ``rows @ wi`` and torch ops (squared relu), then ``@ wo``; rows past the
+    groups stay zero."""
     if act.endswith("gated"):
-        h = moe_gmm(rows, p["wi"], group_sizes)
-        if act == "silu_gated":
-            F.silu(h, inplace=True)
-        else:
-            h = F.gelu(h, approximate="tanh")
-        h.mul_(moe_gmm(rows, p["wg"], group_sizes))
+        h = moe_gmm_gated(rows, p["wi"], p["wg"], group_sizes, act)
     elif act == "squared_relu":
         h = torch.square(F.relu(moe_gmm(rows, p["wi"], group_sizes)))
     else:

@@ -225,6 +225,18 @@ def test_ctypes_argtypes_match_c_signature(name):
             f"parameter {i} is {kind} in C but {argtype} in _ARGTYPES"
 
 
+def test_ctypes_argtypes_match_gated_gmm_signature():
+    """The same check for the grouped matmul's second entry point, the
+    gated variant (``moe_gmm._GATED_ARGTYPES``)."""
+    from repro_torch.kernels import moe_gmm as MG
+    kinds = _c_params((build.CSRC / "moe_gmm.cu").read_text(),
+                      "repro_moe_gmm_gated")
+    assert len(kinds) == len(MG._GATED_ARGTYPES)
+    for i, (kind, argtype) in enumerate(zip(kinds, MG._GATED_ARGTYPES)):
+        assert argtype is _CTYPE_OF[kind], \
+            f"parameter {i} is {kind} in C but {argtype} in _GATED_ARGTYPES"
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels themselves (run on the card only)
 # ---------------------------------------------------------------------------

@@ -123,6 +123,118 @@ def test_gmm_wrapper_takes_plain_on_cpu_with_fake_shapes_and_flops():
 
 
 # ---------------------------------------------------------------------------
+# the gated grouped matmul: act(x @ wi[e]) * (x @ wg[e]) in one launch
+# ---------------------------------------------------------------------------
+
+GATED_ACTS = ["silu_gated", "gelu_gated"]
+# (t, groups): tiles that straddle experts, empty groups, rows past the groups
+GATED_CASES = [(256, (5, 130, 1, 120)), (77, (0, 0, 77, 0)),
+               (70, (3, 0, 40, 9))]
+
+
+def _jax_gated(x, wi, wg, groups, act):
+    """The JAX package's gated expert FFN (``models/moe.py:78-81``:
+    ``jax.nn.silu`` or ``jax.nn.gelu``, tanh by default) one expert at a
+    time, on its rows; zeros past the groups."""
+    actfn = jax.nn.silu if act == "silu_gated" else jax.nn.gelu
+    out = np.zeros((x.shape[0], wi.shape[2]), np.float32)
+    off = 0
+    for e, n in enumerate(groups):
+        rows = x[off:off + n]
+        out[off:off + n] = np.asarray(actfn(rows @ wi[e]) * (rows @ wg[e]),
+                                      np.float32)
+        off += n
+    return out
+
+
+@pytest.mark.parametrize("case", GATED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", GATED_ACTS)
+def test_gmm_gated_plain_matches_jax(act, dtype, case):
+    """f32 within 1e-5; bf16 within 2e-2, the port rounding once where the
+    reference rounds the two products and the activation."""
+    t, groups = case
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((t, 64), dtype=np.float32)
+    wi, wg = (rng.standard_normal((len(groups), 64, 96), dtype=np.float32)
+              / 8 for _ in range(2))
+    jx, jwi, jwg = (jnp.asarray(a, getattr(jnp, dtype)) for a in (x, wi, wg))
+    want = _jax_gated(jx, jwi, jwg, groups, act)
+    got = MG.moe_gmm_gated_plain(
+        *(convert.to_torch(np.asarray(a)) for a in (jx, jwi, jwg)),
+        torch.tensor(groups, dtype=torch.int32), act)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    np.testing.assert_allclose(convert.to_numpy(got).astype(np.float32),
+                               want, **_tol(dtype))
+    assert (convert.to_numpy(got)[sum(groups):] == 0).all()
+
+
+def test_gmm_gated_wrapper_takes_plain_on_cpu_with_fake_shapes_and_flops():
+    """On the CPU the gated op is its plain version (no launch); its fake
+    keeps the shape and dtype, and the flop count is 4·T·D·F, the two
+    products ``moe_gmm`` would count, so the probe's total is unchanged."""
+    x, w, gs = (torch.from_numpy(a) for a in _gmm_inputs(40, (10, 30)))
+    wg = w.flip(0).contiguous()
+    before = (MG.LAUNCHES.value, MG.GATED_LAUNCHES.value)
+    with FlopCounterMode(display=False) as fc:
+        out = MG.moe_gmm_gated(x, w, wg, gs, "silu_gated")
+    assert (MG.LAUNCHES.value, MG.GATED_LAUNCHES.value) == before
+    torch.testing.assert_close(
+        out, MG.moe_gmm_gated_plain(x, w, wg, gs, "silu_gated"))
+    assert fc.get_total_flops() == 4 * 40 * 64 * 128
+    mode = FakeTensorMode()
+    fx, fw, fwg, fgs = (mode.from_tensor(t) for t in (
+        x.bfloat16(), w.bfloat16(), wg.bfloat16(), gs))
+    with mode:
+        fake = MG.moe_gmm_gated(fx, fw, fwg, fgs, "gelu_gated")
+    assert fake.shape == (40, 128) and fake.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="unknown act"):
+        MG.moe_gmm_gated(x, w, wg, gs, "relu_gated")
+
+
+@pytest.mark.parametrize("args, route", [
+    ((torch.float32, 8192, 4096, 14336, 8, True), "f32"),
+    ((torch.float32, 8, 4096, 14336, 8, True), "f32"),
+    ((torch.bfloat16, 8192, 4096, 14336, 8, True), "wgmma"),  # prefill
+    ((torch.bfloat16, 8192, 14336, 4096, 8, True), "wgmma"),
+    ((torch.bfloat16, 8, 4096, 14336, 8, True), "small"),     # decode
+    ((torch.bfloat16, 128, 64, 64, 8, True), "small"),        # 16 rows an expert
+    ((torch.bfloat16, 129, 64, 64, 8, True), "wgmma"),
+    ((torch.bfloat16, 40, 128, 264, 2, True), "wgmma"),       # T below 64
+    ((torch.bfloat16, 392, 200, 328, 4, True), "wgmma"),      # widths off 64
+    ((torch.bfloat16, 8192, 4100, 14336, 8, True), "small"),  # d off 8
+    ((torch.bfloat16, 8192, 4096, 14340, 8, True), "small"),  # f off 8
+    ((torch.bfloat16, 8192, 4096, 14336, 8, False), "small"),  # unaligned
+    ((torch.bfloat16, 8192, 0, 14336, 8, True), "small")])
+def test_gmm_route_by_shape_and_alignment(args, route):
+    assert MG.gmm_route(*args) == route
+
+
+def test_expert_ffn_makes_two_gmm_calls_a_layer(monkeypatch):
+    """A gated layer is one ``moe_gmm_gated`` (wi, wg) and one ``moe_gmm``
+    (wo); squared relu is two ``moe_gmm``: 2 launches a layer on the card."""
+    calls = []
+
+    def counted(name, fn):
+        return lambda *a, **k: calls.append(name) or fn(*a, **k)
+
+    monkeypatch.setattr(TMOE, "moe_gmm", counted("moe_gmm", TMOE.moe_gmm))
+    monkeypatch.setattr(TMOE, "moe_gmm_gated",
+                        counted("moe_gmm_gated", TMOE.moe_gmm_gated))
+    cfg, p, x, tp, tx, tcfg = _moe_layer()
+    rows = tx.reshape(-1, tx.shape[-1])
+    gs = torch.tensor([40, 30, 0, 50], dtype=torch.int32)
+    for act, want in [("silu_gated", ["moe_gmm_gated", "moe_gmm"]),
+                      ("gelu_gated", ["moe_gmm_gated", "moe_gmm"]),
+                      ("squared_relu", ["moe_gmm", "moe_gmm"])]:
+        calls.clear()
+        out = TMOE.expert_ffn(tp, rows, gs, act)
+        assert calls == want, act
+        assert out.shape == rows.shape and (out[120:] == 0).all()
+
+
+# ---------------------------------------------------------------------------
 # the MoE layer
 # ---------------------------------------------------------------------------
 
@@ -444,3 +556,42 @@ def test_cuda_gmm_matches_plain_on_card():
                                        atol=tol, rtol=tol)
     with pytest.raises(ValueError):
         MG.moe_gmm(x[:, ::2], w, gs)
+
+
+@pytest.mark.gpu
+def test_cuda_gated_gmm_and_wgmma_route_match_plain_on_card():
+    """The gated kernel (both acts) and the plain product on every route
+    the operands allow, forced, against the plain versions: straddling
+    tiles, an empty expert, rows past the groups (exactly zero), T below
+    64, widths multiples of 8 but not of 64, and widths off 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a")
+    cases = [(300, (5, 130, 1, 120), 72, 136), (40, (17, 0, 20), 128, 264),
+             (392, (130, 70, 128, 60), 200, 328), (512, (0, 512), 64, 64),
+             (77, (13, 0, 33, 31), 50, 70)]
+    for t, groups, d, f in cases:
+        rng = np.random.default_rng(t)
+        x = torch.from_numpy(rng.standard_normal((t, d), dtype=np.float32))
+        wi, wg = (torch.from_numpy(rng.standard_normal(
+            (len(groups), d, f), dtype=np.float32) / d ** 0.5)
+            for _ in range(2))
+        gs = torch.tensor(groups, dtype=torch.int32).cuda()
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            cx, cwi, cwg = (a.to("cuda", dtype) for a in (x, wi, wg))
+            routes = ["f32"] if dtype == torch.float32 else \
+                ["small"] + (["wgmma"] if d % 8 == 0 and f % 8 == 0 else [])
+            for route in routes:
+                for act in (None, *GATED_ACTS):
+                    before = MG.GATED_LAUNCHES.value
+                    if act is None:
+                        out = MG._launch(cx, cwi, gs, route=route)
+                        want = MG.moe_gmm_plain(cx, cwi, gs)
+                    else:
+                        out = MG._launch(cx, cwi, gs, wg=cwg, act=act,
+                                         route=route)
+                        want = MG.moe_gmm_gated_plain(cx, cwi, cwg, gs, act)
+                    torch.cuda.synchronize()
+                    assert MG.GATED_LAUNCHES.value == before + (act is not None)
+                    torch.testing.assert_close(out.float(), want.float(),
+                                               atol=tol, rtol=tol)
+                    assert (out[sum(groups):] == 0).all()
