@@ -26,14 +26,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
    tokens equal. mixtral's prompt (128) is past its window (64), so the
    ring rotates; a disagreement reports how many expert choices flipped.
-4. serve, one main path per model, each through probe -> MGB admission ->
+4. continuous, reduced: the same three reduced models served continuously
+   (``serve_continuous``: 6 requests, a loop of 4 rows, 9 tokens each) on
+   the card, the loop step replayed from a CUDA graph, against the CPU:
+   every request's tokens equal.
+5. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
-   after, every kernel's count checked exactly:
+   after, every kernel's count checked exactly. Each batch's decode is
+   captured once in a CUDA graph on its pool worker's stream and replayed:
+   the counters see the warm-up and the capture of each batch's step, so
+   the check takes them as two steps a batch, checks the capture and replay
+   counts, and adds replays x launches per step to the reported launches.
    - gemma2-9b, full width and depth, bf16: 32 requests in 8 batches of 4,
      prompt 1000, 32 generated tokens; flash attention 42 launches per
      prefill, RMSNorm 85 per prefill and per decode step. Then one batch
-     alone (probe against ``torch.cuda.max_memory_allocated``, unqueued
-     TTFT), and four batches with four pool workers sharing the card.
+     alone (the probe, which covers prefill, the padded cache and one
+     step, against ``torch.cuda.max_memory_allocated``: fails below 1.0),
+     and the same 32 requests with four pool workers sharing the card,
+     their tokens/s beside one worker's.
    - falcon-mamba-7b, full width and depth, bf16: 32 requests in 8 batches
      of 4, prompt 1024 (a multiple of the reference's scan chunk, 256),
      32 generated tokens, one worker; the selective scan 64 launches per
@@ -46,7 +56,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      per prefill, RMSNorm 49 and the grouped matmul 48 (2 a layer: the
      gated wi/wg launch, 24, and wo) per prefill and per decode step. Then
      one batch alone.
-5. decode: for each model at batch 4, the device time of one prefill and
+6. continuous, one main path per model at the same widths: 32 requests
+   submitted together (prompt 1000 for gemma2-9b, 1024 for the others), 32
+   tokens each, one decode loop of 8 rows whose step is replayed from a
+   CUDA graph, 2 pool workers for the prefills; launches checked as in 5
+   (one warm-up and one capture, one replay a step), every request done,
+   0 violations, the scheduler's highest reservation against
+   ``torch.cuda.max_memory_allocated`` (fails below 1.0), and after every
+   adoption of a row and every pump the bytes the card holds for the run
+   (the decode graph's pool included) against the reservation at that
+   moment plus the pool's streams' reserve (fails where they pass it).
+7. decode: for each model at batch 4, the device time of one prefill and
    of one decode step by kernel (``torch.profiler``), and one decode step
    eager (host wall time) against the same step replayed from a CUDA graph
    (device time, no host gaps): the difference is the time the card waits
@@ -643,7 +663,9 @@ def to_device(tree, dev):
 
 class RouteLog:
     """Records every MoE layer's expert choices and kept slots (copied to
-    the host) while active. For checks outside the measured runs only: the
+    the host) while active, except while a CUDA graph is being captured
+    (its replays run no Python): a graph-replayed decode logs its eager
+    warm-up step only. For checks outside the measured runs only: the
     copies stall the host."""
 
     def __init__(self):
@@ -652,8 +674,10 @@ class RouteLog:
 
     def __enter__(self):
         def route(*args, **kwargs):
+            import torch
             out = self._route(*args, **kwargs)
-            self.calls.append((out[1].cpu(), out[2].cpu()))
+            if not torch.cuda.is_current_stream_capturing():
+                self.calls.append((out[1].cpu(), out[2].cpu()))
             return out
         self._moe.route = route
         return self
@@ -707,9 +731,15 @@ def counters():
     from repro_torch.kernels import mamba_scan as SC
     from repro_torch.kernels import moe_gmm as MG
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.serve import decode as SD
     return {"rmsnorm": RN.LAUNCHES, "flash_attention": FA.LAUNCHES,
             "mamba_scan": SC.LAUNCHES, "moe_gmm": MG.LAUNCHES,
-            "moe_gmm_gated": MG.GATED_LAUNCHES}
+            "moe_gmm_gated": MG.GATED_LAUNCHES,
+            "graph_captures": SD.CAPTURES, "graph_replays": SD.REPLAYS}
+
+
+def read_counts() -> dict:
+    return {name: c.value for name, c in counters().items()}
 
 
 def expected_launches(cfg, prefills: int, steps: int) -> dict:
@@ -730,16 +760,44 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
             "moe_gmm_gated": gated * (prefills + steps)}
 
 
-def fresh_card(torch) -> None:
+def check_launches(what: str, cfg, counts: dict, prefills: int,
+                   steps: int, captures: int, replays: int) -> dict:
+    """A path's launches, replays included. A decode step replayed from a
+    CUDA graph runs its kernels without their wrappers, so the counters see
+    the warm-up and the capture of each graph (both counted as a step here)
+    and no replay: they must equal the formula for ``prefills`` prefills
+    and ``steps - replays + captures`` steps exactly, the capture and replay
+    counts must be the ones given, and the launches that ran are the counted
+    ones plus replays x the launches of one step taken at capture (the
+    formula's). Returns the launches by kernel, replays included."""
+    got = {k: counts[k] for k in expected_launches(cfg, 0, 0)}
+    want = expected_launches(cfg, prefills, steps - replays + captures)
+    print(f"[launches] {what}: counted {got}, expected {want}; graphs "
+          f"captured {counts['graph_captures']} (expected {captures}), "
+          f"replayed {counts['graph_replays']} (expected {replays})",
+          flush=True)
+    if got != want or counts["graph_captures"] != captures \
+            or counts["graph_replays"] != replays:
+        fail(f"{what}: launches, captures or replays differ from expected")
+    per_step = expected_launches(cfg, 0, 1)
+    return {k: got[k] + replays * per_step[k] for k in got}
+
+
+def fresh_card(torch) -> int:
     """Nothing of an earlier run may stay allocated while one is measured
-    (mixtral's weights alone take 70.2e9 B of the card)."""
+    (mixtral's weights alone take 70.2e9 B of the card). cuBLAS keeps a
+    workspace for every stream it ran on (32 MiB each on Hopper, allocated
+    through PyTorch's allocator), so the earlier phases' are released too.
+    Returns the bytes still allocated."""
     gc.collect()
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    if torch.cuda.memory_allocated() >= 1e9:
-        fail(f"{torch.cuda.memory_allocated()} B still allocated from an "
-             f"earlier phase")
+    left = torch.cuda.memory_allocated()
+    if left >= 1e9:
+        fail(f"{left} B still allocated from an earlier phase")
+    return left
 
 
 def full_cfg(arch: str, n_layers=None):
@@ -751,12 +809,23 @@ def full_cfg(arch: str, n_layers=None):
         dataclasses.replace(cfg, n_layers=n_layers)
 
 
+def check_tokens(what: str, generated, shape, vocab: int) -> None:
+    import numpy as np
+    for i, g in enumerate(generated):
+        g = None if g is None else np.asarray(g)
+        if g is None or g.shape != shape or g.min() < 0 or g.max() >= vocab:
+            fail(f"{what}: item {i} generated "
+                 f"{None if g is None else g.shape} tokens out of range")
+
+
 def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
                 n_layers=None):
     """One main path: ``arch`` at every published width (depth cut to
-    ``n_layers`` if given) in bf16 through ``serve()``, with every kernel's
-    launch count checked exactly; then one batch alone and, with ``wide``,
-    four batches on four pool workers."""
+    ``n_layers`` if given) in bf16 through ``serve()``, every decode loop
+    replayed from a CUDA graph, with every kernel's launch count checked
+    exactly; then one batch alone (the probe against the observed peak:
+    fails below 1.0) and, with ``wide``, the same 32 requests on four pool
+    workers sharing the card."""
     from repro_torch.launch.serve import serve
     cfg = full_cfg(arch, n_layers)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
@@ -766,12 +835,16 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     for c in counters().values():
         c.reset()
     res = serve(arch, requests=32, **kw)
-    launches = {name: c.value for name, c in counters().items()}
-    want = expected_launches(cfg, res["batches"],
-                             res["batches"] * (kw["gen_len"] - 1))
+    counts = read_counts()
+    steps = res["batches"] * (kw["gen_len"] - 1)
+    launches = check_launches(
+        f"serve {arch}", cfg, counts, res["batches"], steps,
+        captures=res["batches"],
+        replays=res["batches"] * (kw["gen_len"] - 2))
     vec = res["probe"]
     print(f"[serve] {arch} full width, {res['n_layers']} of "
-          f"{res['published_layers']} layers, bf16, prompt {prompt_len}: "
+          f"{res['published_layers']} layers, bf16, prompt {prompt_len}, "
+          f"1 pool worker: "
           f"{res['completed']}/{res['batches']} batches done, "
           f"{res['crashed']} crashed, {res['tokens_generated']} tokens in "
           f"{res['wall_s']:.2f} s = {res['tokens_per_s']:.1f} tok/s; TTFT "
@@ -780,28 +853,24 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
           f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
           f"{res['sched_attempts']} admission attempts; scheduler HBM "
           f"{res['hbm_per_device'] / 2**30:.2f} GiB/device", flush=True)
-    print(f"[serve] {arch} probe per batch: hbm {vec.hbm_bytes} B "
+    print(f"[serve] {arch} probe per batch (prefill, padded cache, one "
+          f"step): hbm {vec.hbm_bytes} B "
           f"({vec.hbm_bytes / 2**30:.3f} GiB), {vec.flops:.4e} flops, "
           f"{vec.bytes_accessed:.4e} bytes accessed, est "
           f"{vec.est_seconds * 1e3:.2f} ms, core demand "
           f"{vec.core_demand:.3f}, bw demand {vec.bw_demand:.3f}", flush=True)
-    print(f"[serve] {arch} launches {launches}, expected {want}", flush=True)
     for err in res["errors"]:
         print(f"[serve] error: {err}", flush=True)
     if res["crashed"] or res["completed"] < res["batches"] \
             or res["batches"] != 8:
         fail(f"serve {arch}: {res['completed']}/{res['batches']} completed, "
              f"{res['crashed']} crashed")
-    if launches != want:
-        fail(f"serve {arch}: kernel launches {launches} != expected {want}")
-    for i, g in enumerate(res["generated"]):
-        if g is None or g.shape != (4, kw["gen_len"]) or g.min() < 0 \
-                or g.max() >= cfg.vocab:
-            fail(f"serve {arch}: batch {i} generated "
-                 f"{None if g is None else g.shape} tokens out of range")
+    check_tokens(f"serve {arch}", res["generated"], (4, kw["gen_len"]),
+                 cfg.vocab)
+    one_worker = res["tokens_per_s"]
 
     del res
-    fresh_card(torch)
+    left = fresh_card(torch)
     alone = serve(arch, requests=4, **kw)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
@@ -810,20 +879,26 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     ratio = alone["probe"].hbm_bytes / peak
     print(f"[serve] {arch} one batch alone: probe hbm "
           f"{alone['probe'].hbm_bytes} B vs observed max_memory_allocated "
-          f"{peak} B (probe/observed {ratio:.4f}); batch wall "
-          f"{alone['wall_s']:.2f} s, TTFT {alone['p50_ttft_s'] * 1e3:.1f} "
-          f"ms, TPOT {alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
+          f"{peak} B ({left} B allocated before the run; probe/observed "
+          f"{ratio:.4f}); batch wall {alone['wall_s']:.2f} s, TTFT "
+          f"{alone['p50_ttft_s'] * 1e3:.1f} ms, TPOT "
+          f"{alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
+    if ratio < 1.0:
+        fail(f"serve {arch}: the probe ({alone['probe'].hbm_bytes} B) is "
+             f"below the observed peak ({peak} B)")
     if not wide:
         return launches
 
-    # four batches, all admitted at once (4 probed reservations fit the
-    # card), each on its own pool worker and stream: they share the card
+    # the same 32 requests on four pool workers, each on its own stream:
+    # 4 probed reservations fit the card, so 4 batches share it at once
     del alone
     fresh_card(torch)
-    wide_res = serve(arch, requests=16, workers=4, **kw)
+    wide_res = serve(arch, requests=32, workers=4, **kw)
     print(f"[serve] {arch} 4 pool workers: {wide_res['completed']}/"
           f"{wide_res['batches']} done, {wide_res['crashed']} crashed, "
-          f"{wide_res['tokens_per_s']:.1f} tok/s; TTFT p50/p99 "
+          f"{wide_res['tokens_per_s']:.1f} tok/s against "
+          f"{one_worker:.1f} with 1 worker ("
+          f"{wide_res['tokens_per_s'] / one_worker:.2f}x); TTFT p50/p99 "
           f"{wide_res['p50_ttft_s'] * 1e3:.1f}/"
           f"{wide_res['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50/p99 "
           f"{wide_res['p50_tpot_s'] * 1e3:.2f}/"
@@ -831,6 +906,190 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if wide_res["crashed"] or wide_res["completed"] != wide_res["batches"]:
         fail(f"serve {arch} with 4 workers: {wide_res['errors']}")
+    check_tokens(f"serve {arch} with 4 workers", wide_res["generated"],
+                 (4, kw["gen_len"]), cfg.vocab)
+    return launches
+
+
+def phase_continuous_reduced(torch, arch: str, prompt_len: int) -> None:
+    """A reduced model served continuously on the card (hand kernels, the
+    loop step replayed from a graph) against the same weights served
+    continuously on the CPU (plain versions, eager steps), in f32: 6
+    requests through ``ServeEngine`` + ``TorchModel`` with a loop of 4
+    rows, 9 tokens each; the rule of ``phase_reduced``, every request's
+    tokens equal."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.scheduler import MGBAlg3Scheduler
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import SLO, ServeEngine, TorchModel
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, torch.device("cpu"))
+    prompts = torch.randint(0, cfg.vocab, (6, prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        cluster = Cluster(MGBAlg3Scheduler(1, hbm_per_device=64 << 30),
+                          workers=2, devices=[dev])
+        eng = ServeEngine(cluster, TorchModel(cfg, to_device(params, dev),
+                                              max_batch=4,
+                                              max_seq=prompt_len + 9),
+                          max_batch=4, slo=SLO(600.0, 600.0))
+        reqs = [eng.submit(prompt=prompts[i:i + 1], gen_len=9)
+                for i in range(6)]
+        eng.drain()
+        m = eng.metrics()
+        eng.shutdown()
+        cluster.shutdown()
+        if m["done"] != 6 or m["violations"]:
+            fail(f"continuous reduced {arch} on {dev}: {m['done']}/6 done, "
+                 f"{m['violations']} violations")
+        runs[dev.type] = [r.tokens for r in reqs]
+    same = runs["cuda"] == runs["cpu"]
+    print(f"[continuous] reduced {arch}, 6 requests, prompt {prompt_len}, "
+          f"9 tokens each: card tokens equal the CPU's: {same}", flush=True)
+    if not same:
+        fail(f"continuous reduced {arch} on the card disagrees with the "
+             f"CPU: {runs}")
+
+
+class SameMoment:
+    """Holds the card's allocation against the scheduler's reservation at
+    the same moment, while active: after every adoption of a row and every
+    ``ServeEngine.pump``, the bytes the card holds for the run must not pass
+    the device's ``used_hbm`` plus ``reserve`` (what the launcher set aside
+    from the scheduler for the execution pool's streams,
+    ``launch.serve.pool_reserve``), the reservation read just before and
+    just after them (a task admitted or released between the two reads is
+    then on the safe side of one of them). The bytes held are
+    ``torch.cuda.memory_allocated()`` less the bytes allocated before the
+    run, plus the free blocks of the decode graph's private memory pool
+    (no other task can take them; read once from a memory snapshot after
+    the capture, since replays allocate nothing). ``least`` is the
+    smallest margin seen, in bytes, ``at`` the reservation and the bytes
+    held at that moment; ``samples`` how many moments were read."""
+
+    def __init__(self, torch, before: int, reserve: int):
+        from repro_torch.serve import engine as E
+        self._torch, self._e = torch, E
+        self.before, self.reserve = before, reserve
+        self.least, self.samples, self._dev = None, 0, None
+        self.pool_free, self.at = 0, (0, 0)
+
+    def graph_pool_free(self) -> int:
+        """Reserved less allocated bytes of the segments in private pools."""
+        free = 0
+        for seg in self._torch.cuda.memory_snapshot():
+            if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0):
+                free += seg["total_size"] - seg["allocated_size"]
+        return free
+
+    def sample(self) -> None:
+        if self._dev is None:
+            return
+        r1 = self._dev.used_hbm
+        used = self._torch.cuda.memory_allocated() - self.before \
+            + self.pool_free
+        reserved = max(r1, self._dev.used_hbm)
+        margin = reserved + self.reserve - used
+        if self.least is None or margin < self.least:
+            self.least, self.at = margin, (reserved, used)
+        self.samples += 1
+
+    def __enter__(self):
+        E, mon = self._e, self
+        self._saved = (E.ServeEngine.__init__, E.ServeEngine.pump,
+                       E.TorchModel.adopt)
+        init, pump, adopt = self._saved
+
+        def init_(eng, *a, **k):
+            init(eng, *a, **k)
+            mon._dev = eng.sched.devices[0]
+            mon.pool_free = mon.graph_pool_free()
+            mon.sample()
+
+        def pump_(eng):
+            n = pump(eng)
+            mon.sample()
+            return n
+
+        def adopt_(model, *a, **k):
+            adopt(model, *a, **k)
+            mon.sample()
+
+        E.ServeEngine.__init__, E.ServeEngine.pump, E.TorchModel.adopt = \
+            init_, pump_, adopt_
+        return self
+
+    def __exit__(self, *exc):
+        E = self._e
+        E.ServeEngine.__init__, E.ServeEngine.pump, E.TorchModel.adopt = \
+            self._saved
+
+
+def phase_continuous(torch, arch: str, prompt_len: int, n_layers=None):
+    """A continuous main path: ``arch`` at every published width in bf16
+    through ``serve_continuous`` (32 requests submitted together, 32 tokens
+    each, a decode loop of 8 rows stepped from a CUDA graph, 2 pool workers
+    for the prefills), every launch checked exactly, replays included, and
+    the scheduler's highest reservation held against the observed peak
+    (fails below 1.0)."""
+    from repro_torch.launch.serve import pool_reserve, serve_continuous
+    cfg = full_cfg(arch, n_layers)
+    left = fresh_card(torch)
+    for c in counters().values():
+        c.reset()
+    reserve = pool_reserve([torch.device("cuda", 0)], 2)
+    with SameMoment(torch, left, reserve) as moment:
+        res = serve_continuous(arch, requests=32, batch=8,
+                               prompt_len=prompt_len, gen_len=32, full=True,
+                               n_layers=n_layers, param_dtype=torch.bfloat16,
+                               workers=2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    launches = check_launches(
+        f"continuous {arch}", cfg, counts, 32, 1 + res["steps"],
+        captures=1, replays=res["steps"])
+    ratio = res["peak_reserved"] / peak
+    lv, sv, pv = res["loop_vec"], res["slot_vec"], res["prefill_vec"]
+    print(f"[continuous] {arch} full width, {res['n_layers']} layers, bf16, "
+          f"prompt {prompt_len}, 32 requests, loop of 8 rows, 2 pool "
+          f"workers: {res['done']} done, {res['shed']} shed, "
+          f"{res['failed']} failed; {res['tokens']} tokens in "
+          f"{res['wall_s']:.2f} s = {res['tokens_per_s']:.1f} tok/s; TTFT "
+          f"p50/p99 {res['p50_ttft_s'] * 1e3:.1f}/"
+          f"{res['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50/p99 "
+          f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
+          f"goodput {res['goodput_rps']:.3f} req/s; violations "
+          f"{res['violations']}; loop base {lv.hbm_bytes} B, slot "
+          f"{sv.hbm_bytes} B, prefill {pv.hbm_bytes} B; highest reservation "
+          f"{res['peak_reserved']} B vs observed max_memory_allocated {peak} "
+          f"B ({left} B allocated before the run; reserved/observed "
+          f"{ratio:.4f}); reservation + pool reserve {reserve} B less "
+          f"bytes held at the same moment, least of {moment.samples}: "
+          f"{moment.least} B (reserved {moment.at[0]} B, held "
+          f"{moment.at[1]} B, the graph pool's free blocks "
+          f"{moment.pool_free} B counted held); graph capture "
+          f"{res['capture_s'] * 1e3:.1f} ms; "
+          f"{res['steps']} steps replayed, mean "
+          f"{res['step_s'] / max(res['steps'], 1) * 1e3:.2f} ms a step "
+          f"(host wall, token copy included)", flush=True)
+    for err in res["errors"]:
+        print(f"[continuous] error: {err}", flush=True)
+    if res["done"] != 32 or res["violations"]:
+        fail(f"continuous {arch}: {res['done']}/32 done, "
+             f"{res['violations']} violations")
+    check_tokens(f"continuous {arch}", res["generated"], (32,), cfg.vocab)
+    if moment.least is None or moment.least < 0:
+        fail(f"continuous {arch}: the card held {-(moment.least or 0)} B "
+             f"more than the scheduler reserved and the pool's reserve at "
+             f"one moment ({moment.samples} moments read)")
+    if ratio < 1.0:
+        fail(f"continuous {arch}: the highest reservation "
+             f"({res['peak_reserved']} B) is below the observed peak "
+             f"({peak} B)")
     return launches
 
 
@@ -873,12 +1132,13 @@ def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
                   f"x{count:<5d} {name[:110]} (port kernel)", flush=True)
 
 
-def phase_decode(torch, arch: str, s: int, n_layers=None):
+def phase_decode(torch, arch: str, s: int, n_layers=None, streams: int = 0):
     """``arch`` at every published width (depth cut to ``n_layers`` if
     given) in bf16, batch 4 after an ``s``-token prefill: the device time of
     the prefill and of one decode step by kernel, and the wall time of an
     eager decode step against the device time of the same step replayed
-    from a CUDA graph."""
+    from a CUDA graph; with ``streams``, that many such loops sharing the
+    card (``concurrent_steps``)."""
     from repro_torch.models import decode as D
     from repro_torch.models.model import init_params
     from repro_torch.serve.decode import decode_cache, make_prefill_step
@@ -945,6 +1205,63 @@ def phase_decode(torch, arch: str, s: int, n_layers=None):
           f"{100 * (1 - graph_ms / eager_ms):.1f}% of an eager step; bound "
           f"{bound:.2f} ms (weights {weights / 1e9:.2f} GB{routed} + "
           f"cache {cache_bytes * filled / 1e9:.2f} GB read once)", flush=True)
+    if streams:
+        concurrent_steps(torch, params, cfg, cache_of=lambda: decode_cache(
+            cfg, prefill(params, {"tokens": tokens})[1], s + 40),
+            first=tok, pos=s, n=streams)
+
+
+def concurrent_steps(torch, params, cfg, cache_of, first, pos: int,
+                     n: int, rounds: int = 5) -> None:
+    """What the card alone does with ``n`` decode loops sharing it, as the
+    static path's pool workers do: ``n`` graph-captured steps, each with
+    its own cache and buffers (``serve.decode.StepGraph``), replayed
+    ``rounds`` times all on one stream, then each on its own stream at
+    once. Device time per round, from CUDA events; no Python runs between
+    the replays of a round, so the difference is the card's."""
+    from repro_torch.models import decode as D
+    from repro_torch.serve.decode import StepGraph
+    graphs = []
+    for _ in range(n):
+        cache = cache_of()
+        tokens = first.clone()
+        p = torch.full((), pos, dtype=torch.int32, device=first.device)
+
+        def step(cache=cache, tokens=tokens, p=p):
+            logits, _ = D.decode_step(params, cfg, cache, tokens, p)
+            tokens.copy_(torch.argmax(logits, dim=-1))
+            p.add_(1)
+
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        graphs.append((StepGraph(step, stream), cache, tokens, p))
+    torch.cuda.synchronize()
+    home = torch.cuda.current_stream()
+
+    def timed(spread: bool) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for g, *_ in graphs:
+            g.stream.wait_stream(home)
+        for _ in range(rounds):
+            for g, *_ in graphs:
+                with torch.cuda.stream(g.stream if spread else home):
+                    g.graph.replay()
+        for g, *_ in graphs:
+            home.wait_stream(g.stream)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / rounds
+
+    one = timed(False)
+    many = timed(True)
+    print(f"[decode] {cfg.name} {n} decode loops sharing the card (graph "
+          f"replays, batch {first.shape[0]} each): {one:.2f} ms a round on "
+          f"one stream, {many:.2f} ms on {n} streams at once "
+          f"({one / many:.2f}x)", flush=True)
+    del graphs
+    torch.cuda.synchronize()
 
 
 def main() -> None:
@@ -957,12 +1274,21 @@ def main() -> None:
     phase_reduced(torch, "gemma2-9b", 100)
     phase_reduced(torch, "falcon-mamba-7b", 128)
     phase_reduced(torch, "mixtral-8x7b", 128)
+    phase_continuous_reduced(torch, "gemma2-9b", 100)
+    phase_continuous_reduced(torch, "falcon-mamba-7b", 128)
+    phase_continuous_reduced(torch, "mixtral-8x7b", 128)
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
                "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
                                               1024, False),
                "mixtral-8x7b": phase_serve(torch, "mixtral-8x7b", 1024,
-                                           False, MIXTRAL_LAYERS)}
-    phase_decode(torch, "gemma2-9b", 1000)
+                                           False, MIXTRAL_LAYERS),
+               "gemma2-9b continuous": phase_continuous(
+                   torch, "gemma2-9b", 1000),
+               "falcon-mamba-7b continuous": phase_continuous(
+                   torch, "falcon-mamba-7b", 1024),
+               "mixtral-8x7b continuous": phase_continuous(
+                   torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)}
+    phase_decode(torch, "gemma2-9b", 1000, streams=4)
     phase_decode(torch, "falcon-mamba-7b", 1024)
     phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
     for name, entry in table.items():

@@ -86,6 +86,8 @@ class Cluster:
                  devices: Optional[Sequence[object]] = None,
                  shed_late: bool = False):
         self.sched = scheduler
+        # the reference's backend switch; the port has the live one only
+        self.backend = "live"
         scheduler.shed_expired = shed_late
         scheduler._clock = time.monotonic
         n_workers = workers if workers is not None \
@@ -174,6 +176,12 @@ class Cluster:
     def drain(self) -> None:
         """Block until every job submitted so far has resolved."""
         self._ex.drain()
+
+    @property
+    def now(self) -> float:
+        """Current time on the backend's clock (the live one: monotonic
+        wall seconds)."""
+        return time.monotonic()
 
     def shutdown(self) -> None:
         """Drain, then stop the execution pool. The next ``submit``

@@ -9,7 +9,9 @@ shapes and dtypes only, nothing is allocated on the card. During that trace
 
   * ``hbm_bytes`` = the bytes of the arguments + the peak of bytes allocated
     by the step and still live (outputs included, since they are live at
-    the end) — the counterpart of XLA's argument + temp + output − alias sum;
+    the end) — the counterpart of XLA's argument + temp + output − alias sum
+    — + ``CUDA_UNSEEN_BYTES`` when the arguments live on a card: what the
+    libraries the step calls allocate there that no fake tensor shows;
   * ``flops`` comes from ``torch.utils.flop_counter.FlopCounterMode``. The
     port's hand kernels are custom ops with fake implementations, and flash
     attention registers a flop formula (``4·B·Hq·visible pairs·D``), so the
@@ -24,7 +26,7 @@ cached by (fn, shape signature), as the reference caches compilations.
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -33,6 +35,18 @@ from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.core.task import ResourceVector
+
+# What a step allocates on a card that its fake-tensor trace cannot see: the
+# first matrix product on a stream makes cuBLAS's workspace for that stream
+# through PyTorch's caching allocator (32 MiB on Hopper), and reductions and
+# sorts take a little scratch. Measured with the allocator's history over
+# one batch of each served model alone (tools/probe_memory.py, NVIDIA H100
+# 80GB HBM3, 700 W): the task's peak above the weights exceeded the traced
+# live peak by at most 34,341,372 B (falcon-mamba-7b, the first task on its
+# stream; 1,671,676 B for gemma2-9b and 508 B for mixtral-8x7b on a stream
+# that had its workspace). Charged to every probe of work on a card,
+# rounded up to 40 MiB.
+CUDA_UNSEEN_BYTES = 40 << 20
 
 # NVIDIA H100 SXM datasheet peaks (dense, 700 W): bf16 tensor-core rate,
 # HBM3 bandwidth, and NVLink 4 bandwidth per direction to the other cards
@@ -122,26 +136,39 @@ def vector_from_counts(*, hbm_bytes: int, flops: float,
     )
 
 
-def trace_counts(fn: Callable, *args) -> Dict[str, float]:
+def trace_counts(fn: Callable, *args, uncharged: Sequence[int] = ()
+                 ) -> Dict[str, float]:
     """Run ``fn(*args)`` once on fake copies of the tensor arguments and
-    return {hbm_bytes, arg_bytes, peak_live_bytes, flops, bytes_accessed}.
-    Nothing is allocated on any device."""
+    return {hbm_bytes, arg_bytes, peak_live_bytes, unseen_bytes, flops,
+    bytes_accessed}.
+    Nothing is allocated on any device. The arguments at the positions in
+    ``uncharged`` are traced like the others but their bytes are left out of
+    ``arg_bytes`` (shared state that something else already holds, such as
+    the weights of a server whose decode loop charges them once); a storage
+    that a charged argument shares is charged."""
+    on_card = any(t.device.type == "cuda" for t in tree_leaves(args)
+                  if isinstance(t, torch.Tensor))
     fake = FakeTensorMode()
     fargs = tree_map(lambda a: fake.from_tensor(a)
                      if isinstance(a, torch.Tensor) else a, args)
-    storages = {}
-    for t in tree_leaves(fargs):
-        if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
-            storages[st._cdata] = st.nbytes()
-    arg_bytes = sum(storages.values())
+    storages, charged = {}, set()
+    for i, arg in enumerate(fargs):
+        for t in tree_leaves(arg):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                storages[st._cdata] = st.nbytes()
+                if i not in uncharged:
+                    charged.add(st._cdata)
+    arg_bytes = sum(storages[k] for k in charged)
     flop_mode = FlopCounterMode(display=False)
     live = _LiveBytes(set(storages))
     with torch.no_grad(), fake, flop_mode, live:
         out = fn(*fargs)
         del out
-    return {"hbm_bytes": arg_bytes + live.peak, "arg_bytes": arg_bytes,
-            "peak_live_bytes": live.peak,
+    unseen = CUDA_UNSEEN_BYTES if on_card else 0
+    return {"hbm_bytes": arg_bytes + live.peak + unseen,
+            "arg_bytes": arg_bytes, "peak_live_bytes": live.peak,
+            "unseen_bytes": unseen,
             "flops": float(flop_mode.get_total_flops()),
             "bytes_accessed": float(live.bytes_accessed)}
 
@@ -156,19 +183,20 @@ def _signature(args) -> Tuple:
         if isinstance(a, torch.Tensor) else repr(a) for a in leaves))
 
 
-def probe_fn(fn: Callable, *args: Any, chips: int = 1,
-             work_scale: float = 1.0,
+def probe_fn(fn: Callable, *args: Any, uncharged: Sequence[int] = (),
+             chips: int = 1, work_scale: float = 1.0,
              flops_override: Optional[float] = None,
              efficiency: Tuple[float, float] = (1.0, 1.0)) -> ResourceVector:
     """Probe ``fn`` on ``args`` (any nesting of dicts/lists/tuples of
     tensors; real tensors are only read for their metadata). This is the
     instrumented ``task_begin`` of the paper: called right before launch,
-    it conveys the resource needs to the scheduler. Traced once per (fn,
-    shape signature)."""
-    key = (id(fn), _signature(args))
+    it conveys the resource needs to the scheduler. ``uncharged``: the
+    positions of arguments traced but not charged (``trace_counts``).
+    Traced once per (fn, shape signature, uncharged)."""
+    key = (id(fn), _signature(args), tuple(uncharged))
     counts = _probe_cache.get(key)
     if counts is None:
-        counts = trace_counts(fn, *args)
+        counts = trace_counts(fn, *args, uncharged=uncharged)
         if len(_probe_cache) < 512:
             _probe_cache[key] = counts
     return vector_from_counts(

@@ -1,9 +1,10 @@
-"""Static serving: prefill + greedy decode under the compiler-guided
-scheduler, on the card.
+"""Serving under the compiler-guided scheduler, on the card: static batches
+(prefill + greedy decode) and continuous batching (``serve_continuous``).
 
-Port of ``src/repro/launch/serve.py:53-163, 252-266`` (static discipline).
+Port of ``src/repro/launch/serve.py`` (no preemption or tracing yet).
 Every request batch is ONE task whose resource vector comes from probing
-the prefill (``repro_torch.core.probe``); each batch is submitted through
+the task's whole body (``static_task``: prefill, the padded cache and one
+decode step; ``repro_torch.core.probe``); each batch is submitted through
 ``Cluster`` with a per-request deadline (EDF within its priority class);
 blocked batches park in the MGB scheduler's admission queue and completions
 wake the next one. Rows of the last batch beyond ``requests`` are shape
@@ -28,9 +29,16 @@ Differences from the reference:
     activations and the ring cache. Serving all 32 needs placement across
     cards, which the port does not have yet;
   * each runner synchronises its stream before it stamps a time, so TTFT
-    and TPOT measure work, not launches.
+    and TPOT measure work, not launches;
+  * the probe covers the whole task, not the prefill alone, and on the
+    card each batch's decode step is captured once in a CUDA graph on its
+    pool worker's stream and replayed (``serve.decode.greedy_generate``),
+    where the reference runs a jitted ``lax.scan``;
+  * on a card the scheduler manages the memory free when serving starts,
+    less what the execution pool's streams keep between tasks
+    (``pool_reserve``), where the reference sizes it by the device.
 
-Preemption, tracing and continuous batching come in later slices.
+Preemption and tracing come in later slices.
 
 It serves the dense attention, MoE and Mamba-1 (ssm) families.
 
@@ -44,6 +52,9 @@ Usage (on a machine with an NVIDIA card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --full --n-layers 24 --param-dtype bfloat16 --requests 32 \
         --batch 4 --prompt-len 1024 --gen-len 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --full --param-dtype bfloat16 --continuous --requests 32 \
+        --batch 8 --prompt-len 1000 --gen-len 32 --workers 2
 """
 from __future__ import annotations
 
@@ -58,10 +69,11 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.cluster import Cluster, JobStatus
 from repro_torch.core.executor import ExecJob
-from repro_torch.core.probe import probe_fn
+from repro_torch.core.probe import CUDA_UNSEEN_BYTES, probe_fn
 from repro_torch.core.scheduler import MGBAlg3Scheduler
 from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
+from repro_torch.models import decode as D
 from repro_torch.models.model import FAMILIES, init_params
 from repro_torch.serve.decode import (
     decode_cache, greedy_generate, make_prefill_step,
@@ -79,8 +91,10 @@ def _pct(xs, p):
 
 
 def serving_devices(num_devices: int, device: Optional[str]):
-    """(device table, per-device scheduler memory). CUDA unless ``device``
-    is "cpu"; on CUDA one scheduler device per card, sized by the card."""
+    """(device table, per-device memory). CUDA unless ``device`` is "cpu";
+    on CUDA one scheduler device per card, sized by the memory free on the
+    card when serving starts (the CUDA context and anything already
+    allocated are not the scheduler's to hand out)."""
     if device == "cpu":
         return [torch.device("cpu")], DEFAULT_HBM
     if not torch.cuda.is_available():
@@ -90,13 +104,36 @@ def serving_devices(num_devices: int, device: Optional[str]):
         raise ValueError(f"num_devices={num_devices} but only "
                          f"{torch.cuda.device_count()} CUDA device(s)")
     devs = [torch.device("cuda", i) for i in range(num_devices)]
-    hbm = min(torch.cuda.get_device_properties(d).total_memory for d in devs)
+    hbm = min(torch.cuda.mem_get_info(d)[0] for d in devs)
     return devs, hbm
+
+
+def pool_reserve(devices, workers: int) -> int:
+    """Bytes of each device that the execution pool holds outside every
+    task, set aside from what the scheduler manages: on a card each pool
+    worker's stream keeps the cuBLAS workspace that its first task made (the
+    probe's ``CUDA_UNSEEN_BYTES`` covers it while that task runs) for as
+    long as the pool lives, so one ``CUDA_UNSEEN_BYTES`` a worker."""
+    return workers * CUDA_UNSEEN_BYTES if devices[0].type == "cuda" else 0
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def static_task(params, batch: dict, cfg, max_seq: int):
+    """What one static serving task allocates, for its probe: the prefill,
+    the cache padded for ``max_seq`` positions, and one decode step. Every
+    later step repeats the same allocations in place (the card replays it
+    from a graph whose pool holds one step's temporaries), so one step
+    stands for all."""
+    logits, cache = make_prefill_step(cfg)(params, batch)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    cache = decode_cache(cfg, cache, max_seq)
+    pos = torch.full((), batch["tokens"].shape[1], dtype=torch.int32,
+                     device=first.device)
+    return D.decode_step(params, cfg, cache, first, pos)
 
 
 def serve(arch: str, *, requests: int = 16, batch: int = 4,
@@ -120,7 +157,9 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         gen = torch.Generator(device=dev).manual_seed(seed)
         params[dev] = init_params(cfg, gen, param_dtype, dev)
     prefill = make_prefill_step(cfg)
-    sched = MGBAlg3Scheduler(num_devices, hbm_per_device=hbm)
+    workers = workers or num_devices
+    sched = MGBAlg3Scheduler(
+        num_devices, hbm_per_device=hbm - pool_reserve(devices, workers))
 
     rng = np.random.default_rng(seed)
     n_batches = (requests + batch - 1) // batch
@@ -137,14 +176,16 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         return b
 
     batches = [make_batch() for _ in range(n_batches)]
-    # probe ONE representative batch: all batches share shapes, so they
-    # share the resource vector. Fake tensors only: nothing is allocated.
+    # probe ONE representative batch's whole task body: all batches share
+    # shapes, so they share the resource vector. Fake tensors only: nothing
+    # is allocated.
     first = devices[0]
-    vec = probe_fn(prefill, params[first],
-                   {k: v.to(first) for k, v in batches[0].items()})
+    vec = probe_fn(static_task, params[first],
+                   {k: v.to(first) for k, v in batches[0].items()}, cfg,
+                   prompt_len + gen_len)
 
-    cluster = Cluster(sched, workers=workers or num_devices,
-                      devices=devices, shed_late=shed_late)
+    cluster = Cluster(sched, workers=workers, devices=devices,
+                      shed_late=shed_late)
     handles = []
     # per-batch wall-clock marks: (submit, first token, last token)
     marks = [[0.0, -1.0, -1.0] for _ in range(n_batches)]
@@ -207,8 +248,90 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             "shed": len(shed),
             "sched_attempts": stats["sched_attempts"],
             "placements": sched.placements,
-            "probe": vec, "hbm_per_device": hbm,
+            "probe": vec, "hbm_per_device": sched.devices[0].total_hbm,
             "generated": generated}
+
+
+def _track_peak_reservation(dev) -> List[int]:
+    """[highest ``used_hbm``] of a scheduler device, kept up to date by
+    wrapping this one device's ``admit`` (the only place a reservation
+    grows)."""
+    peak = [dev.used_hbm]
+    admit = dev.admit
+
+    def tracked(task) -> None:
+        admit(task)
+        peak[0] = max(peak[0], dev.used_hbm)
+
+    dev.admit = tracked
+    return peak
+
+
+def serve_continuous(arch: str, *, requests: int = 16, batch: int = 4,
+                     prompt_len: int = 64, gen_len: int = 32, seed: int = 0,
+                     workers: int = 0, ttft_slo_s: float = 5.0,
+                     tpot_slo_s: float = 1.0, shed_late: bool = False,
+                     full: bool = False,
+                     param_dtype: torch.dtype = torch.float32,
+                     device: Optional[str] = None,
+                     n_layers: Optional[int] = None) -> dict:
+    """Continuous-batching counterpart (reference
+    ``src/repro/launch/serve.py:166-200``): per-request streaming through
+    ``serve.engine.ServeEngine`` with a ``TorchModel``; ``batch`` becomes
+    the decode loop's max rows. ``full``, ``n_layers``, ``param_dtype`` and
+    ``device`` are the static path's. The engine's ``metrics()`` come back
+    with ``wall_s``, ``tokens_per_s``, ``sched_attempts``, the highest
+    ``used_hbm`` the scheduler reserved on the card during the run
+    (``peak_reserved``), the loop base, slot and prefill vectors, and the
+    tokens generated per request (``generated``, in submission order).
+
+    One card: the model's weights live on one device (placement across
+    cards comes in a later slice)."""
+    from repro_torch.serve.engine import SLO, ServeEngine, TorchModel
+
+    cfg = get_arch(arch) if full else get_arch(arch).reduced()
+    if n_layers is not None:
+        if not 1 <= n_layers <= cfg.n_layers:
+            raise ValueError(f"n_layers={n_layers}: {cfg.name} has "
+                             f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    devices, hbm = serving_devices(1, device)
+    gen = torch.Generator(device=devices[0]).manual_seed(seed)
+    params = init_params(cfg, gen, param_dtype, devices[0])
+    model = TorchModel(cfg, params, max_batch=batch,
+                       max_seq=prompt_len + gen_len)
+    workers = workers or 1
+    sched = MGBAlg3Scheduler(
+        1, hbm_per_device=hbm - pool_reserve(devices, workers))
+    peak = _track_peak_reservation(sched.devices[0])
+    cluster = Cluster(sched, workers=workers, devices=devices,
+                      shed_late=shed_late)
+    eng = ServeEngine(cluster, model, max_batch=batch,
+                      slo=SLO(ttft_s=ttft_slo_s, tpot_s=tpot_slo_s))
+    rng = np.random.default_rng(seed)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, (1, prompt_len),
+                                             dtype=np.int64))
+               for _ in range(requests)]
+    t0 = time.time()
+    reqs = [eng.submit(prompt=p, gen_len=gen_len) for p in prompts]
+    eng.drain()
+    wall = time.time() - t0
+    m = eng.metrics()
+    loop_vec = eng.loops[0].host.resources
+    eng.shutdown()
+    cluster.shutdown()
+    m.update(arch=cfg.name, n_layers=cfg.n_layers, wall_s=wall,
+             tokens_per_s=m["tokens"] / wall,
+             sched_attempts=cluster.stats()["sched_attempts"],
+             peak_reserved=peak[0],
+             hbm_per_device=sched.devices[0].total_hbm,
+             loop_vec=loop_vec, slot_vec=model.slot_vec(reqs[0]),
+             prefill_vec=model.prefill_vec(reqs[0]),
+             capture_s=model.capture_s, steps=model.steps,
+             step_s=model.step_s,
+             errors=[r.error for r in reqs if r.error],
+             generated=[list(r.tokens) for r in reqs])
+    return m
 
 
 def main():
@@ -236,7 +359,40 @@ def main():
     ap.add_argument("--param-dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, choices=["cpu"],
                     help="run on the CPU (default: CUDA)")
+    ap.add_argument("--tpot-slo-s", type=float, default=1.0,
+                    help="continuous mode: time-per-output-token SLO")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching via repro_torch.serve.engine: "
+                         "requests stream individually, the decode batch "
+                         "grows/shrinks per step under scheduler admission "
+                         "(--batch is the loop's max rows, --deadline-s the "
+                         "TTFT SLO)")
     args = ap.parse_args()
+    if args.continuous:
+        if args.num_devices != 1:
+            ap.error("--continuous serves on one device (--num-devices 1)")
+        res = serve_continuous(
+            args.arch, requests=args.requests, batch=args.batch,
+            prompt_len=args.prompt_len, gen_len=args.gen_len,
+            workers=args.workers,
+            ttft_slo_s=args.deadline_s, tpot_slo_s=args.tpot_slo_s,
+            shed_late=args.shed_late, full=args.full,
+            param_dtype=DTYPES[args.param_dtype], device=args.device,
+            n_layers=args.n_layers)
+        print(f"[serve --continuous] {res['arch']} ({res['n_layers']} "
+              f"layers): {res['done']}/{res['requests']} done, "
+              f"{res['tokens']} tokens in {res['wall_s']:.1f}s "
+              f"({res['tokens_per_s']:.1f} tok/s, "
+              f"TTFT p50/p99 {res['p50_ttft_s'] * 1e3:.0f}/"
+              f"{res['p99_ttft_s'] * 1e3:.0f} ms, "
+              f"TPOT p50/p99 {res['p50_tpot_s'] * 1e3:.0f}/"
+              f"{res['p99_tpot_s'] * 1e3:.0f} ms, "
+              f"goodput {res['goodput_rps']:.2f} req/s, "
+              f"{res['shed']} shed, {res['failed']} failed, "
+              f"{res['violations']} memory violations)")
+        for err in res["errors"]:
+            print(f"[serve --continuous] error: {err}")
+        return
     res = serve(args.arch, requests=args.requests, batch=args.batch,
                 prompt_len=args.prompt_len, gen_len=args.gen_len,
                 num_devices=args.num_devices, workers=args.workers,

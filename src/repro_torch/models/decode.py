@@ -1,19 +1,20 @@
 """One-token decode over a model's cache: an attention model's KV cache or
 the Mamba-1 family's recurrent states.
 
-Port of ``src/repro/models/decode.py:29-174, 189-233`` for the dense, moe
-and ssm families. A KV cache is stacked over layers ``[L, B, Hkv, Smax,
-hd]`` in bf16, or int8 codes with per-(position, head) scales
-(``cfg.kv_cache_dtype == "int8"``). Pure sliding-window archs (mixtral) keep
-a ring of ``min(max_seq, window)`` slots: position p lives at slot
-``p % Smax`` and the overwrite enforces the window, so the cache costs
-O(window) whatever the context. An ssm cache is the conv state ``[L, B, W-1,
+Port of ``src/repro/models/decode.py`` for the dense, moe and ssm families
+(the zamba2 hybrid's caches come in a later slice). A KV cache is stacked
+over layers ``[L, B, Hkv, Smax, hd]`` in bf16, or int8 codes with
+per-(position, head) scales (``cfg.kv_cache_dtype == "int8"``). Pure
+sliding-window archs (mixtral) keep a ring of ``min(max_seq, window)``
+slots: position p lives at slot ``p % Smax`` and the overwrite enforces the
+window, so the cache costs O(window) whatever the context. An ssm cache is the conv state ``[L, B, W-1,
 E]`` in the cache dtype and the SSM state ``[L, B, E, N]`` in f32, O(1) in
-the context. ``decode_step`` takes one scalar position for the whole batch.
-Hybrid states and per-row positions come in later slices.
+the context. ``decode_step`` takes one position for the whole batch or a
+[B] vector, one per row (continuous batching).
 
-The port updates caches IN PLACE (``decode_step``, ``cache_insert``) where
-the reference returns updated copies, so one cache stays resident per task.
+The port updates caches IN PLACE (``decode_step``, ``cache_insert``,
+``cache_clear_row``) where the reference returns updated copies, so one
+cache stays resident per task or decode loop.
 """
 from __future__ import annotations
 
@@ -64,10 +65,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
-                tokens: torch.Tensor, pos: int) -> Tuple[torch.Tensor, Cache]:
-    """tokens: [B] int; pos: the current position (0-based), one for the
-    whole batch (unused by the ssm family). Returns (logits [B, V] f32, the
-    cache, updated in place)."""
+                tokens: torch.Tensor, pos) -> Tuple[torch.Tensor, Cache]:
+    """tokens: [B] int; pos: the current position (0-based), an int for the
+    whole batch or an int tensor, 0-d or [B] with one position per row
+    (unused by the ssm family). An int becomes a 0-d tensor on the tokens'
+    device, so every step runs one path: nothing in it reads a value on the
+    host, and a step over a tensor can be captured in a CUDA graph.
+    Returns (logits [B, V] f32, the cache, updated in place)."""
     check_supported(cfg)
     x = scale_embedding(cfg, params["embed"][tokens])  # [B, d]
     if cfg.family == "ssm":
@@ -77,6 +81,8 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
                 {"conv": cache["conv"][i], "ssm": cache["ssm"][i]}, cfg.ssm)
         x = L.rms_norm(x, params["final_norm"])
         return logits_from_hidden(cfg, params, x[:, None])[:, 0], cache
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
     q8 = cfg.kv_cache_dtype == "int8"
     ring = uses_ring(cfg)
     for i, lp in enumerate(params["layers"]):
@@ -98,6 +104,16 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     return logits, cache
 
 
+# ---------------------------------------------------------------------------
+# Slot-wise cache surgery (continuous batching)
+#
+# A running decode batch adopts a prefilled request's single-row cache and
+# retires finished rows in place: extract copies one row out, insert writes a
+# row back (zero-padding the sequence axis, so a short prefill cache drops
+# into a longer resident buffer; slots past the row's cache_len are masked by
+# decode attention, so the padding is never attended).
+# ---------------------------------------------------------------------------
+
 # per-key (batch_axis, seq_axis or None) of the dense and ssm cache layouts
 CACHE_AXES: Dict[str, Tuple[int, Optional[int]]] = {
     "k": (1, 3), "v": (1, 3), "k_s": (1, 3), "v_s": (1, 3),
@@ -105,24 +121,47 @@ CACHE_AXES: Dict[str, Tuple[int, Optional[int]]] = {
 }
 
 
+def cache_rows(cache: Cache) -> int:
+    """Batch capacity (number of resident rows) of a decode cache."""
+    key = next(iter(cache))
+    return cache[key].shape[CACHE_AXES[key][0]]
+
+
+def cache_extract(cache: Cache, row: int) -> Cache:
+    """A copy of resident row ``row`` as a batch-1 cache."""
+    return {key: t.narrow(CACHE_AXES[key][0], row, 1).clone()
+            for key, t in cache.items()}
+
+
 def cache_insert(cache: Cache, row_cache: Cache, row: int) -> Cache:
     """Write ``row_cache`` into ``cache`` at batch rows ``row ..`` in place.
 
     The row cache's sequence axis may be SHORTER than the resident buffer's
     (a prompt-length prefill cache joining a buffer sized for prompt plus
-    generation): it lands at the front, and the slots after it are left as
-    they are; decode masks them (``cache_len``) until it writes them. A
-    LONGER sequence axis is an error. A state cache (ssm) has no sequence
-    axis: its rows are copied as they are."""
+    generation): it lands at the front and the rest of the rows' sequence
+    axis is zeroed, as the reference pads it; decode masks those slots
+    (``cache_len``) until it writes them. A LONGER sequence axis is an
+    error. A state cache (ssm) has no sequence axis: its rows are copied as
+    they are."""
     for key, t in cache.items():
         bax, sax = CACHE_AXES[key]
         rt = row_cache[key]
         dst = t.narrow(bax, row, rt.shape[bax])
-        if sax is not None:
+        if sax is not None and rt.shape[sax] != t.shape[sax]:
             if rt.shape[sax] > t.shape[sax]:
                 raise ValueError(
                     f"cache_insert: row cache {key} seq {rt.shape[sax]} "
                     f"exceeds resident buffer seq {t.shape[sax]}")
+            dst.narrow(sax, rt.shape[sax],
+                       t.shape[sax] - rt.shape[sax]).zero_()
             dst = dst.narrow(sax, 0, rt.shape[sax])
         dst.copy_(rt)
+    return cache
+
+
+def cache_clear_row(cache: Cache, row: int) -> Cache:
+    """Zero a retired row in place, so stale KV bytes cannot leak into a
+    later adopt (hygiene; correctness never reads a masked slot)."""
+    for key, t in cache.items():
+        t.narrow(CACHE_AXES[key][0], row, 1).zero_()
     return cache

@@ -124,20 +124,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0):
                                logit_softcap=logit_softcap)
 
 
-def _decode_valid_mask(smax: int, cache_len: int, window: int,
+def _decode_valid_mask(smax: int, cache_len, window: int,
                        device) -> torch.Tensor:
-    """[1, Smax] bool mask of attendable cache slots (scalar cache_len)."""
+    """[B or 1, Smax] bool mask of attendable cache slots. ``cache_len`` is
+    an int (the whole batch at one position) or a [B] device tensor (each
+    row of a continuous batch at its own position), never read on the
+    host, so a step over a tensor can be captured in a CUDA graph."""
+    cl = torch.as_tensor(cache_len, device=device).reshape(-1, 1)
     k_pos = torch.arange(smax, device=device)[None, :]
-    valid = k_pos < cache_len
+    valid = k_pos < cl
     if window and window > 0:
-        valid &= k_pos >= cache_len - window
+        valid = valid & (k_pos >= cl - window)
     return valid
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=0,
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
                      logit_softcap=0.0):
     """One-token decode. q: [B, Hq, 1, D]; caches: [B, Hkv, Smax, D]. The new
-    token's K/V must already sit at slot cache_len - 1. GQA is contracted
+    token's K/V must already sit at slot cache_len - 1; ``cache_len`` is an
+    int or a [B] tensor (``_decode_valid_mask``). GQA is contracted
     grouped (q as [B, Hkv, G, D]) with f32 accumulation, as the reference's
     ``preferred_element_type=f32`` einsums."""
     b, hq, _, d = q.shape
@@ -170,7 +175,7 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.bfloat16):
     return codes.to(torch.int8), scale.to(scale_dtype)
 
 
-def decode_attention_q8(q, k_q, k_s, v_q, v_s, cache_len: int, *, window=0,
+def decode_attention_q8(q, k_q, k_s, v_q, v_s, cache_len, *, window=0,
                         logit_softcap=0.0):
     """One-token decode over an int8 cache. q: [B, Hq, 1, D]; k_q/v_q: int8
     [B, Hkv, Smax, D]; k_s/v_s: [B, Hkv, Smax]. The scales factor out of the

@@ -186,39 +186,46 @@ def attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def attn_decode_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-                      pos: int, kcache: torch.Tensor, vcache: torch.Tensor,
+                      pos, kcache: torch.Tensor, vcache: torch.Tensor,
                       window: int, ring: bool = False,
                       kscale: Optional[torch.Tensor] = None,
                       vscale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token attention for a batch at one position ``pos``. x: [B, 1, d];
-    caches: [B, Hkv, Smax, D] (int8 with per-(position, head) scales when
-    ``kscale``/``vscale`` are given). The new token's K/V are written INTO the
-    caches in place (the reference returns updated copies; the port updates
-    in place to keep one cache resident) at slot ``min(pos, Smax - 1)``, or
-    for a ``ring`` cache (pure sliding-window archs, Smax = the window) at
-    ``pos % Smax``, where the overwrite enforces the window and no window
-    mask is applied. Returns the attention output [B, 1, d]."""
+    """One-token attention. x: [B, 1, d]; caches: [B, Hkv, Smax, D] (int8
+    with per-(position, head) scales when ``kscale``/``vscale`` are given).
+
+    ``pos`` is an int tensor on the card, 0-d (the whole batch at one
+    position) or [B] (continuous batching: each row at its own position);
+    nothing reads it on the host, so the step can be captured in a CUDA
+    graph and replayed with the positions advanced in place. The new
+    token's K/V are written INTO the caches in place (the reference returns
+    updated copies; the port updates in place to keep one cache resident)
+    at each row's slot ``min(pos, Smax - 1)``, or for a ``ring`` cache (pure
+    sliding-window archs, Smax = the window) ``pos % Smax``, where the
+    overwrite enforces the window and no window mask is applied: one
+    indexed scatter, the reference's one-hot ``where`` without rewriting
+    the whole cache. Returns the attention output [B, 1, d]."""
     q, k, v = _project_qkv(p, x)  # [B, H, 1, hd]
-    posv = torch.full((1, 1, 1), pos, dtype=torch.int32, device=x.device)
-    q = L.apply_rope(q, posv, cfg.rope_theta)
-    k = L.apply_rope(k, posv, cfg.rope_theta)
-    smax = kcache.shape[2]
-    slot = pos % smax if ring else min(pos, smax - 1)
-    cache_len = min(pos + 1, smax)
+    b, smax = x.shape[0], kcache.shape[2]
+    posv = pos.reshape(-1).expand(b)
+    slot = (posv % smax if ring else posv.clamp(max=smax - 1)).long()
+    cache_len = (posv + 1).clamp(max=smax)
+    at = (torch.arange(b, device=x.device), slice(None), slot)
+    q = L.apply_rope(q, posv[:, None, None], cfg.rope_theta)
+    k = L.apply_rope(k, posv[:, None, None], cfg.rope_theta)
     window = 0 if ring else window
     if kscale is not None:
         k_q, k_s = L.quantize_kv(k, kscale.dtype)
         v_q, v_s = L.quantize_kv(v, vscale.dtype)
-        kcache[:, :, slot] = k_q[:, :, 0]
-        vcache[:, :, slot] = v_q[:, :, 0]
-        kscale[:, :, slot] = k_s[:, :, 0]
-        vscale[:, :, slot] = v_s[:, :, 0]
+        kcache[at] = k_q[:, :, 0]
+        vcache[at] = v_q[:, :, 0]
+        kscale[at] = k_s[:, :, 0]
+        vscale[at] = v_s[:, :, 0]
         o = L.decode_attention_q8(q, kcache, kscale, vcache, vscale,
                                   cache_len, window=window,
                                   logit_softcap=cfg.attn_logit_softcap)
     else:
-        kcache[:, :, slot] = k[:, :, 0]
-        vcache[:, :, slot] = v[:, :, 0]
+        kcache[at] = k[:, :, 0].to(kcache.dtype)
+        vcache[at] = v[:, :, 0].to(vcache.dtype)
         o = L.decode_attention(q, kcache, vcache, cache_len, window=window,
                                logit_softcap=cfg.attn_logit_softcap)
     return torch.einsum("bhsk,hkd->bsd", o, p["wo"])

@@ -2,9 +2,11 @@
 the greedy decode loop. These are the "GPU task" bodies of the static
 serving path.
 
-Port of ``src/repro/serve/decode.py:21-105`` for the dense, moe and ssm
-families. ``greedy_generate`` is a Python loop over ``decode_step`` (the
-reference's ``lax.scan``).
+Port of ``src/repro/serve/decode.py`` for the dense, moe and ssm families.
+``greedy_generate`` loops over ``decode_step`` where the reference
+``lax.scan``s; on the card the step is captured once in a CUDA graph
+(``StepGraph``) and replayed, the port's counterpart of the reference's
+compiled loop, so a step costs no host time per kernel.
 
 Ring-cache hand-off: pure sliding-window archs (mixtral) decode over a ring
 of ``window`` slots, position p at slot ``p % window``. After a prefill of S
@@ -14,11 +16,13 @@ window (reference ``serve/decode.py:37-59``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import time
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.build import LaunchCounter
 from repro_torch.models import decode as D
 from repro_torch.models.layers import quantize_kv
 from repro_torch.models.model import forward, logits_from_hidden
@@ -91,6 +95,86 @@ def decode_cache(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
                                        device=k.device), cache, 0)
 
 
+def resident_ring(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
+    """A prefill cache cut to the depth of a resident decode cache built for
+    ``max_seq`` positions (``models.decode.cache_seq_len``).
+
+    A ring prefill hands back ``window`` slots (``ring_from_prefill``), but
+    a resident ring for ``max_seq < window`` positions holds only
+    ``max_seq`` (mixtral: 1056 of 4096). Positions below ``max_seq`` never
+    wrap, so position p sits at slot p of both and the first ``max_seq``
+    slots are the whole of the row's context: they are returned as views.
+    Any other cache is returned as it is. (The reference engine inserts the
+    window-deep ring and raises.)"""
+    smax = D.cache_seq_len(cfg, max_seq)
+    if not D.uses_ring(cfg) or "k" not in cache or cache["k"].shape[3] <= smax:
+        return cache
+    return {key: t.narrow(D.CACHE_AXES[key][1], 0, smax)
+            for key, t in cache.items()}
+
+
+# Decode steps captured and replayed over the process (``StepGraph``): a
+# replay runs a step's kernels without their wrappers, so the kernels'
+# launch counters see the warm-up and the capture of a step, not its
+# replays; a caller that counts launches adds replays x launches per step.
+CAPTURES = LaunchCounter()
+REPLAYS = LaunchCounter()
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The caller's current stream, or a stream of the pool forked from it
+    where the caller is on the default stream, which cannot capture. A pool
+    worker keeps its own stream, and cuBLAS makes one workspace per stream
+    it runs on and keeps it, so a capture does not add a stream per task."""
+    caller = torch.cuda.current_stream(device)
+    if caller != torch.cuda.default_stream(device):
+        return caller
+    side = torch.cuda.Stream(device)
+    side.wait_stream(caller)
+    return side
+
+
+class StepGraph:
+    """``step()`` captured in a CUDA graph on ``stream`` and replayed there.
+
+    ``step`` must read and write only tensors that outlive the graph (the
+    weights, a cache, token and position buffers) and must not read a value
+    on the host. It runs once eagerly first on ``stream`` (the warm-up: a
+    real step, which also makes cuBLAS's workspace for the stream and builds
+    the kernels outside the capture); the capture records it without running
+    it. The capture uses ``capture_error_mode="thread_local"``, so several
+    pool threads can capture at once, and none of ``torch.cuda.graph``'s
+    device-wide synchronize and cache release, which would reach into other
+    threads' streams. A failed capture raises: nothing falls back to eager
+    steps on the card. The graph's private memory pool holds the step's
+    temporaries for as long as the graph lives (the probe charges them as
+    the step's live peak)."""
+
+    def __init__(self, step: Callable[[], None], stream: "torch.cuda.Stream"):
+        self.stream = stream
+        with torch.cuda.stream(stream):
+            step()
+            t = time.perf_counter()
+            self.graph = torch.cuda.CUDAGraph()
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                step()
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass  # the step's own error is the one to report
+                raise
+            self.graph.capture_end()
+        self.capture_s = time.perf_counter() - t
+        CAPTURES.add()
+
+    def replay(self) -> None:
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        REPLAYS.add()
+
+
 def greedy_generate(cfg: ArchConfig, params, cache: D.Cache,
                     first_tokens: torch.Tensor, start_pos: int,
                     num_steps: int) -> Tuple[torch.Tensor, D.Cache]:
@@ -100,14 +184,38 @@ def greedy_generate(cfg: ArchConfig, params, cache: D.Cache,
     the caller pads a prompt-deep prefill cache first (``decode_cache``). An
     ssm cache holds states, whatever the position.
     ``num_steps=0`` returns an empty [B, 0] block with the cache untouched.
+
+    Tokens and the position live in device buffers that the step updates
+    in place (argmax, ``pos += 1``). On a CPU tensor the steps run eagerly;
+    on the card the first step is the warm-up of a ``StepGraph`` captured on
+    ``capture_stream`` (a pool worker's own stream in the executor), and
+    the rest are its replays. The stream is synchronised before the graph,
+    and its memory pool, are released.
     """
-    b = first_tokens.shape[0]
-    out = torch.empty(b, max(num_steps, 0), dtype=torch.int32,
-                      device=first_tokens.device)
-    tokens = first_tokens
-    for step in range(max(num_steps, 0)):
-        logits, cache = D.decode_step(params, cfg, cache, tokens,
-                                      start_pos + step)
-        tokens = torch.argmax(logits, dim=-1).to(torch.int32)
-        out[:, step] = tokens
+    b, dev = first_tokens.shape[0], first_tokens.device
+    out = torch.empty(b, max(num_steps, 0), dtype=torch.int32, device=dev)
+    if num_steps <= 0:
+        return out, cache
+    tokens = first_tokens.to(torch.int32).clone()
+    pos = torch.full((), start_pos, dtype=torch.int32, device=dev)
+
+    def step():
+        logits, _ = D.decode_step(params, cfg, cache, tokens, pos)
+        tokens.copy_(torch.argmax(logits, dim=-1))
+        pos.add_(1)
+
+    if dev.type != "cuda":
+        for i in range(num_steps):
+            step()
+            out[:, i] = tokens
+        return out, cache
+    stream = capture_stream(dev)
+    graph = StepGraph(step, stream)
+    with torch.cuda.stream(stream):
+        out[:, 0].copy_(tokens)
+        for i in range(1, num_steps):
+            graph.replay()
+            out[:, i].copy_(tokens)
+    stream.synchronize()
+    torch.cuda.current_stream(dev).wait_stream(stream)
     return out, cache

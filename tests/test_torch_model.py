@@ -32,7 +32,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 B, S, PAD, GEN = 2, 100, 32, 8
-ARCHS = ["gemma2-9b", "llama3-405b"]
+# qwen1.5-32b: QKV bias; internvl2-76b and musicgen-large: the vlm and audio
+# stacks, served on tokens here (their frontends are stubs)
+ARCHS = ["gemma2-9b", "llama3-405b", "qwen1.5-32b", "internvl2-76b",
+         "musicgen-large"]
 
 
 @functools.lru_cache(maxsize=None)
