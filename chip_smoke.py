@@ -7,7 +7,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. build: compile the hand CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print ptxas' resource lines and
    the card's name and power limit (``nvidia-smi``).
-2. kernels: hold each kernel against its plain PyTorch version at the main
+2. paper: the seven Rodinia families of ``core/workloads.py`` probed on fake
+   tensors on the card (nothing allocated) at 2 GB and 8 GB, each vector
+   printed with the card's name and power limit (fails where a footprint
+   misses its target by more than 25%); then ``repro_torch.bench``'s Fig. 5
+   and Table II on vectors probed on the card, with their PASS/MISS band
+   lines (printed, not enforced, as the reference does).
+3. twin: the reference's seven-job ordering trace (priorities, deadlines,
+   one exclusive device) on a live ``Cluster`` whose runners each run a
+   small Rodinia family on the card, and on a sim ``Cluster``: fails if
+   ``obs.replay.diff_streams`` finds a divergence or a family's card output
+   differs from its CPU run beyond atol = rtol = 1e-4.
+4. kernels: hold each kernel against its plain PyTorch version at the main
    paths' shapes and at edge cases (bf16 atol = rtol = 2e-2, f32 1e-4) and
    time kernel, plain version and, as a yardstick only, the PyTorch library
    call that computes the same function where there is one: device time of
@@ -21,29 +32,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    fed by TMA for many rows an expert, bf16 small tiles for a few, f32 on
    the CUDA cores) and a gated variant (act(x wi) * (x wg) in one launch),
    each route and act forced at every edge case it takes.
-3. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
+5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
    tokens equal. mixtral's prompt (128) is past its window (64), so the
    ring rotates; a disagreement reports how many expert choices flipped.
-4. continuous, reduced: the same three reduced models served continuously
+6. continuous, reduced: the same three reduced models served continuously
    (``serve_continuous``: 6 requests, a loop of 4 rows, 9 tokens each) on
    the card, the loop step replayed from a CUDA graph, against the CPU:
    every request's tokens equal.
-5. serve, one main path per model, each through probe -> MGB admission ->
+7. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
-   after, every kernel's count checked exactly. Each batch's decode is
-   captured once in a CUDA graph on its pool worker's stream and replayed:
-   the counters see the warm-up and the capture of each batch's step, so
-   the check takes them as two steps a batch, checks the capture and replay
-   counts, and adds replays x launches per step to the reported launches.
+   after, every kernel's count checked exactly. Each pool worker keeps one
+   decoder (``serve.decode.GreedyDecoder``: the padded cache, buffers and
+   the step captured in a CUDA graph on its stream at its first batch), and
+   every later step of every batch is a replay: the counters see the
+   warm-up and the capture of each worker's step, so the check takes them
+   as two steps a captured graph, checks the capture and replay counts, and
+   adds replays x launches per step to the reported launches.
    - gemma2-9b, full width and depth, bf16: 32 requests in 8 batches of 4,
      prompt 1000, 32 generated tokens; flash attention 42 launches per
      prefill, RMSNorm 85 per prefill and per decode step. Then one batch
-     alone (the probe, which covers prefill, the padded cache and one
-     step, against ``torch.cuda.max_memory_allocated``: fails below 1.0),
-     and the same 32 requests with four pool workers sharing the card,
-     their tokens/s beside one worker's.
+     alone (the batch's probe, its prefill, plus what its worker keeps,
+     the decoder, against ``torch.cuda.max_memory_allocated``: fails below
+     1.0), and the same 32 requests with four pool workers sharing the
+     card, their tokens/s beside one worker's (fails below it), with the
+     per-batch host, stream and wall times of the prefills and of the
+     graphs' warm-ups and captures on 1 and on 4 workers.
    - falcon-mamba-7b, full width and depth, bf16: 32 requests in 8 batches
      of 4, prompt 1024 (a multiple of the reference's scan chunk, 256),
      32 generated tokens, one worker; the selective scan 64 launches per
@@ -56,17 +71,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      per prefill, RMSNorm 49 and the grouped matmul 48 (2 a layer: the
      gated wi/wg launch, 24, and wo) per prefill and per decode step. Then
      one batch alone.
-6. continuous, one main path per model at the same widths: 32 requests
+8. continuous, one main path per model at the same widths: 32 requests
    submitted together (prompt 1000 for gemma2-9b, 1024 for the others), 32
    tokens each, one decode loop of 8 rows whose step is replayed from a
-   CUDA graph, 2 pool workers for the prefills; launches checked as in 5
+   CUDA graph, 2 pool workers for the prefills; launches checked as in 7
    (one warm-up and one capture, one replay a step), every request done,
    0 violations, the scheduler's highest reservation against
    ``torch.cuda.max_memory_allocated`` (fails below 1.0), and after every
    adoption of a row and every pump the bytes the card holds for the run
    (the decode graph's pool included) against the reservation at that
    moment plus the pool's streams' reserve (fails where they pass it).
-7. decode: for each model at batch 4, the device time of one prefill and
+9. decode: for each model at batch 4, the device time of one prefill and
    of one decode step by kernel (``torch.profiler``), and one decode step
    eager (host wall time) against the same step replayed from a CUDA graph
    (device time, no host gaps): the difference is the time the card waits
@@ -83,6 +98,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -726,6 +742,130 @@ def phase_reduced(torch, arch: str, seq: int):
         fail(f"reduced {arch} on the card disagrees with the CPU")
 
 
+def phase_paper(torch, gpu: str, dev=None) -> None:
+    """The paper's evaluation on the port's probes: the seven Rodinia
+    families probed on fake tensors on the card (nothing allocated) at 2 GB
+    and 8 GB, then Fig. 5 and Table II (``repro_torch.bench``) on the
+    vectors their mixes draw, probed on the card, with their band lines
+    (printed, not enforced, as the reference does)."""
+    from repro_torch.bench import fig5_throughput, table2_crashes
+    from repro_torch.core import workloads as W
+    dev = dev or torch.device("cuda", 0)
+    for fam in sorted(W.EFFICIENCY):
+        for gb in (2, 8):
+            v = W._probe_family(fam, gb * W.GB, dev)
+            print(f"[paper] {fam} at {gb} GB on {gpu}: hbm {v.hbm_bytes} B "
+                  f"({v.hbm_bytes / (gb * W.GB):.3f} of the target), flops "
+                  f"{v.flops:.4e}, bytes {v.bytes_accessed:.4e}, core "
+                  f"{v.core_demand:.3f}, bw {v.bw_demand:.3f}", flush=True)
+            if not 0.75 <= v.hbm_bytes / (gb * W.GB) <= 1.25:
+                fail(f"{fam} at {gb} GB: the footprint is not within 25% "
+                     f"of the target")
+    t = time.perf_counter()
+    fig5_throughput.run(device=dev)
+    table2_crashes.run(device=dev)
+    print(f"[paper] Fig. 5 and Table II on the card's probes in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
+def twin_inputs(torch, family: str, gen):
+    """Small seeded f32 inputs of a Rodinia family (``phase_twin``)."""
+    def u(*shape):
+        return torch.rand(shape, generator=gen) * 2 - 1
+    if family == "backprop":
+        return u(256, 256), u(256, 256) * 0.1, u(256, 256) * 0.1
+    if family == "srad":
+        return (torch.rand((256, 256), generator=gen) + 0.5,)
+    if family == "lavamd":
+        return u(64, 128, 3), u(128)
+    if family == "bfs":
+        return ((torch.rand((512, 512), generator=gen) < 0.05).float(),
+                (torch.rand(512, generator=gen) < 0.05).float())
+    return (u(128, 128),)  # needle, dwt2d
+
+
+def phase_twin(torch, dev=None) -> None:
+    """The reference's determinism claim on the card: one submission trace
+    (``tests/test_cluster.py::_ordering_trace``, seven jobs with priorities
+    and deadlines on one exclusive device) on a live ``Cluster`` whose
+    runners each run a small Rodinia family on the card, and on a sim
+    ``Cluster``; fails if ``obs.replay.diff_streams`` finds a divergence
+    between their admission orders, or if a family's card output differs
+    from its CPU run beyond atol = rtol = 1e-4 (f32)."""
+    from repro_torch.core import workloads as W
+    from repro_torch.core.cluster import Cluster, JobStatus
+    from repro_torch.core.executor import ExecJob
+    from repro_torch.core.probe import probe_fn
+    from repro_torch.core.scheduler import MGBAlg2Scheduler
+    from repro_torch.core.task import Job, ResourceVector, Task, UnitTask
+    from repro_torch.obs.replay import admission_order, diff_streams
+    families = ["backprop", "srad", "lavamd", "needle", "dwt2d", "bfs",
+                "backprop"]
+    names = ["first", "low-a", "low-b", "hi-late", "hi-edf-9", "hi-edf-1",
+             "low-edf"]
+    ranks = [(None, None), (0, None), (0, None), (5, None), (5, 9.0),
+             (5, 1.0), (0, 3.0)]
+    expected = ["first", "hi-edf-1", "hi-edf-9", "hi-late", "low-edf",
+                "low-a", "low-b"]
+    dev = dev or torch.device("cuda", 0)
+    gate = threading.Event()
+    checked = []
+
+    def job(i, live: bool):
+        fam = families[i]
+        args = twin_inputs(torch, fam, torch.Generator().manual_seed(i))
+        fn = getattr(W, f"_k_{fam}")
+        vec = probe_fn(fn, *[a.to(dev) for a in args])
+        vec = ResourceVector(hbm_bytes=vec.hbm_bytes, flops=vec.flops,
+                             bytes_accessed=vec.bytes_accessed,
+                             est_seconds=0.01, core_demand=1.0,
+                             bw_demand=1.0)
+        task = Task(units=[UnitTask(fn=None, memobjs=frozenset({names[i]}),
+                                    resources=vec, name=names[i])],
+                    name=names[i])
+        plain = Job(tasks=[task], name=names[i])
+        if not live:
+            return plain
+
+        def runner(device, i=i, fn=fn, args=args, fam=fam):
+            if i == 0:
+                gate.wait(30.0)  # the others park behind it
+            got = fn(*[a.to(device) for a in args])
+            got = got if isinstance(got, tuple) else (got,)
+            want = fn(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(compare(torch, g.cpu(), w, torch.float32,
+                              f"twin {fam} card vs CPU")
+                      for g, w in zip(got, want))
+            checked.append((names[i], fam, err))
+        return ExecJob(job=plain, runners=[runner])
+
+    streams = {}
+    for backend in ("live", "sim"):
+        live = backend == "live"
+        c = Cluster(MGBAlg2Scheduler(1), workers=1 if live else 8,
+                    backend=backend, trace=True,
+                    devices=[dev] if live else None)
+        handles = []
+        for i, (prio, deadline) in enumerate(ranks):
+            handles.append(c.submit(job(i, live), priority=prio,
+                                    deadline_s=deadline))
+        gate.set()
+        c.drain()
+        c.shutdown()
+        if any(h.status is not JobStatus.DONE for h in handles):
+            fail(f"twin {backend}: {[h.job.error for h in handles]}")
+        streams[backend] = c.trace.events()
+    div = diff_streams(streams["live"], streams["sim"])
+    order = admission_order(streams["live"])
+    print(f"[twin] ordering trace, live on the card ({len(checked)} Rodinia "
+          f"families run, card vs CPU max abs err "
+          f"{max(e for *_, e in checked):.3e}) and simulated: admission "
+          f"order {order}; first divergence {div}", flush=True)
+    if div is not None or order != expected or len(checked) != 7:
+        fail(f"twin: live and simulated runs diverge: {div}")
+
+
 def counters():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import mamba_scan as SC
@@ -818,14 +958,72 @@ def check_tokens(what: str, generated, shape, vocab: int) -> None:
                  f"{None if g is None else g.shape} tokens out of range")
 
 
+class PhaseClock:
+    """While the block runs, the host, stream and wall seconds of each
+    prefill and each decode graph's warm-up and capture made on a pool
+    thread: ``host`` until the Python call returns, ``stream`` between CUDA
+    events on the worker's stream around it, ``wall`` until that stream is
+    synchronised (``tools/pool_workers.py`` splits them further, with stack
+    samples)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.spent = {"prefill": [], "warm-up + capture": []}
+        self.lock = threading.Lock()
+
+    def _timed(self, what, fn):
+        torch = self.torch
+
+        def run(*a, **k):
+            stream = torch.cuda.current_stream()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            host = time.perf_counter() - t
+            end.record(stream)
+            stream.synchronize()
+            wall = time.perf_counter() - t
+            if threading.current_thread() is not threading.main_thread():
+                with self.lock:
+                    self.spent[what].append(
+                        (host, start.elapsed_time(end) / 1e3, wall))
+            return out
+        return run
+
+    def __enter__(self):
+        from repro_torch.launch import serve as S
+        from repro_torch.serve import decode as SD
+        self._saved = (S.make_prefill_step, SD.StepGraph.__init__)
+        make = S.make_prefill_step
+        S.make_prefill_step = lambda cfg: self._timed("prefill", make(cfg))
+        SD.StepGraph.__init__ = self._timed("warm-up + capture",
+                                            SD.StepGraph.__init__)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve as S
+        from repro_torch.serve import decode as SD
+        S.make_prefill_step, SD.StepGraph.__init__ = self._saved
+
+    def summary(self) -> str:
+        def mean(v, i):
+            return sum(x[i] for x in v) / len(v) * 1e3
+        return "; ".join(
+            f"{k} {mean(v, 0):.1f}/{mean(v, 1):.1f}/{mean(v, 2):.1f} "
+            f"({len(v)})" for k, v in self.spent.items() if v)
+
+
 def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
                 n_layers=None):
     """One main path: ``arch`` at every published width (depth cut to
     ``n_layers`` if given) in bf16 through ``serve()``, every decode loop
     replayed from a CUDA graph, with every kernel's launch count checked
-    exactly; then one batch alone (the probe against the observed peak:
-    fails below 1.0) and, with ``wide``, the same 32 requests on four pool
-    workers sharing the card."""
+    exactly; then one batch alone (the probe and the worker's reserve
+    against the observed peak: fails below 1.0) and, with ``wide``, the
+    same 32 requests on four pool workers sharing the card (fails where
+    they serve fewer tokens/s than one)."""
     from repro_torch.launch.serve import serve
     cfg = full_cfg(arch, n_layers)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
@@ -834,13 +1032,14 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     fresh_card(torch)
     for c in counters().values():
         c.reset()
-    res = serve(arch, requests=32, **kw)
+    with PhaseClock(torch) as one_clock:
+        res = serve(arch, requests=32, **kw)
     counts = read_counts()
     steps = res["batches"] * (kw["gen_len"] - 1)
     launches = check_launches(
         f"serve {arch}", cfg, counts, res["batches"], steps,
-        captures=res["batches"],
-        replays=res["batches"] * (kw["gen_len"] - 2))
+        captures=res["decode_graphs"],
+        replays=steps - res["decode_graphs"])
     vec = res["probe"]
     print(f"[serve] {arch} full width, {res['n_layers']} of "
           f"{res['published_layers']} layers, bf16, prompt {prompt_len}, "
@@ -853,12 +1052,15 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
           f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
           f"{res['sched_attempts']} admission attempts; scheduler HBM "
           f"{res['hbm_per_device'] / 2**30:.2f} GiB/device", flush=True)
-    print(f"[serve] {arch} probe per batch (prefill, padded cache, one "
-          f"step): hbm {vec.hbm_bytes} B "
+    print(f"[serve] {arch} probe per batch (prefill): hbm {vec.hbm_bytes} B "
           f"({vec.hbm_bytes / 2**30:.3f} GiB), {vec.flops:.4e} flops, "
           f"{vec.bytes_accessed:.4e} bytes accessed, est "
           f"{vec.est_seconds * 1e3:.2f} ms, core demand "
-          f"{vec.core_demand:.3f}, bw demand {vec.bw_demand:.3f}", flush=True)
+          f"{vec.core_demand:.3f}, bw demand {vec.bw_demand:.3f}; kept by "
+          f"each pool worker (its decoder: padded cache, buffers, one step; "
+          f"cuBLAS workspace): {res['kept_per_worker'].hbm_bytes} B, "
+          f"{res['decode_graphs']} decode graph(s) captured for "
+          f"{res['batches']} batches", flush=True)
     for err in res["errors"]:
         print(f"[serve] error: {err}", flush=True)
     if res["crashed"] or res["completed"] < res["batches"] \
@@ -876,16 +1078,21 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     peak = torch.cuda.max_memory_allocated()
     if alone["crashed"] or alone["completed"] != 1:
         fail(f"serve {arch}: the single-batch run did not complete")
-    ratio = alone["probe"].hbm_bytes / peak
+    # what the scheduler sets aside for the batch: its probe, and what the
+    # pool worker that runs it keeps (``pool_reserve``)
+    charged = alone["probe"].hbm_bytes + alone["kept_per_worker"].hbm_bytes
+    ratio = charged / peak
     print(f"[serve] {arch} one batch alone: probe hbm "
-          f"{alone['probe'].hbm_bytes} B vs observed max_memory_allocated "
-          f"{peak} B ({left} B allocated before the run; probe/observed "
-          f"{ratio:.4f}); batch wall {alone['wall_s']:.2f} s, TTFT "
+          f"{alone['probe'].hbm_bytes} B + kept by its worker "
+          f"{alone['kept_per_worker'].hbm_bytes} B = {charged} B vs observed "
+          f"max_memory_allocated {peak} B ({left} B allocated before the "
+          f"run; probe/observed {ratio:.4f}); batch wall "
+          f"{alone['wall_s']:.2f} s, TTFT "
           f"{alone['p50_ttft_s'] * 1e3:.1f} ms, TPOT "
           f"{alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
     if ratio < 1.0:
-        fail(f"serve {arch}: the probe ({alone['probe'].hbm_bytes} B) is "
-             f"below the observed peak ({peak} B)")
+        fail(f"serve {arch}: the probe and the worker's reserve ({charged} "
+             f"B) are below the observed peak ({peak} B)")
     if not wide:
         return launches
 
@@ -893,7 +1100,11 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     # 4 probed reservations fit the card, so 4 batches share it at once
     del alone
     fresh_card(torch)
-    wide_res = serve(arch, requests=32, workers=4, **kw)
+    with PhaseClock(torch) as four_clock:
+        wide_res = serve(arch, requests=32, workers=4, **kw)
+    print(f"[serve] {arch} per-batch eager phases, host/stream/wall ms: "
+          f"1 worker {one_clock.summary()}; 4 workers "
+          f"{four_clock.summary()}", flush=True)
     print(f"[serve] {arch} 4 pool workers: {wide_res['completed']}/"
           f"{wide_res['batches']} done, {wide_res['crashed']} crashed, "
           f"{wide_res['tokens_per_s']:.1f} tok/s against "
@@ -908,6 +1119,10 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
         fail(f"serve {arch} with 4 workers: {wide_res['errors']}")
     check_tokens(f"serve {arch} with 4 workers", wide_res["generated"],
                  (4, kw["gen_len"]), cfg.vocab)
+    if wide_res["tokens_per_s"] < one_worker:
+        fail(f"serve {arch}: 4 pool workers sharing the card serve "
+             f"{wide_res['tokens_per_s']:.1f} tok/s, fewer than 1 worker's "
+             f"{one_worker:.1f}")
     return launches
 
 
@@ -1270,6 +1485,8 @@ def main() -> None:
           f", CUDA {torch.version.cuda}", flush=True)
     gpu = card_line()
     phase_build(torch)
+    phase_paper(torch, gpu)
+    phase_twin(torch)
     table = phase_kernels(torch)
     phase_reduced(torch, "gemma2-9b", 100)
     phase_reduced(torch, "falcon-mamba-7b", 128)

@@ -1,12 +1,17 @@
-"""The paper's live loop in PyTorch: probes (``probe``), lazy buffers
-(``lazy``), the MGB schedulers (``scheduler``), the live executor
-(``executor``) and the open-arrival front-end (``cluster``).
+"""The paper's live loop in PyTorch: task construction (``taskgraph``,
+Algorithm 1), probes (``probe``), lazy buffers (``lazy``), the schedulers
+(``scheduler``: SA, CG, schedGPU's memory-only policy, MGB Algorithms 2
+and 3), the live executor (``executor``), its virtual-clock twin
+(``simulator``, over the ``interference`` model) and the open-arrival
+front-end (``cluster``) over either; the paper's Rodinia jobs
+(``workloads``).
 
 Port of ``src/repro/core/__init__.py``: ``Cluster``/``JobHandle``/
 ``JobStatus`` are re-exported lazily (PEP 562), so task-only consumers do not
 import torch's CUDA machinery through the executor.
 """
 from repro_torch.core.task import Job, ResourceVector, Task, UnitTask  # noqa: F401
+from repro_torch.core.taskgraph import build_gpu_tasks  # noqa: F401
 
 _CLUSTER_EXPORTS = ("Cluster", "JobHandle", "JobStatus")
 

@@ -1,21 +1,33 @@
 """Open-arrival submission front-end: the ``Cluster`` object jobs arrive at.
 
-Port of ``src/repro/core/cluster.py``, live backend only. The paper's
-scheduler is a daemon — probes submit tasks whenever a process reaches a
-launch point. ``submit`` may be called at any time (including while earlier
-jobs are mid-flight) and returns a future-like ``JobHandle``; ``drain`` is
-the barrier; ``shutdown`` tears the engine down.
+Port of ``src/repro/core/cluster.py``. The paper's scheduler is a daemon —
+probes submit tasks whenever a process reaches a launch point. ``submit``
+may be called at any time (including while earlier jobs are mid-flight) and
+returns a future-like ``JobHandle``; ``drain`` is the barrier; ``shutdown``
+tears the engine down.
 
     cluster = Cluster(MGBAlg3Scheduler(1, hbm_per_device=...), workers=1)
     h = cluster.submit(ej, priority=5, deadline_s=2.0)
     recs = h.result(timeout=30)    # per-task ExecRecords
     cluster.drain()
 
-Admission goes through the scheduler's own priority/deadline waiter queue:
-higher ``priority`` first, EDF within a class, arrival order last. With
-``shed_late=True`` a job still parked when its deadline passes is failed with
-``JobStatus.SHED``. The simulator backend, preemption, tracing, explain,
-calibration and profiling come in later slices.
+Two interchangeable backends sit behind the same API:
+
+  * ``backend="live"`` — the event-driven ``Executor``: real PyTorch work on
+    the card (or the CPU), wall-clock time, a bounded execution pool;
+  * ``backend="sim"``  — the discrete-event ``Simulator``: virtual clock,
+    processor-sharing interference model, no real execution. ``step()``
+    advances the clock so submissions can interleave with simulated
+    progress.
+
+Both route admission through the scheduler's own priority/deadline waiter
+queue: higher ``priority`` first, EDF within a class, arrival order last, so
+the same submission trace produces the same admission order live and
+simulated. With ``shed_late=True`` a job still parked when its deadline
+passes is failed with ``JobStatus.SHED``. ``trace=True`` (or a ``Tracer``)
+attaches an ``obs.events.Tracer`` that the scheduler and both backends emit
+into. Preemption, explain, calibration, profiling and trace export come in
+later slices.
 """
 from __future__ import annotations
 
@@ -26,7 +38,9 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 from repro_torch.core.executor import ExecJob, ExecRecord, Executor, _JobRun
 from repro_torch.core.scheduler.base import Scheduler
+from repro_torch.core.simulator import Simulator, _JobState
 from repro_torch.core.task import Job
+from repro_torch.obs.events import Tracer, attach_tracer
 
 
 class JobStatus(enum.Enum):
@@ -39,17 +53,24 @@ class JobStatus(enum.Enum):
 
 
 class JobHandle:
-    """Future-like view of one submitted job."""
+    """Future-like view of one submitted job, valid on either backend.
 
-    def __init__(self, executor: Executor, job: Job, state: _JobRun):
-        self._ex = executor
+    ``result(timeout)`` blocks (live: wall clock; sim: advances the virtual
+    clock) until the job resolves and returns its per-task ``ExecRecord``
+    list; check ``status`` to distinguish DONE from CRASHED/CANCELLED.
+    """
+
+    def __init__(self, cluster: "Cluster", job: Job,
+                 state: Union[_JobRun, _JobState]):
+        self._cluster = cluster
         self.job = job
         self._state = state
 
     @property
     def status(self) -> JobStatus:
         s = self._state
-        if s.done.is_set():
+        finished = s.done.is_set() if isinstance(s, _JobRun) else s.done
+        if finished:
             if s.cancelled:
                 return JobStatus.CANCELLED
             if s.shed:
@@ -61,38 +82,81 @@ class JobHandle:
 
     @property
     def records(self) -> List[ExecRecord]:
-        """Per-task execution records accumulated so far."""
+        """Per-task execution records accumulated so far (live wall times or
+        virtual-clock times, matching the backend)."""
         return list(self._state.records)
 
     def result(self, timeout: Optional[float] = None) -> List[ExecRecord]:
-        """Wait up to ``timeout`` wall seconds for the job to resolve
-        (``TimeoutError`` on expiry); returns its ``ExecRecord`` list."""
-        if not self._state.done.wait(timeout):
-            raise TimeoutError(f"job {self.job.name!r} still "
-                               f"{self.status.value} after {timeout}s")
+        """Wait until the job resolves; returns its ``ExecRecord`` list.
+        Live backend: blocks up to ``timeout`` wall seconds (raises
+        ``TimeoutError`` on expiry). Sim backend: advances the virtual clock
+        until the job resolves (``timeout`` bounds virtual seconds)."""
+        s = self._state
+        if isinstance(s, _JobRun):
+            if not s.done.wait(timeout):
+                raise TimeoutError(f"job {self.job.name!r} still "
+                                   f"{self.status.value} after {timeout}s")
+        else:
+            sim = self._cluster._sim
+            limit = sim.now + timeout if timeout is not None else None
+            while not s.done:
+                if limit is not None and sim.now > limit:
+                    raise TimeoutError(f"job {self.job.name!r} still "
+                                       f"{self.status.value} at virtual "
+                                       f"t={sim.now:.3f}")
+                if not sim.step():
+                    break  # simulation idle: job crashed-at-drain or stuck
+            if not s.done:
+                raise TimeoutError(
+                    f"job {self.job.name!r} cannot make progress")
         return self.records
 
     def cancel(self) -> bool:
-        """Cancel the job; False iff it had already finished."""
-        return self._ex.cancel(self._state)
+        """Cancel the job: a parked/queued job ends immediately; a running
+        task finishes its current kernel first. False iff the job had
+        already finished."""
+        return self._cluster._cancel(self._state)
 
 
 class Cluster:
-    """The open-arrival submission surface over a scheduler and the live
-    executor. ``devices`` is the executor's device table (default: every
-    CUDA card)."""
+    """The open-arrival submission surface over a scheduler and a backend.
+    ``devices`` is the live executor's device table (default: every CUDA
+    card); ``poll_interval`` and ``crash_delay`` are the simulator's."""
 
     def __init__(self, scheduler: Scheduler, *, workers: Optional[int] = None,
+                 backend: str = "live",
                  devices: Optional[Sequence[object]] = None,
-                 shed_late: bool = False):
+                 poll_interval: float = 0.05, crash_delay: float = 8.0,
+                 shed_late: bool = False,
+                 trace: Union[None, bool, Tracer] = None):
         self.sched = scheduler
-        # the reference's backend switch; the port has the live one only
-        self.backend = "live"
+        self.backend = backend
         scheduler.shed_expired = shed_late
-        scheduler._clock = time.monotonic
         n_workers = workers if workers is not None \
             else len(scheduler.devices)
-        self._ex = Executor(scheduler, workers=n_workers, devices=devices)
+        self._ex: Optional[Executor] = None
+        self._sim: Optional[Simulator] = None
+        if backend == "live":
+            # a scheduler previously driven by a Simulator has its _clock
+            # bound to that sim's (now frozen) virtual time: restore wall
+            # monotonic so deadline shedding judges live deadlines correctly
+            scheduler._clock = time.monotonic
+            self._ex = Executor(scheduler, workers=n_workers,
+                                devices=devices)
+        elif backend == "sim":
+            self._sim = Simulator(scheduler, workers=n_workers,
+                                  poll_interval=poll_interval,
+                                  crash_delay=crash_delay)
+        else:
+            raise ValueError(f"unknown backend {backend!r} "
+                             "(expected 'live' or 'sim')")
+        # attached after the backend: attach_tracer binds the tracer's clock
+        # to the scheduler's _clock late, so it follows the sim's virtual
+        # clock. Identity checks, not truthiness: an empty Tracer is falsy
+        self.trace: Optional[Tracer] = None
+        if trace is not None and trace is not False:
+            self.trace = trace if isinstance(trace, Tracer) else Tracer()
+            attach_tracer(scheduler, self.trace)
         self.handles: List[JobHandle] = []
         self._attempts0 = getattr(scheduler, "begin_attempts", 0)
         self._submit_lock = threading.Lock()
@@ -115,20 +179,31 @@ class Cluster:
                deadline_s: Optional[float] = None,
                on_done: Optional[Callable[["JobHandle"], None]] = None
                ) -> JobHandle:
-        """Submit ``job`` now (an ``ExecJob``, or a ``Job`` plus
-        ``runners``). ``priority`` (higher first) and ``deadline_s``
-        (seconds from now; EDF within a class) rank it in the admission
-        queue. ``on_done(handle)`` fires once when the job resolves, on a
-        backend thread."""
+        """Submit ``job`` now. ``priority`` (higher first) and
+        ``deadline_s`` (seconds from now on the backend's clock; EDF within
+        a class) rank it in the admission queue. The live backend wants an
+        ``ExecJob`` (or a ``Job`` plus ``runners``); the sim backend takes
+        a plain ``Job``. ``on_done(handle)`` fires once when the job
+        resolves (live: on a backend thread)."""
         done_cb = self._on_job_resolved if on_done is None \
             else self._chain_on_done(on_done)
         with self._submit_lock:
-            ej = self._as_execjob(job, runners)
-            deadline_t = (time.monotonic() + deadline_s
-                          if deadline_s is not None else None)
-            state = self._ex.submit(ej, priority=priority,
-                                    deadline_t=deadline_t, on_done=done_cb)
-            handle = JobHandle(self._ex, ej.job, state)
+            if self._ex is not None:
+                ej = self._as_execjob(job, runners)
+                deadline_t = (time.monotonic() + deadline_s
+                              if deadline_s is not None else None)
+                state: Union[_JobRun, _JobState] = self._ex.submit(
+                    ej, priority=priority, deadline_t=deadline_t,
+                    on_done=done_cb)
+                handle = JobHandle(self, ej.job, state)
+            else:
+                plain = job.job if isinstance(job, ExecJob) else job
+                deadline_t = (self._sim.now + deadline_s
+                              if deadline_s is not None else None)
+                state = self._sim.submit(plain, priority=priority,
+                                         deadline_t=deadline_t,
+                                         on_done=done_cb)
+                handle = JobHandle(self, plain, state)
             with self._stats_lock:
                 self._n_jobs += 1
                 self._t0 = min(self._t0, handle.job.arrival_t)
@@ -136,16 +211,20 @@ class Cluster:
             return handle
 
     def _chain_on_done(self, user_cb: Callable[["JobHandle"], None]
-                       ) -> Callable[[_JobRun], None]:
-        def cb(state: _JobRun) -> None:
+                       ) -> Callable[[Union[_JobRun, _JobState]], None]:
+        """The backend may resolve an (e.g. empty) job inside ``submit``,
+        before the public handle exists, so the handle is built from the
+        backend state."""
+        def cb(state: Union[_JobRun, _JobState]) -> None:
             self._on_job_resolved(state)
-            user_cb(JobHandle(self._ex, state.ej.job, state))
+            job = state.ej.job if isinstance(state, _JobRun) else state.job
+            user_cb(JobHandle(self, job, state))
         return cb
 
-    def _on_job_resolved(self, state: _JobRun) -> None:
+    def _on_job_resolved(self, state: Union[_JobRun, _JobState]) -> None:
         """Fold the job's terminal status into the aggregate counters:
         cancel beats shed beats crash beats done."""
-        job = state.ej.job
+        job = state.ej.job if isinstance(state, _JobRun) else state.job
         with self._stats_lock:
             if job.finish_t >= 0:
                 self._t1 = max(self._t1, job.finish_t)
@@ -172,21 +251,71 @@ class Cluster:
                              f"{len(job.tasks)} tasks")
         return ExecJob(job=job, runners=list(runners))
 
-    # -- barriers ------------------------------------------------------------
+    def _cancel(self, state: Union[_JobRun, _JobState]) -> bool:
+        if isinstance(state, _JobRun):
+            return self._ex.cancel(state)
+        return self._sim.cancel(state)
+
+    # -- barriers / clock ----------------------------------------------------
     def drain(self) -> None:
-        """Block until every job submitted so far has resolved."""
-        self._ex.drain()
+        """Barrier: block (live) or advance the virtual clock (sim) until
+        every job submitted so far has resolved. A sim drain that hits its
+        virtual time limit with work still pending raises: a capped run
+        must not read as a completed one."""
+        if self._ex is not None:
+            self._ex.drain()
+        else:
+            self._sim_drain_checked()
+
+    def _sim_drain_checked(self) -> None:
+        res = self._sim.drain()
+        if res.truncated:
+            raise RuntimeError(
+                f"simulation drain truncated at virtual t={self._sim.now:.0f}s "
+                f"with work still pending ({res.completed} completed) — the "
+                f"time limit was hit, not the end of the trace")
+
+    def step(self) -> bool:
+        """Sim backend: advance the virtual clock one event (False when
+        idle). Live backend: no-op False — wall time advances on its own."""
+        if self._sim is not None:
+            return self._sim.step()
+        return False
+
+    def run_until(self, t: float) -> None:
+        """Sim backend: advance the virtual clock to exactly ``t`` (submit,
+        run_until the next arrival, submit). Live backend: no-op."""
+        if self._sim is not None:
+            self._sim.run_until(t)
+
+    def inject_failure(self, device) -> None:
+        """Declare ``device`` dead now on either backend (sim: residents'
+        virtual runs stop and re-park; live: the scheduler's mark_dead
+        path)."""
+        if self._sim is not None:
+            self._sim.inject_failure(device)
+        else:
+            self.sched.mark_dead(device)
+
+    def revive(self, device) -> None:
+        """Bring ``device`` back in service on either backend."""
+        if self._sim is not None:
+            self._sim.revive_device(device)
+        else:
+            self.sched.revive(device)
 
     @property
     def now(self) -> float:
-        """Current time on the backend's clock (the live one: monotonic
-        wall seconds)."""
-        return time.monotonic()
+        """Current time on the backend's clock (virtual for sim)."""
+        return self._sim.now if self._sim is not None else time.monotonic()
 
     def shutdown(self) -> None:
-        """Drain, then stop the execution pool. The next ``submit``
-        restarts it."""
-        self._ex.shutdown()
+        """Drain, then stop the live execution pool (sim: just drains). The
+        next ``submit`` restarts the pool."""
+        if self._ex is not None:
+            self._ex.shutdown()
+        else:
+            self._sim_drain_checked()
 
     def __enter__(self) -> "Cluster":
         return self
@@ -196,8 +325,8 @@ class Cluster:
 
     # -- metrics -------------------------------------------------------------
     def stats(self) -> Dict[str, float]:
-        """Aggregate metrics over every job submitted so far (wall
-        seconds), read from maintained counters."""
+        """Aggregate metrics over every job submitted so far (wall seconds
+        live, virtual seconds sim), read from maintained counters."""
         with self._stats_lock:
             attempts = getattr(self.sched, "begin_attempts", 0) \
                 - self._attempts0

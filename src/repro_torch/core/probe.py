@@ -16,15 +16,19 @@ shapes and dtypes only, nothing is allocated on the card. During that trace
     port's hand kernels are custom ops with fake implementations, and flash
     attention registers a flop formula (``4·B·Hq·visible pairs·D``), so the
     count covers matmuls and attention;
-  * ``bytes_accessed`` sums the bytes each non-view op reads and writes, as
-    XLA's "bytes accessed" does per HLO op.
+  * ``bytes_accessed`` sums the bytes each op reads and writes, as XLA's
+    "bytes accessed" does per HLO op; views and metadata queries move none.
 
 The arithmetic of ``vector_from_compiled`` is kept (``vector_from_counts``),
 with H100 SXM datasheet peaks in place of the v5e constants. Probes are
-cached by (fn, shape signature), as the reference caches compilations.
+cached by (fn, shape signature), as the reference caches compilations. An
+argument may be a ``TensorSpec`` (shape, dtype, device and no data, the
+reference's ``jax.ShapeDtypeStruct``): the trace takes a fake tensor in its
+place, so a probe at a multi-GB footprint allocates nothing anywhere.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -53,6 +57,15 @@ CUDA_UNSEEN_BYTES = 40 << 20
 PEAK_FLOPS = 989e12
 HBM_BW = 3.35e12
 LINK_BW = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """An argument's shape, dtype and device, without data: what a probe
+    needs of a tensor that is never allocated."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    device: torch.device = torch.device("cpu")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -96,7 +109,10 @@ class _LiveBytes(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        if not getattr(func, "is_view", False):
+        # views move no bytes, nor do metadata queries (``prim.device``,
+        # which indexing with a Python int asks of the whole tensor)
+        if not getattr(func, "is_view", False) \
+                and getattr(func, "namespace", None) != "prim":
             self.bytes_accessed += sum(
                 _nbytes(t) for t in tree_leaves((args, kwargs))
                 if isinstance(t, torch.Tensor)) + sum(map(_nbytes, outs))
@@ -138,19 +154,28 @@ def vector_from_counts(*, hbm_bytes: int, flops: float,
 
 def trace_counts(fn: Callable, *args, uncharged: Sequence[int] = ()
                  ) -> Dict[str, float]:
-    """Run ``fn(*args)`` once on fake copies of the tensor arguments and
-    return {hbm_bytes, arg_bytes, peak_live_bytes, unseen_bytes, flops,
-    bytes_accessed}.
+    """Run ``fn(*args)`` once on fake copies of the tensor arguments (fake
+    tensors of a ``TensorSpec``'s shape) and return {hbm_bytes, arg_bytes,
+    peak_live_bytes, unseen_bytes, flops, bytes_accessed}.
     Nothing is allocated on any device. The arguments at the positions in
     ``uncharged`` are traced like the others but their bytes are left out of
     ``arg_bytes`` (shared state that something else already holds, such as
     the weights of a server whose decode loop charges them once); a storage
     that a charged argument shares is charged."""
-    on_card = any(t.device.type == "cuda" for t in tree_leaves(args)
-                  if isinstance(t, torch.Tensor))
+    on_card = any(torch.device(t.device).type == "cuda"
+                  for t in tree_leaves(args)
+                  if isinstance(t, (torch.Tensor, TensorSpec)))
     fake = FakeTensorMode()
-    fargs = tree_map(lambda a: fake.from_tensor(a)
-                     if isinstance(a, torch.Tensor) else a, args)
+
+    def fake_arg(a):
+        if isinstance(a, torch.Tensor):
+            return fake.from_tensor(a)
+        if isinstance(a, TensorSpec):
+            with fake:
+                return torch.empty(a.shape, dtype=a.dtype, device=a.device)
+        return a
+
+    fargs = tree_map(fake_arg, args)
     storages, charged = {}, set()
     for i, arg in enumerate(fargs):
         for t in tree_leaves(arg):

@@ -3,8 +3,8 @@
 
 Port of ``src/repro/launch/serve.py`` (no preemption or tracing yet).
 Every request batch is ONE task whose resource vector comes from probing
-the task's whole body (``static_task``: prefill, the padded cache and one
-decode step; ``repro_torch.core.probe``); each batch is submitted through
+what the task allocates (``static_task``: the prefill and its first
+tokens; ``repro_torch.core.probe``); each batch is submitted through
 ``Cluster`` with a per-request deadline (EDF within its priority class);
 blocked batches park in the MGB scheduler's admission queue and completions
 wake the next one. Rows of the last batch beyond ``requests`` are shape
@@ -30,13 +30,17 @@ Differences from the reference:
     cards, which the port does not have yet;
   * each runner synchronises its stream before it stamps a time, so TTFT
     and TPOT measure work, not launches;
-  * the probe covers the whole task, not the prefill alone, and on the
-    card each batch's decode step is captured once in a CUDA graph on its
-    pool worker's stream and replayed (``serve.decode.greedy_generate``),
-    where the reference runs a jitted ``lax.scan``;
+  * each pool worker decodes its batches over buffers it keeps (a
+    ``serve.decode.GreedyDecoder`` a worker: the padded cache, tokens,
+    position and, on the card, the step captured once in a CUDA graph on
+    the worker's stream and replayed for every later step of every
+    batch), where the reference runs a jitted ``lax.scan`` over the
+    prefill's cache. A batch's prefill cache is copied into them;
   * on a card the scheduler manages the memory free when serving starts,
-    less what the execution pool's streams keep between tasks
-    (``pool_reserve``), where the reference sizes it by the device.
+    less what each pool worker keeps between tasks (``pool_reserve``: its
+    stream's cuBLAS workspace and, when serving statically, its decoder,
+    probed by ``decode_state``), where the reference sizes it by the
+    device.
 
 Preemption and tracing come in later slices.
 
@@ -60,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import threading
 import time
 from typing import List, Optional
 
@@ -73,10 +78,9 @@ from repro_torch.core.probe import CUDA_UNSEEN_BYTES, probe_fn
 from repro_torch.core.scheduler import MGBAlg3Scheduler
 from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
-from repro_torch.models import decode as D
 from repro_torch.models.model import FAMILIES, init_params
 from repro_torch.serve.decode import (
-    decode_cache, greedy_generate, make_prefill_step,
+    GreedyDecoder, decode_buffers, make_prefill_step,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,13 +112,16 @@ def serving_devices(num_devices: int, device: Optional[str]):
     return devs, hbm
 
 
-def pool_reserve(devices, workers: int) -> int:
+def pool_reserve(devices, workers: int,
+                 kept: int = CUDA_UNSEEN_BYTES) -> int:
     """Bytes of each device that the execution pool holds outside every
     task, set aside from what the scheduler manages: on a card each pool
-    worker's stream keeps the cuBLAS workspace that its first task made (the
-    probe's ``CUDA_UNSEEN_BYTES`` covers it while that task runs) for as
-    long as the pool lives, so one ``CUDA_UNSEEN_BYTES`` a worker."""
-    return workers * CUDA_UNSEEN_BYTES if devices[0].type == "cuda" else 0
+    worker keeps ``kept`` bytes for as long as the pool lives. Its stream
+    keeps the cuBLAS workspace that its first task made (the probe's
+    ``CUDA_UNSEEN_BYTES`` covers it while that task runs), the default;
+    a static server's worker also keeps its decoder (``decode_state``,
+    whose probe includes the workspace)."""
+    return workers * kept if devices[0].type == "cuda" else 0
 
 
 def _sync(device: torch.device) -> None:
@@ -122,18 +129,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
-def static_task(params, batch: dict, cfg, max_seq: int):
-    """What one static serving task allocates, for its probe: the prefill,
-    the cache padded for ``max_seq`` positions, and one decode step. Every
-    later step repeats the same allocations in place (the card replays it
-    from a graph whose pool holds one step's temporaries), so one step
-    stands for all."""
+def static_task(params, batch: dict, cfg):
+    """What one static serving task allocates, for its probe: the prefill
+    and its first tokens. The task copies the prefill cache into its pool
+    worker's decoder and decodes there (``GreedyDecoder``), allocating
+    nothing more: the decoder is the worker's (``decode_state``)."""
     logits, cache = make_prefill_step(cfg)(params, batch)
-    first = torch.argmax(logits, dim=-1).to(torch.int32)
-    cache = decode_cache(cfg, cache, max_seq)
-    pos = torch.full((), batch["tokens"].shape[1], dtype=torch.int32,
-                     device=first.device)
-    return D.decode_step(params, cfg, cache, first, pos)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def decode_state(params, first: torch.Tensor, cfg, max_seq: int):
+    """What a static server's pool worker keeps between its tasks, for its
+    probe: a ``GreedyDecoder``'s buffers for ``first.shape[0]`` rows and
+    ``max_seq`` positions, and one decode step over them (on the card the
+    step's temporaries live in the graph's memory pool for as long as the
+    decoder does; a replay repeats them in place)."""
+    cache = decode_buffers(cfg, first.shape[0], max_seq,
+                           params["embed"].dtype, first.device)
+    dec = GreedyDecoder(cfg, params, cache)
+    dec.step()
+    return dec.tokens
 
 
 def serve(arch: str, *, requests: int = 16, batch: int = 4,
@@ -158,8 +173,7 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         params[dev] = init_params(cfg, gen, param_dtype, dev)
     prefill = make_prefill_step(cfg)
     workers = workers or num_devices
-    sched = MGBAlg3Scheduler(
-        num_devices, hbm_per_device=hbm - pool_reserve(devices, workers))
+    max_seq = prompt_len + gen_len
 
     rng = np.random.default_rng(seed)
     n_batches = (requests + batch - 1) // batch
@@ -176,13 +190,20 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         return b
 
     batches = [make_batch() for _ in range(n_batches)]
-    # probe ONE representative batch's whole task body: all batches share
-    # shapes, so they share the resource vector. Fake tensors only: nothing
-    # is allocated.
+    # probe ONE representative batch's task body: all batches share
+    # shapes, so they share the resource vector; and what a pool worker
+    # keeps between them. Fake tensors only: nothing is allocated.
     first = devices[0]
     vec = probe_fn(static_task, params[first],
-                   {k: v.to(first) for k, v in batches[0].items()}, cfg,
-                   prompt_len + gen_len)
+                   {k: v.to(first) for k, v in batches[0].items()}, cfg)
+    kept = probe_fn(decode_state, params[first],
+                    torch.zeros(batch, dtype=torch.int32, device=first),
+                    cfg, max_seq, uncharged=(0,))
+    sched = MGBAlg3Scheduler(
+        num_devices,
+        hbm_per_device=hbm - pool_reserve(devices, workers, kept.hbm_bytes))
+    # (pool thread, device) -> the decoder that thread keeps for it
+    decoders = {}
 
     cluster = Cluster(sched, workers=workers, devices=devices,
                       shed_late=shed_late)
@@ -201,9 +222,14 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             _sync(dev)
             marks[i][1] = time.time()
-            cache = decode_cache(cfg, cache, prompt_len + gen_len)
-            out, _ = greedy_generate(cfg, p, cache, first_tok, prompt_len,
-                                     gen_len - 1)
+            key = (threading.get_ident(), dev)
+            dec = decoders.get(key)
+            if dec is None:
+                dec = decoders[key] = GreedyDecoder(cfg, p, decode_buffers(
+                    cfg, batch, max_seq, p["embed"].dtype, dev))
+            dec.load(cache, first_tok, prompt_len)
+            del logits, cache  # the decoder holds what decode reads
+            out = dec.generate(gen_len - 1)
             toks = torch.cat([first_tok[:, None], out], dim=1)
             generated[i] = toks[:rows[i]].cpu().numpy()  # synchronises
             marks[i][2] = time.time()
@@ -220,6 +246,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     stats = cluster.stats()
     cluster.shutdown()
     wall = time.time() - t0
+    graphs = sum(d.graph is not None for d in decoders.values())
+    decoders.clear()  # their buffers and graph pools go with them
     done = [i for i, h in enumerate(handles) if h.status is JobStatus.DONE]
     toks = sum(rows[i] for i in done) * gen_len
     lat = [r.t_end - r.t_start
@@ -248,7 +276,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             "shed": len(shed),
             "sched_attempts": stats["sched_attempts"],
             "placements": sched.placements,
-            "probe": vec, "hbm_per_device": sched.devices[0].total_hbm,
+            "probe": vec, "kept_per_worker": kept, "decode_graphs": graphs,
+            "hbm_per_device": sched.devices[0].total_hbm,
             "generated": generated}
 
 

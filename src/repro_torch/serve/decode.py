@@ -6,7 +6,9 @@ Port of ``src/repro/serve/decode.py`` for the dense, moe and ssm families.
 ``greedy_generate`` loops over ``decode_step`` where the reference
 ``lax.scan``s; on the card the step is captured once in a CUDA graph
 (``StepGraph``) and replayed, the port's counterpart of the reference's
-compiled loop, so a step costs no host time per kernel.
+compiled loop, so a step costs no host time per kernel. A
+``GreedyDecoder`` keeps its buffers and its graph between batches of one
+shape, so a static server's pool worker captures once.
 
 Ring-cache hand-off: pure sliding-window archs (mixtral) decode over a ring
 of ``window`` slots, position p at slot ``p % window``. After a prefill of S
@@ -16,6 +18,7 @@ window (reference ``serve/decode.py:37-59``).
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict, Tuple
 
@@ -145,14 +148,20 @@ class StepGraph:
     it. The capture uses ``capture_error_mode="thread_local"``, so several
     pool threads can capture at once, and none of ``torch.cuda.graph``'s
     device-wide synchronize and cache release, which would reach into other
-    threads' streams. A failed capture raises: nothing falls back to eager
-    steps on the card. The graph's private memory pool holds the step's
-    temporaries for as long as the graph lives (the probe charges them as
-    the step's live peak)."""
+    threads' streams. Warm-ups and captures of the process take turns
+    (``_TURNS``): four pool threads capturing at once each took 3.6x longer
+    to warm up, 4.4x to capture and 4.3x to instantiate the graph than one
+    alone, and 1.1x, 1.4x and 0.8x when they took turns
+    (``tools/pool_workers.py``, gemma2-9b on an H100). A failed capture
+    raises: nothing falls back to eager steps on the card. The graph's
+    private memory pool holds the step's temporaries for as long as the
+    graph lives (the probe charges them as the step's live peak)."""
+
+    _TURNS = threading.Lock()
 
     def __init__(self, step: Callable[[], None], stream: "torch.cuda.Stream"):
         self.stream = stream
-        with torch.cuda.stream(stream):
+        with self._TURNS, torch.cuda.stream(stream):
             step()
             t = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
@@ -175,47 +184,107 @@ class StepGraph:
         REPLAYS.add()
 
 
+def decode_buffers(cfg: ArchConfig, rows: int, max_seq: int,
+                   act_dtype: torch.dtype, device=None) -> D.Cache:
+    """Zeroed buffers of the shapes and dtypes that ``decode_cache`` makes
+    of a prefill of ``rows`` rows whose activations are ``act_dtype``: a
+    KV cache padded for ``max_seq`` positions (bf16, or int8 codes with
+    bf16 scales), a ring of ``window`` slots in the prefill's dtype, or an
+    ssm cache (conv state in the prefill's dtype, SSM state f32)."""
+    if cfg.family == "ssm":
+        return D.init_cache(cfg, rows, max_seq, dtype=act_dtype,
+                            device=device)
+    if D.uses_ring(cfg):
+        dtype = torch.bfloat16 if cfg.kv_cache_dtype == "int8" \
+            else act_dtype
+        return D.init_cache(cfg, rows, cfg.sliding_window, dtype=dtype,
+                            device=device)
+    return D.init_cache(cfg, rows, max_seq, device=device)
+
+
+class GreedyDecoder:
+    """Greedy decode over buffers that outlive a batch: ``cache`` (a decode
+    cache as ``decode_cache`` makes it, or ``decode_buffers``), the tokens
+    and the position. ``load`` copies a batch's prefill cache and first
+    tokens in, ``generate`` steps.
+
+    On a CPU tensor the steps run eagerly. On the card the step is
+    captured once (``StepGraph``) on ``capture_stream``: the first step of
+    the first ``generate`` is the warm-up, and every later step, of that
+    batch and of every batch loaded after it, is a replay. A static
+    server's pool worker keeps one decoder per batch shape, so it captures
+    once, not once a batch; the decoder's buffers and graph pool are then
+    the worker's, set aside from what the scheduler manages
+    (``launch.serve.pool_reserve``)."""
+
+    def __init__(self, cfg: ArchConfig, params, cache: D.Cache):
+        self.cfg, self.params, self.cache = cfg, params, cache
+        t = next(iter(cache.values()))
+        self.device = t.device
+        self.tokens = torch.zeros(D.cache_rows(cache), dtype=torch.int32,
+                                  device=self.device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.graph = None
+
+    def step(self) -> None:
+        logits, _ = D.decode_step(self.params, self.cfg, self.cache,
+                                  self.tokens, self.pos)
+        self.tokens.copy_(torch.argmax(logits, dim=-1))
+        self.pos.add_(1)
+
+    def load(self, cache: D.Cache, first_tokens: torch.Tensor,
+             start_pos: int) -> None:
+        """Copy a prefill ``cache`` into the decoder's (zero-padding the
+        sequence axis, ``models.decode.cache_insert``; nothing is copied
+        where it is the decoder's own) and start from ``first_tokens`` at
+        position ``start_pos``."""
+        if cache is not self.cache:
+            D.cache_insert(self.cache, cache, 0)
+        self.tokens.copy_(first_tokens)
+        self.pos.fill_(start_pos)
+
+    def generate(self, num_steps: int) -> torch.Tensor:
+        """``num_steps`` greedy steps from the loaded tokens and position:
+        the tokens [B, num_steps] int32 (an empty [B, 0] block for 0)."""
+        out = torch.empty(self.tokens.shape[0], max(num_steps, 0),
+                          dtype=torch.int32, device=self.device)
+        if num_steps <= 0:
+            return out
+        if self.device.type != "cuda":
+            for i in range(num_steps):
+                self.step()
+                out[:, i] = self.tokens
+            return out
+        caller = torch.cuda.current_stream(self.device)
+        first = 0
+        if self.graph is None:
+            self.graph = StepGraph(self.step, capture_stream(self.device))
+            first = 1  # the warm-up was this batch's first step
+        stream = self.graph.stream
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            if first:
+                out[:, 0].copy_(self.tokens)
+            for i in range(first, num_steps):
+                self.graph.replay()
+                out[:, i].copy_(self.tokens)
+        stream.synchronize()
+        caller.wait_stream(stream)
+        return out
+
+
 def greedy_generate(cfg: ArchConfig, params, cache: D.Cache,
                     first_tokens: torch.Tensor, start_pos: int,
                     num_steps: int) -> Tuple[torch.Tensor, D.Cache]:
     """Greedy generation: ``num_steps`` decode steps from ``first_tokens``
-    at position ``start_pos``. Returns (tokens [B, num_steps] int32, cache).
-    A KV cache must hold ``start_pos + num_steps`` positions, or be a ring;
-    the caller pads a prompt-deep prefill cache first (``decode_cache``). An
-    ssm cache holds states, whatever the position.
-    ``num_steps=0`` returns an empty [B, 0] block with the cache untouched.
-
-    Tokens and the position live in device buffers that the step updates
-    in place (argmax, ``pos += 1``). On a CPU tensor the steps run eagerly;
-    on the card the first step is the warm-up of a ``StepGraph`` captured on
-    ``capture_stream`` (a pool worker's own stream in the executor), and
-    the rest are its replays. The stream is synchronised before the graph,
-    and its memory pool, are released.
-    """
-    b, dev = first_tokens.shape[0], first_tokens.device
-    out = torch.empty(b, max(num_steps, 0), dtype=torch.int32, device=dev)
-    if num_steps <= 0:
-        return out, cache
-    tokens = first_tokens.to(torch.int32).clone()
-    pos = torch.full((), start_pos, dtype=torch.int32, device=dev)
-
-    def step():
-        logits, _ = D.decode_step(params, cfg, cache, tokens, pos)
-        tokens.copy_(torch.argmax(logits, dim=-1))
-        pos.add_(1)
-
-    if dev.type != "cuda":
-        for i in range(num_steps):
-            step()
-            out[:, i] = tokens
-        return out, cache
-    stream = capture_stream(dev)
-    graph = StepGraph(step, stream)
-    with torch.cuda.stream(stream):
-        out[:, 0].copy_(tokens)
-        for i in range(1, num_steps):
-            graph.replay()
-            out[:, i].copy_(tokens)
-    stream.synchronize()
-    torch.cuda.current_stream(dev).wait_stream(stream)
-    return out, cache
+    at position ``start_pos``, over ``cache`` in place. Returns (tokens
+    [B, num_steps] int32, cache). A KV cache must hold ``start_pos +
+    num_steps`` positions, or be a ring; the caller pads a prompt-deep
+    prefill cache first (``decode_cache``). An ssm cache holds states,
+    whatever the position. ``num_steps=0`` returns an empty [B, 0] block
+    with the cache untouched. A ``GreedyDecoder`` of its own over
+    ``cache``: on the card its graph, and the graph's memory pool, are
+    released when this returns."""
+    dec = GreedyDecoder(cfg, params, cache)
+    dec.load(cache, first_tokens, start_pos)
+    return dec.generate(num_steps), cache

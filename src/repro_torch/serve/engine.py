@@ -40,9 +40,8 @@ with their imports rewritten to ``repro_torch`` (keep them in step);
 ``JaxModel`` becomes ``TorchModel``, whose decode step is replayed from a
 CUDA graph on the card where the reference jits it, and whose rows are
 allocated with the loop, so its joins carry no memory delta (the base
-holds every row; see its docstring). The port's ``Cluster``
-has the live backend only, so ``run_until`` and the sim branch of ``drain``
-have no backend to drive yet.
+holds every row; see its docstring). ``run_until`` and the sim branch of
+``drain`` drive the port's ``Cluster(backend="sim")``.
 """
 from __future__ import annotations
 

@@ -9,11 +9,14 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch.utils._pytree import tree_map  # noqa: E402
 
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import decode as D  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.launch import serve as LS  # noqa: E402
+from repro_torch.serve import decode as SD  # noqa: E402
 from repro_torch.serve.decode import (  # noqa: E402
     greedy_generate, make_prefill_step,
 )
@@ -53,6 +56,93 @@ def test_serve_tokens_equal_a_direct_run():
     assert res["generated"][1].shape == (1, 5)  # padding row not served
 
 
+def _model(arch, dtype, device="cpu"):
+    cfg = get_arch(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype,
+                         torch.device("cpu"))
+    return cfg, tree_map(lambda t: t.to(device), params)
+
+
+def _prefill(cfg, params, seed, rows=2, s=12):
+    dev = params["embed"].device
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (rows, s), dtype=np.int64)).to(dev)
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": tok})
+    return torch.argmax(logits, -1).to(torch.int32), cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "llama3-405b",
+                                  "mixtral-8x7b", "falcon-mamba-7b"])
+def test_decode_buffers_have_the_padded_prefill_caches_layout(arch, dtype):
+    """A pool worker's decoder buffers take any batch's prefill cache: the
+    shapes and dtypes of ``decode_cache`` of it (int8 KV for gemma2, a
+    window-deep ring for mixtral, ssm states for falcon-mamba)."""
+    cfg, params = _model(arch, dtype)
+    _, cache = _prefill(cfg, params, 0, s=80)
+    want = SD.decode_cache(cfg, cache, 90)
+    got = SD.decode_buffers(cfg, 2, 90, dtype, "cpu")
+    assert {k: (v.shape, v.dtype) for k, v in got.items()} \
+        == {k: (v.shape, v.dtype) for k, v in want.items()}
+    assert all(not v.any() for v in got.values())
+
+
+def _kept_decoder_against_greedy_generate(arch, device, steps):
+    """One ``GreedyDecoder`` serving three batches in turn, each loaded over
+    the last one's leftovers, against a fresh ``greedy_generate`` over each
+    batch's padded prefill cache."""
+    cfg, params = _model(arch, torch.float32, device)
+    dec = SD.GreedyDecoder(cfg, params, SD.decode_buffers(
+        cfg, 2, 12 + steps + 1, torch.float32, device))
+    for seed in range(3):
+        first, cache = _prefill(cfg, params, seed)
+        want, _ = greedy_generate(
+            cfg, params, SD.decode_cache(cfg, {k: v.clone() for k, v in
+                                               cache.items()}, 13 + steps),
+            first, 12, steps)
+        dec.load(cache, first, 12)
+        assert torch.equal(dec.generate(steps).cpu(), want.cpu()), \
+            (arch, seed)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b",
+                                  "falcon-mamba-7b"])
+def test_a_kept_decoder_gives_each_batch_greedy_generates_tokens(arch):
+    _kept_decoder_against_greedy_generate(arch, "cpu", 7)
+
+
+def test_static_serve_probes_the_prefill_and_reserves_each_workers_decoder():
+    """The static path probes the prefill as the task and the decoder as
+    what each worker keeps; on a card both are charged (the task's probe
+    to the scheduler, the decoder in ``pool_reserve``)."""
+    res = serve("gemma2-9b", device="cpu", requests=8, batch=2,
+                prompt_len=12, gen_len=6, workers=2)
+    assert res["completed"] == 4 and res["decode_graphs"] == 0  # CPU: eager
+    kept = res["kept_per_worker"]
+    cfg = get_arch("gemma2-9b").reduced()
+    buf = SD.decode_buffers(cfg, 2, 18, torch.float32, "cpu")
+    assert kept.hbm_bytes > sum(t.numel() * t.element_size()
+                                for t in buf.values())
+    card = [torch.device("cuda", 0)]
+    assert LS.pool_reserve(card, 2, kept.hbm_bytes) == 2 * kept.hbm_bytes
+    assert LS.pool_reserve([torch.device("cpu")], 2, kept.hbm_bytes) == 0
+
+
+@pytest.mark.gpu
+def test_a_kept_decode_graph_gives_per_batch_graphs_tokens_on_card():
+    """Reduced gemma2 in f32 on the card: one ``GreedyDecoder`` whose graph
+    is captured at the first batch and replayed for every later one gives
+    each batch the tokens of a per-batch graph (``greedy_generate``), and
+    captures once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the step is captured in a CUDA graph")
+    captures = SD.CAPTURES.value
+    _kept_decoder_against_greedy_generate("gemma2-9b",
+                                          torch.device("cuda", 0), 15)
+    # one capture for the kept decoder, one for each greedy_generate
+    assert SD.CAPTURES.value - captures == 1 + 3
+
+
 def test_serve_without_a_card_needs_cpu_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -64,7 +154,15 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.core, repro_torch.obs; print('ok')")
+            "repro_torch.core, repro_torch.obs, repro_torch.core.cluster, "
+            "repro_torch.core.simulator, repro_torch.core.workloads, "
+            "repro_torch.core.taskgraph, repro_torch.obs.replay, "
+            "repro_torch.serve.engine, repro_torch.bench.common, "
+            "repro_torch.bench.table2_crashes, "
+            "repro_torch.bench.table3_turnaround, "
+            "repro_torch.bench.table4_slowdown, "
+            "repro_torch.bench.fig4_alg2_vs_alg3, "
+            "repro_torch.bench.fig5_throughput; print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)

@@ -305,19 +305,21 @@ def test_serve_falcon_mamba_on_cpu_completes_every_batch():
 
 def test_serve_falcon_mamba_f32_decodes_like_jax(monkeypatch):
     """serve() at f32 on the JAX model's weights: each batch's tokens and
-    its final decode states equal JAX prefill + ``greedy_generate`` on the
-    same prompt. The prefill states go to decode as they are, in f32."""
+    its final decode states (the pool worker's decoder's, read after each
+    batch) equal JAX prefill + ``greedy_generate`` on the same prompt. The
+    prefill states go to decode as they are, in f32."""
     import repro_torch.launch.serve as LS
     cfg, tcfg, params, tparams, *_ = _model()
     monkeypatch.setattr(LS, "init_params", lambda *a, **k: tparams)
     states = []
+    decode = LS.GreedyDecoder.generate
 
-    def generate(*args, **kw):
-        out, cache = TS.greedy_generate(*args, **kw)
-        states.append({k: v.clone() for k, v in cache.items()})
-        return out, cache
+    def generate(self, num_steps):
+        out = decode(self, num_steps)
+        states.append({k: v.clone() for k, v in self.cache.items()})
+        return out
 
-    monkeypatch.setattr(LS, "greedy_generate", generate)
+    monkeypatch.setattr(LS.GreedyDecoder, "generate", generate)
     res = serve(ARCH, requests=2 * B, batch=B, prompt_len=S, gen_len=GEN,
                 device="cpu")
     assert res["completed"] == 2 and res["errors"] == []
