@@ -12,7 +12,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    printed with the card's name and power limit (fails where a footprint
    misses its target by more than 25%); then ``repro_torch.bench``'s Fig. 5
    and Table II on vectors probed on the card, with their PASS/MISS band
-   lines (printed, not enforced, as the reference does).
+   lines (printed, not enforced, as the reference does). Then the four NN
+   jobs of §V-E probed on the card from the port's prefill, train and
+   decode steps, beside the same probes on the CPU and the reference's
+   vectors, and Fig. 6 on the card's vectors with its band lines.
 3. twin: the reference's seven-job ordering trace (priorities, deadlines,
    one exclusive device) on a live ``Cluster`` whose runners each run a
    small Rodinia family on the card, and on a sim ``Cluster``: fails if
@@ -31,7 +34,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``torch._grouped_mm``. The grouped matmul has three routes (bf16 wgmma
    fed by TMA for many rows an expert, bf16 small tiles for a few, f32 on
    the CUDA cores) and a gated variant (act(x wi) * (x wg) in one launch),
-   each route and act forced at every edge case it takes.
+   each route and act forced at every edge case it takes. The backward
+   kernels (flash attention's, RMSNorm's) are held against their plain
+   versions and against autograd through the forwards' plain versions,
+   in f32 and bf16, at gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
+   1024, D 256, softcap 50, window 4096 and 0), D 128 with a window of
+   256, ragged tails and rows; RMSNorm's dscale must be the same bits run
+   to run. Yardsticks: SDPA's and ``F.rms_norm``'s forward + backward
+   through autograd where they compute the same function (none for
+   gemma2's softcap).
 5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
@@ -40,7 +51,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 6. continuous, reduced: the same three reduced models served continuously
    (``serve_continuous``: 6 requests, a loop of 4 rows, 9 tokens each) on
    the card, the loop step replayed from a CUDA graph, against the CPU:
-   every request's tokens equal.
+   every request's tokens equal. Then reduced gemma2-9b (softcaps, window
+   64) and qwen1.5-32b (QKV bias) trained 3 steps of 2 x 128 on the card
+   and on the CPU from one seed: losses, grad norms, parameters and
+   moments within the CPU parity tests' tolerances (10x where absolute).
 7. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
    after, every kernel's count checked exactly. Each pool worker keeps one
@@ -87,6 +101,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (device time, no host gaps): the difference is the time the card waits
    on the host. The step's bound reads its weights once (for MoE only the
    experts the step routed to) and the cache's filled slots.
+10. train, the training main path: gemma2-9b at every published width,
+   depth cut to 12 of 42 layers (all 42 are 9.24e9 parameters x 16 B =
+   148e9 B in f32 with a gradient and two moments), f32, batch 4 x 1024,
+   ``remat_policy="full"``, 5 steps through ``launch.train.train``: the
+   probe of one step at 12 and 14 layers against the memory free on the
+   card first, then the run as one task through probe -> MGB ->
+   executor, each step's loss, grad norm, lr, host and device ms and
+   tokens/s printed, the launches checked exactly (flash attention's
+   forward 2 a layer a step, its backward 1; RMSNorm's forward 4 a layer
+   + 1 a step, its backward 2 a layer + 1), the probe's flops at least
+   2.5x the analytic forward; then one step alone whose probe must cover
+   ``torch.cuda.max_memory_allocated`` (fails below 1.0), and a
+   ``torch.profiler`` breakdown of one step.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -108,7 +135,9 @@ H100_HBM_BW = 3.35e12      # bytes/s
 # the port's kernel functions, as the profiler names them
 PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
                 "mamba_scan_kernel", "gmm_tma_kernel", "gmm_small_kernel",
-                "gmm_f32_kernel")
+                "gmm_f32_kernel", "flash_bwd_delta_kernel",
+                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
 MIXTRAL_LAYERS = 24
@@ -159,6 +188,12 @@ def time_ms(torch, fn, iters: int) -> float:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return replay_ms(torch, graph, iters)
+
+
+def replay_ms(torch, graph, iters: int) -> float:
+    """Device time of one of the ``iters`` calls captured in ``graph``: one
+    replay to warm, one timed between CUDA events."""
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -170,6 +205,28 @@ def time_ms(torch, fn, iters: int) -> float:
     ms = start.elapsed_time(end) / iters
     del graph
     return ms
+
+
+def time_grad_ms(torch, forward, leaves, grad, iters: int):
+    """Mean device time of the backward alone of ``forward()`` with respect
+    to ``leaves``: the library's side of a backward kernel's row, timed as
+    ``time_ms`` times the kernel. The forward runs once on a side stream
+    and its graph is kept; autograd runs each node's backward on the stream
+    of its forward, so ``torch.autograd.grad`` of the kept graph is captured
+    ``iters`` times in one CUDA graph on that stream and the replay timed.
+    Returns (ms, the gradients of a warm-up call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = forward()
+        for _ in range(2):
+            grads = torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+    return replay_ms(torch, graph, iters), grads
 
 
 def compare(torch, got, want, dtype, what: str) -> float:
@@ -292,6 +349,7 @@ def phase_kernels(torch):
         del a, b
         print(line, flush=True)
     phase_gmm(torch, randn, table)
+    phase_backward(torch, randn, table)
     return table
 
 
@@ -300,7 +358,9 @@ def flex_library(torch, q, k, v, cap: float, win: int):
     ``torch.nn.attention.flex_attention`` call with the softcap as a
     ``score_mod`` and causal + window as a block mask, compiled once here,
     outside any timed graph. Returns (call, its max abs error against the
-    plain version) or (None, None) when this build refuses the inputs."""
+    plain version) or (None, None) when this build refuses the inputs;
+    ``call(q, k, v)`` takes other tensors of the same shapes (leaves that
+    need their gradients, for the backward's yardstick)."""
     try:
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
@@ -330,7 +390,7 @@ def flex_library(torch, q, k, v, cap: float, win: int):
     want = FA.flash_attention_plain(q, k, v, causal=True, window=win,
                                     logit_softcap=cap)
     err = float((out.float() - want.float()).abs().max())
-    return (lambda: fn(q, k, v, **kw)), err
+    return (lambda q=q, k=k, v=v: fn(q, k, v, **kw)), err
 
 
 def phase_flash(torch, randn, table) -> None:
@@ -668,6 +728,193 @@ def phase_gmm(torch, randn, table) -> None:
         del x, ws, gs, out, lib
 
 
+def phase_backward(torch, randn, table) -> None:
+    """The backward kernels against their plain versions, and against
+    autograd through the forward's plain version (``gradcheck``-style), in
+    f32 and bf16. Flash: gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
+    1024, D 256, softcap 50) with window 4096 and 0, D 128 with a window of
+    256, and ragged Sq/Sk tails; timed at gemma2's shape against the
+    backward of flex_attention (softcap as a score_mod, causal + window as
+    a block mask) and at D 128 against SDPA's backward. RMSNorm: the train
+    path's rows [4096, 3584] and row tails, timed against the backward of
+    ``F.rms_norm``; its dscale must be the same bits from run to run (no
+    atomics). A library's backward is timed alone, graph-replayed, as the
+    kernel is (``time_grad_ms``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (b, hq, hkv, sq, sk, d, softcap, window), timed when marked
+    cases = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
+             ((4, 16, 8, 1024, 1024, 256, 50.0, 0), False),
+             ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
+             ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
+             ((1, 4, 2, 100, 300, 64, 0.0, 33), False),
+             ((2, 4, 4, 77, 77, 32, 0.0, 0), False)]
+    for (b, hq, hkv, sq, sk, d, cap, win), timed in cases:
+        for dtype in (f32, bf16):
+            q, do = randn((b, hq, sq, d), dtype), randn((b, hq, sq, d), dtype)
+            k, v = randn((b, hkv, sk, d), dtype), randn((b, hkv, sk, d), dtype)
+            args = (True, win, cap)
+            o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, *args)
+            got = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse,
+                                                            do, *args)
+            torch.cuda.synchronize()
+            kw = dict(causal=True, window=win, logit_softcap=cap)
+            what = (f"flash backward {(b, hq, hkv, sq, sk, d)} "
+                    f"{str(dtype)[6:]} softcap {cap:g} window {win}")
+            # the forward's lse (natural log on both routes) against plain
+            lse_err = compare(torch, lse, FA.flash_attention_lse_plain(
+                q, k, v, **kw)[1], dtype, f"{what} forward's lse")
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            err = max(compare(torch, g, w, dtype, f"{what} {n}")
+                      for n, g, w in zip(("dq", "dk", "dv"), got, want))
+            # autograd through the forward's plain version (f32 math)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            ref = torch.autograd.grad(
+                FA.flash_attention_plain(*leaves, **kw), leaves, do)
+            ag = max(compare(torch, g, w, dtype, f"{what} {n} vs autograd")
+                     for n, g, w in zip(("dq", "dk", "dv"), got, ref))
+            del want, ref, leaves
+            line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
+                    f"backward, {ag:.3e} vs autograd through the plain "
+                    f"forward; forward's lse {lse_err:.3e}")
+            if timed:
+                ms = time_ms(torch, lambda: torch.ops.repro_torch
+                             .flash_attention_bwd(q, k, v, o, lse, do, *args),
+                             3)
+                fwd_ms = time_ms(torch, lambda: torch.ops.repro_torch
+                                 .flash_attention_lse(q, k, v, *args), 3)
+                plain_ms = time_ms(torch, lambda: FA.flash_attention_bwd_plain(
+                    q, k, v, o, lse, do, **kw), 2)
+                pairs = FA.visible_pairs(sq, sk, causal=True, window=win)
+                flops = 10 * b * hq * d * pairs
+                e = q.element_size()
+                # q, k, v, o, dO and lse read once; dQ, dK, dV written
+                nbytes = (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * e \
+                    + lse.numel() * 4
+                peak = H100_BF16_FLOPS if dtype == bf16 else H100_F32_FLOPS
+                t_bytes, t_ops = nbytes / H100_HBM_BW, flops / peak
+                bound = max(t_bytes, t_ops) * 1e3
+                by = "bytes" if t_bytes > t_ops else "operations"
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v)]
+                if cap == 0.0:
+                    lib = "SDPA backward"
+                    mask = FA.visible_mask(sq, sk, causal=True, window=win,
+                                           device=q.device)
+                    call = (lambda: F.scaled_dot_product_attention(
+                        *leaves, attn_mask=mask, enable_gqa=True))
+                else:
+                    lib = "flex_attention backward"
+                    call, _ = flex_library(torch, q, k, v, cap, win)
+                    if call is not None:
+                        call = (lambda call=call: call(*leaves))
+                lib_ms = None
+                if call is None:
+                    lib = "flex_attention refused"
+                else:
+                    lib_ms, lib_grads = time_grad_ms(torch, call, leaves, do,
+                                                     3)
+                    lib_err = max(float((g.float() - w.float()).abs().max())
+                                  for g, w in zip(lib_grads, got))
+                    line += f", {lib} max_abs_err {lib_err:.3e} vs the kernel"
+                    del lib_grads
+                del leaves
+                line += (f", kernel {ms:.4f} ms (forward with lse "
+                         f"{fwd_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                         + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
+                            f"{lib}, ")
+                         + f"bound {bound:.4f} ms ({by}), "
+                         f"{flops / ms / 1e9:.1f} TFLOP/s = "
+                         f"{100 * bound / ms:.1f}% of the bound")
+                entry = dict(shape=[b, hq, hkv, sq, sk, d], softcap=cap,
+                             window=win, dtype=str(dtype)[6:],
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                             library=lib, forward_lse_ms=fwd_ms)
+                if d == 256 and dtype == f32:
+                    table["flash_attention_bwd"] = dict(
+                        name="flash_attention_bwd", route="cuda",
+                        source="src/repro_torch/kernels/csrc/"
+                               "flash_attention.cu",
+                        replaces="src/repro/models/layers.py:242",
+                        backward_of="src/repro/kernels/flash_attention.py:93",
+                        **{k: entry[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "library")},
+                        kernels="flash_bwd_delta_kernel, "
+                                "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
+                                "(CUDA cores, f32 and bf16)")
+                else:
+                    table["flash_attention_bwd"][
+                        f"case_d{d}_{str(dtype)[6:]}"] = entry
+            print(line, flush=True)
+            del q, k, v, o, lse, do, got
+
+    for shape in [(4096, 3584), (4097, 3584), (1000, 512), (7, 100),
+                  (3, 5, 128)]:
+        for dtype in (f32, bf16):
+            x, dy = randn(shape, dtype), randn(shape, dtype)
+            sc = randn(shape[-1:], dtype, 0.1)
+            got = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            again = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            torch.cuda.synchronize()
+            want = RN.rmsnorm_bwd_plain(x, sc, dy)
+            what = f"rmsnorm backward {shape} {str(dtype)[6:]}"
+            err = max(compare(torch, got[0], want[0], dtype, f"{what} dx"),
+                      compare(torch, got[1], want[1], dtype,
+                              f"{what} dscale"))
+            leaves = [x.detach().clone().requires_grad_(True),
+                      sc.detach().clone().requires_grad_(True)]
+            ref = torch.autograd.grad(RN.rmsnorm_plain(*leaves), leaves, dy)
+            ag = max(compare(torch, got[0], ref[0], dtype,
+                             f"{what} dx vs autograd"),
+                     compare(torch, got[1], ref[1], dtype,
+                             f"{what} dscale vs autograd"))
+            if not torch.equal(got[1], again[1]):
+                fail(f"{what}: dscale differs between two runs")
+            line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
+                    f"backward, {ag:.3e} vs autograd through the plain "
+                    f"forward; dscale the same bits twice")
+            if shape == (4096, 3584):
+                ms = time_ms(torch, lambda: torch.ops.repro_torch
+                             .rmsnorm_bwd(x, sc, dy, 1e-5), 20)
+                plain_ms = time_ms(torch, lambda: RN.rmsnorm_bwd_plain(
+                    x, sc, dy), 5)
+                xl = x.detach().clone().requires_grad_(True)
+                wl = (1.0 + sc).detach().requires_grad_(True)
+                lib_ms, _ = time_grad_ms(
+                    torch, lambda: F.rms_norm(xl, shape[-1:], wl, 1e-5),
+                    (xl, wl), dy, 20)
+                nbytes = 3 * x.numel() * x.element_size() \
+                    + 2 * sc.numel() * sc.element_size()
+                flops = 10 * x.numel()
+                bound = max(nbytes / H100_HBM_BW, flops / H100_F32_FLOPS) \
+                    * 1e3
+                line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                         f"F.rms_norm backward {lib_ms:.4f} ms, "
+                         f"bound {bound:.4f} ms (bytes), "
+                         f"{100 * bound / ms:.1f}% of the bound")
+                if dtype == f32:
+                    table["rmsnorm_bwd"] = dict(
+                        name="rmsnorm_bwd", route="cuda",
+                        source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        replaces="src/repro/models/layers.py:23",
+                        backward_of="src/repro/kernels/rmsnorm.py:40",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by="bytes", library_ms=lib_ms,
+                        library="F.rms_norm backward",
+                        kernels="rmsnorm_bwd_kernel, rmsnorm_dscale_kernel")
+                else:
+                    table["rmsnorm_bwd"]["bf16_case"] = dict(
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound, max_abs_err=err)
+            print(line, flush=True)
+            del x, dy, sc, got, again, want, ref, leaves
+
+
 def to_device(tree, dev):
     """A nested dict/list of tensors, moved to ``dev``."""
     if isinstance(tree, dict):
@@ -875,6 +1122,8 @@ def counters():
     return {"rmsnorm": RN.LAUNCHES, "flash_attention": FA.LAUNCHES,
             "mamba_scan": SC.LAUNCHES, "moe_gmm": MG.LAUNCHES,
             "moe_gmm_gated": MG.GATED_LAUNCHES,
+            "flash_attention_bwd": FA.BWD_LAUNCHES,
+            "rmsnorm_bwd": RN.BWD_LAUNCHES,
             "graph_captures": SD.CAPTURES, "graph_replays": SD.REPLAYS}
 
 
@@ -891,13 +1140,29 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     if cfg.family == "ssm":
         return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
                 "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills,
-                "moe_gmm": 0, "moe_gmm_gated": 0}
+                "moe_gmm": 0, "moe_gmm_gated": 0, "flash_attention_bwd": 0,
+                "rmsnorm_bwd": 0}
     moe_layers = 0 if cfg.moe is None else cfg.n_layers
     gated = moe_layers if cfg.mlp_act.endswith("gated") else 0
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps),
             "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0,
             "moe_gmm": 2 * moe_layers * (prefills + steps),
-            "moe_gmm_gated": gated * (prefills + steps)}
+            "moe_gmm_gated": gated * (prefills + steps),
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+
+
+def expected_train_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches over ``steps`` train steps of a dense model
+    under ``remat_policy="full"``: per step and layer, flash attention's
+    forward twice (the forward and the layer's recompute in the backward)
+    and its backward once; RMSNorm's forward 4 times a layer (two norms,
+    each run again in the recompute) plus the final norm once, its
+    backward twice a layer plus once."""
+    n = cfg.n_layers
+    assert cfg.remat_policy == "full" and cfg.family == "dense"
+    return {"rmsnorm": (4 * n + 1) * steps, "flash_attention": 2 * n * steps,
+            "mamba_scan": 0, "moe_gmm": 0, "moe_gmm_gated": 0,
+            "flash_attention_bwd": n * steps, "rmsnorm_bwd": (2 * n + 1) * steps}
 
 
 def check_launches(what: str, cfg, counts: dict, prefills: int,
@@ -1479,6 +1744,230 @@ def concurrent_steps(torch, params, cfg, cache_of, first, pos: int,
     torch.cuda.synchronize()
 
 
+# gemma2-9b trains at every published width in f32 with its depth cut:
+# all 42 layers are 9.24e9 parameters x 16 B (f32 weight, gradient and two
+# moments) = 148e9 B, beyond one 80 GB card; 12 are 3,295,763,968 x 16 B =
+# 52.7e9 B, leaving room for the saved layer inputs, one layer's recompute,
+# the loss chunks and the update's temporaries (an even depth keeps local
+# and global layers paired). The probe of one step checks the fit first.
+TRAIN_LAYERS = 12
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
+TRAIN_LR = 1e-3
+
+
+def phase_train_reduced(torch, arch: str, seq: int = 128,
+                        steps: int = 3) -> None:
+    """A reduced model trained ``steps`` steps on the card (hand kernels
+    and their backward kernels) and on the CPU (plain versions) from one
+    seed, on the same ``TokenPipeline`` batches, in f32. Held to the CPU
+    parity tests' tolerances (``tests/test_torch_train.py``) widened 10x
+    for the card's summation order where they are absolute: losses within
+    1e-3, grad norms within 1e-3 relative, moments within 1e-3 of their
+    largest magnitude; parameters as there, relative to lr (every element
+    within lr, all but 1e-3 of them within 1e-2 lr: an element whose
+    gradient is a rounding error's size may move up to ~lr either way)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_arch(arch).reduced()
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    start = init_params(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        params = tree_map(lambda t: t.clone().to(dev), start)
+        state = adamw.init_state(opt, params)
+        step = make_train_step(cfg, opt)
+        pipe = TokenPipeline(cfg, ShapeConfig("t", seq, 2, "train"), seed=0)
+        metrics = []
+        for i in range(steps):
+            params, state, m = step(params, state,
+                                    batch_to(pipe.batch_at(i), dev))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev.type] = (metrics, tree_map(lambda t: t.cpu(), params),
+                          {k: tree_map(lambda t: t.cpu(), state[k])
+                           for k in ("mu", "nu")})
+    (cpu_m, cpu_p, cpu_s), (gpu_m, gpu_p, gpu_s) = runs["cpu"], runs["cuda"]
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(cpu_m, gpu_m))
+    d_gn = max(abs(a[1] - b[1]) / b[1] for a, b in zip(cpu_m, gpu_m))
+    errs = torch.cat([(a - b).abs().flatten()
+                      for a, b in zip(tree_leaves(gpu_p), tree_leaves(cpu_p))])
+    far = int((errs > 1e-2 * TRAIN_LR).sum())
+    d_mom = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for key in ("mu", "nu") for a, b in
+                zip(tree_leaves(gpu_s[key]), tree_leaves(cpu_s[key])))
+    print(f"[train-reduced] {cfg.name}, {steps} steps of 2 x {seq}, card vs "
+          f"CPU: losses {[round(m[0], 6) for m in gpu_m]} / "
+          f"{[round(m[0], 6) for m in cpu_m]} (max diff {d_loss:.3e}), grad "
+          f"norm max rel diff {d_gn:.3e}, parameters max diff "
+          f"{float(errs.max()) / TRAIN_LR:.3e} lr with {far} of "
+          f"{errs.numel()} beyond 1e-2 lr, moments max rel diff "
+          f"{d_mom:.3e}", flush=True)
+    if d_loss > 1e-3 or d_gn > 1e-3 or float(errs.max()) > TRAIN_LR \
+            or far > 1e-3 * errs.numel() or d_mom > 1e-3:
+        fail(f"reduced {arch}: training on the card disagrees with the CPU")
+
+
+def train_probe(torch, cfg, dev):
+    """The probe of one train step of ``cfg`` (f32, the trainer's batch) on
+    specs of the state: nothing allocated."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.probe import probe_fn
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (abstract_train_state,
+                                              make_train_step)
+    opt = adamw.AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
+    params, state = abstract_train_state(cfg, opt, torch.float32, dev)
+    shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    return probe_fn(make_train_step(cfg, opt), params, state,
+                    input_specs(cfg, shape, dev))
+
+
+def phase_train(torch) -> dict:
+    """The training main path: gemma2-9b at every published width, depth
+    cut to ``TRAIN_LAYERS``, f32, batch 4 x 1024, ``remat_policy="full"``,
+    through ``launch.train.train``: probe of one step -> MGB admission ->
+    executor on the card, 5 steps, each kernel's launches checked exactly.
+    First the depth: the probe at ``TRAIN_LAYERS`` and two more layers
+    against the memory free on the card. Then one step alone after
+    ``fresh_card``: the probe's hbm must be at least the observed peak
+    (fails below 1.0). Then a ``torch.profiler`` breakdown of one step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.launch.flops import forward_flops
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    dev = torch.device("cuda", 0)
+    cfg = full_cfg("gemma2-9b", TRAIN_LAYERS)
+    fresh_card(torch)
+    free = torch.cuda.mem_get_info(dev)[0]
+    for n in (TRAIN_LAYERS, TRAIN_LAYERS + 2):
+        t = time.perf_counter()
+        vec = train_probe(torch, full_cfg("gemma2-9b", n), dev)
+        print(f"[train] depth: the probe of one gemma2-9b step at {n} "
+              f"layers, f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}: hbm "
+              f"{vec.hbm_bytes} B ({vec.hbm_bytes / 1e9:.2f} GB) against "
+              f"{free} B free on the card: "
+              f"{'fits' if vec.hbm_bytes <= free else 'does not fit'} "
+              f"(traced in {time.perf_counter() - t:.1f} s)", flush=True)
+        if n == TRAIN_LAYERS and vec.hbm_bytes > free:
+            fail(f"train: {TRAIN_LAYERS} layers do not fit the card")
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+              n_layers=TRAIN_LAYERS, lr=TRAIN_LR, log_every=1)
+    for c in counters().values():
+        c.reset()
+    res = train("gemma2-9b", steps=TRAIN_STEPS, **kw)
+    counts = read_counts()
+    want = expected_train_launches(cfg, TRAIN_STEPS)
+    got = {k: counts[k] for k in want}
+    print(f"[launches] train gemma2-9b: counted {got}, expected {want}",
+          flush=True)
+    if got != want:
+        fail("train gemma2-9b: launches differ from expected")
+    vec = res["probe"]
+    host = res["step_ms"][1:]
+    dms = res["device_ms"][1:]
+    print(f"[train] gemma2-9b, every published width, reduced: "
+          f"{'; '.join(res['reduced'])}; f32, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat full, one task through probe -> MGB -> "
+          f"executor: {res['status']}, {res['steps']} steps, losses "
+          f"{[round(x, 4) for x in res['losses']]}, grad norms "
+          f"{[round(x, 4) for x in res['grad_norms']]}, lr "
+          f"{[f'{x:.2e}' for x in res['lrs']]}; steps 2-{TRAIN_STEPS}: "
+          f"host {sum(host) / len(host):.1f} ms, device "
+          f"{sum(dms) / len(dms):.1f} ms, "
+          f"{sum(res['tokens_per_s'][1:]) / len(host):.0f} tok/s; probe hbm "
+          f"{vec.hbm_bytes} B, {vec.flops:.4e} flops, est "
+          f"{vec.est_seconds * 1e3:.1f} ms, core {vec.core_demand:.3f}, bw "
+          f"{vec.bw_demand:.3f}", flush=True)
+    import math
+    if res["steps"] != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
+        fail(f"train gemma2-9b: {res['steps']} steps, losses "
+             f"{res['losses']}")
+    # the probe traced the backward and the recompute too (the autograd
+    # engine runs a card's backward on its own thread)
+    fwd = forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"[train] probe flops {vec.flops:.4e} = {vec.flops / fwd:.2f}x the "
+          f"analytic forward ({fwd:.4e})", flush=True)
+    if vec.flops < 2.5 * fwd:
+        fail("train gemma2-9b: the probe did not trace the backward")
+    launches = dict(got)
+
+    del res
+    left = fresh_card(torch)
+    alone = train("gemma2-9b", steps=1, **kw)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ratio = alone["probe"].hbm_bytes / peak
+    print(f"[train] one step alone: probe hbm {alone['probe'].hbm_bytes} B "
+          f"vs observed max_memory_allocated {peak} B ({left} B allocated "
+          f"before; probe/observed {ratio:.4f}); step "
+          f"{alone['step_ms'][0]:.1f} ms host, "
+          f"{alone['device_ms'][0]:.1f} ms device", flush=True)
+    if ratio < 1.0:
+        fail(f"train gemma2-9b: the probe ({alone['probe'].hbm_bytes} B) is "
+             f"below the observed peak ({peak} B)")
+    del alone
+
+    fresh_card(torch)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    state = adamw.init_state(opt, params)
+    step = make_train_step(cfg, opt)
+    pipe = TokenPipeline(cfg, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                          "train"), seed=0)
+    batch = batch_to(pipe.batch_at(0), dev)
+    step(params, state, batch)  # warm-up
+    device_breakdown(torch, f"gemma2-9b train step, {TRAIN_LAYERS} layers, "
+                     f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}",
+                     lambda: step(params, state, batch), top=12)
+    del params, state, batch
+    return launches
+
+
+# the JAX package's NN vectors (``src/repro/core/workloads.py::_nn_vector``
+# on a CPU, virtual seconds): hbm, flops, bytes, core, bw
+REFERENCE_NN = {"predict": (166458120, 7.731e12, 3.401e11, 0.014, 0.150),
+                "train": (1796333484, 1.007e13, 1.925e12, 0.010, 0.300),
+                "detect": (644245094, 3.865e12, 1.701e11, 0.120, 0.100),
+                "generate": (10906988, 1.538e11, 3.498e11, 0.010, 0.275)}
+
+
+def phase_paper_nn(torch, gpu: str, dev=None) -> None:
+    """The NN jobs of §V-E probed on the card (fake tensors, nothing
+    allocated) beside the same probes on the CPU and the reference's
+    vectors, then Fig. 6 on the card's vectors with its band lines
+    (printed, not enforced, as the reference does)."""
+    from repro_torch.bench import fig6_nn_schedgpu
+    from repro_torch.core import workloads as W
+    dev = dev or torch.device("cuda", 0)
+    for kind in W.NN_KINDS:
+        card = W._nn_vector(kind, dev)
+        cpu = W._nn_vector(kind, torch.device("cpu"))
+        r = REFERENCE_NN[kind]
+        print(f"[paper] NN {kind} on {gpu}: hbm {card.hbm_bytes} B, flops "
+              f"{card.flops:.4e}, bytes {card.bytes_accessed:.4e}, est "
+              f"{card.est_seconds:.4f} s, core {card.core_demand:.3f}, bw "
+              f"{card.bw_demand:.3f}; CPU rehearsal: hbm {cpu.hbm_bytes} B, "
+              f"flops {cpu.flops:.4e}, bytes {cpu.bytes_accessed:.4e}, core "
+              f"{cpu.core_demand:.3f}, bw {cpu.bw_demand:.3f}; reference "
+              f"(XLA, fused): hbm {r[0]} B, flops {r[1]:.4e}, bytes "
+              f"{r[2]:.4e}, core {r[3]:.3f}, bw {r[4]:.3f}", flush=True)
+    t = time.perf_counter()
+    fig6_nn_schedgpu.run(device=dev)
+    print(f"[paper] Fig. 6 on the card's probes in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main() -> None:
     torch = setup()
     print(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
@@ -1486,6 +1975,7 @@ def main() -> None:
     gpu = card_line()
     phase_build(torch)
     phase_paper(torch, gpu)
+    phase_paper_nn(torch, gpu)
     phase_twin(torch)
     table = phase_kernels(torch)
     phase_reduced(torch, "gemma2-9b", 100)
@@ -1494,6 +1984,8 @@ def main() -> None:
     phase_continuous_reduced(torch, "gemma2-9b", 100)
     phase_continuous_reduced(torch, "falcon-mamba-7b", 128)
     phase_continuous_reduced(torch, "mixtral-8x7b", 128)
+    phase_train_reduced(torch, "gemma2-9b")
+    phase_train_reduced(torch, "qwen1.5-32b")
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
                "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
                                               1024, False),
@@ -1508,6 +2000,7 @@ def main() -> None:
     phase_decode(torch, "gemma2-9b", 1000, streams=4)
     phase_decode(torch, "falcon-mamba-7b", 1024)
     phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
+    by_path["gemma2-9b train"] = phase_train(torch)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

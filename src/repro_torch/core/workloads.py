@@ -32,10 +32,23 @@ family's personality (compute- or bandwidth-bound, the demands of its
 Mixes (Table I): large = >4 GB footprint, small = 1-4 GB; W1..W8 are
 {16, 32} jobs x {1:1, 2:1, 3:1, 5:1} large:small, randomly drawn but
 seeded: a seed draws the same families, footprints and duration targets as
-in the reference. The NN jobs of §V-E come with the train step.
+in the reference.
+
+The NN jobs of §V-E (``src/repro/core/workloads.py:218-288``) are probed
+from the port's own model steps on fake tensors, at the reference's
+configurations, shapes, ``work_scale`` and ``efficiency``: predict is
+qwen1.5-32b reduced's prefill at 8 x 1024, train gemma2-9b reduced's train
+step (forward, backward through the hand kernels' backward ops, AdamW) at
+16 x 512, generate musicgen-large reduced's decode step over an 8 x 512
+cache (``models.decode.decode_step`` on ``TensorSpec``s of the cache, in
+place of the reference's ``make_serve_step`` over ``abstract_cache``), and
+detect is derived from predict. Parameters are bf16 and the moments f32,
+as the reference's ``abstract_train_state`` makes them; predict and train
+take the analytic flops of ``launch/flops.py``, as the reference does.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -267,3 +280,91 @@ def workload(name: str, seed: int = 0, device=None) -> List[Job]:
     # stable per-workload seed (python hash() is salted per process)
     tag = sum(ord(c) * 31 ** i for i, c in enumerate(name)) % 1000
     return make_mix(seed + tag, n, ratio, device=device)
+
+
+# ---------------------------------------------------------------------------
+# NN jobs (§V-E): probed from the port's model substrate
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _nn_vector(kind: str, device: torch.device) -> ResourceVector:
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.flops import forward_flops, step_flops
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.models import decode as D
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.decode import make_prefill_step
+    from repro_torch.train.train_step import (
+        abstract_train_state, make_train_step,
+    )
+
+    if kind == "predict":   # darknet19/53 classification: prefill-like
+        cfg = get_arch("qwen1.5-32b").reduced()
+        shape = ShapeConfig("nn_predict", 1024, 8, "prefill")
+        params, _ = abstract_train_state(cfg, AdamWConfig(), device=device)
+        return probe_fn(make_prefill_step(cfg), params,
+                        input_specs(cfg, shape, device),
+                        flops_override=forward_flops(cfg, 8, 1024),
+                        work_scale=400.0, efficiency=(0.18, 0.15))
+    if kind == "train":     # CIFAR-small training
+        cfg = get_arch("gemma2-9b").reduced()
+        shape = ShapeConfig("nn_train", 512, 16, "train")
+        opt = AdamWConfig()
+        params, opts = abstract_train_state(cfg, opt, device=device)
+        return probe_fn(make_train_step(cfg, opt), params, opts,
+                        input_specs(cfg, shape, device),
+                        flops_override=step_flops(cfg, shape),
+                        work_scale=250.0, efficiency=(0.39, 0.30))
+    if kind == "detect":    # yolo real-time: tiny, low utilization (<=25%)
+        base = _nn_vector("predict", device)
+        return dataclasses.replace(base.scaled(0.5), core_demand=0.12,
+                                   bw_demand=0.10, hbm_bytes=int(0.6 * GB))
+    if kind == "generate":  # RNN text generation: decode-step personality
+        cfg = get_arch("musicgen-large").reduced()
+        params, _ = abstract_train_state(cfg, AdamWConfig(), device=device)
+        cache = tree_map(
+            lambda t: TensorSpec(tuple(t.shape), t.dtype, device),
+            D.init_cache(cfg, 8, 512, torch.bfloat16, torch.device("meta")))
+        return probe_fn(_decode_step(cfg), params, cache,
+                        TensorSpec((8,), torch.int32, device),
+                        TensorSpec((), torch.int32, device),
+                        work_scale=20000.0, efficiency=(0.05, 0.275))
+    raise KeyError(kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_step(cfg):
+    """One decode step of ``cfg`` (one function per config, so the probe's
+    cache keys it)."""
+    from repro_torch.models import decode as D
+
+    def serve_step(params, cache, tokens, pos):
+        return D.decode_step(params, cfg, cache, tokens, pos)
+    return serve_step
+
+
+NN_KINDS = ("predict", "train", "detect", "generate")
+# paper: each NN's device state is 0.5-1.5 GB
+_NN_MEM = {"predict": int(1.1 * GB), "train": int(1.5 * GB),
+           "detect": int(0.6 * GB), "generate": int(0.5 * GB)}
+
+
+def make_nn_job(kind: str, idx: int, device=None) -> Job:
+    vec = dataclasses.replace(_nn_vector(kind, probe_device(device)),
+                              hbm_bytes=_NN_MEM[kind])
+    unit = UnitTask(fn=None, memobjs=frozenset({f"nn{idx}/{kind}"}),
+                    resources=vec, name=f"{kind}{idx}")
+    return Job(tasks=[Task(units=[unit], name=unit.name)], name=f"{kind}{idx}")
+
+
+def nn_homogeneous(kind: str, n_jobs: int = 8, device=None) -> List[Job]:
+    return [make_nn_job(kind, i, device) for i in range(n_jobs)]
+
+
+def nn_mix(seed: int, n_jobs: int = 128, device=None) -> List[Job]:
+    rng = np.random.default_rng(seed)
+    return [make_nn_job(str(rng.choice(NN_KINDS)), i, device)
+            for i in range(n_jobs)]

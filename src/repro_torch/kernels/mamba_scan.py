@@ -27,6 +27,8 @@ from repro_torch.kernels import build
 LAUNCHES = build.LaunchCounter()
 _P, _LL = ctypes.c_void_p, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _P]
+# every C entry point of csrc/mamba_scan.cu with its ctypes signature
+ENTRY_POINTS = {"repro_mamba_scan": _ARGTYPES}
 
 
 def mamba_scan_plain(a: torch.Tensor, b: torch.Tensor

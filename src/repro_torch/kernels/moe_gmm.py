@@ -45,6 +45,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _GATED_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+# every C entry point of csrc/moe_gmm.cu with its ctypes signature
+ENTRY_POINTS = {"repro_moe_gmm": _ARGTYPES, "repro_moe_gmm_gated": _GATED_ARGTYPES}
 
 
 def gmm_route(dtype: torch.dtype, t: int, d: int, f: int, e: int,

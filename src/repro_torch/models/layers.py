@@ -7,7 +7,11 @@ follow the reference: q ``[B, Hq, S, D]``, k/v ``[B, Hkv, S, D]``; RoPE
 rotates ADJACENT lane pairs (2i, 2i+1); the norm scale is ``(1 + scale)``;
 the causal mask is top-left aligned; the window rule is ``q - k < w``;
 ``jax.nn.gelu``'s default is the tanh approximation. ``rms_norm`` and
-``flash_attention`` go through the hand kernels in ``repro_torch.kernels``.
+``flash_attention`` go through the hand kernels in ``repro_torch.kernels``,
+whose ops are differentiable: under autograd their backward is a hand
+kernel too on a CUDA tensor (the plain backward on a CPU tensor).
+``flash_attention_plain`` stays the memory-bounded plain path (plain
+autograd differentiates it).
 """
 from __future__ import annotations
 

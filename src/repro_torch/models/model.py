@@ -17,12 +17,24 @@ unchanged.
 ``attn_impl`` picks the prefill attention: ``"flash_kernel"`` (the hand CUDA
 kernel; its plain version on CPU tensors), ``"flash_plain"`` (chunked
 online-softmax in plain PyTorch) or ``"naive"`` (the oracle).
+
+Training (``loss_fn``, ``chunked_softmax_xent``: ``model.py:438-471`` of the
+reference) differentiates the same forward: the hand kernels' ops carry
+their backward kernels (``repro_torch.kernels``), and under
+``remat_policy="full"`` each layer is a non-reentrant
+``torch.utils.checkpoint`` whose backward recomputes the layer (the
+reference's ``_remat``, ``:309``), so only the layers' inputs are saved.
+The loss recomputes each 512-position chunk's f32 logits in the backward
+instead of saving them. Training runs the dense, vlm and audio families;
+the moe and ssm families' kernels have no backward yet and raise.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -31,6 +43,9 @@ from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
+# families whose every kernel has a backward
+TRAIN_FAMILIES = ("dense", "vlm", "audio")
+XENT_CHUNK = 512
 ATTN_IMPLS = ("flash_kernel", "flash_plain", "naive")
 
 
@@ -240,6 +255,46 @@ def _layer_window(cfg: ArchConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
+def _attn_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, i: int,
+                positions: torch.Tensor, attn_impl: str,
+                cache: Optional[Dict[str, torch.Tensor]]):
+    """One attention layer: x + attn(norm1(x)), then + ffn(norm2(.)).
+    Returns (x, the MoE aux loss or None); writes layer i's K, V into
+    ``cache`` when given (prefill)."""
+    a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]), cfg,
+                           positions=positions, window=_layer_window(cfg, i),
+                           attn_impl=attn_impl, return_kv=True)
+    if cache is not None:
+        cache["k"][i].copy_(k)
+        cache["v"][i].copy_(v)
+    del k, v
+    x = x + a
+    hn = L.rms_norm(x, lp["norm2"])
+    if cfg.moe is not None:
+        m, aux_l = MOE.moe_apply(lp["moe"], hn, cfg.moe, cfg.mlp_act)
+    else:
+        m, aux_l = L.mlp_apply(lp["mlp"], hn, cfg.mlp_act), None
+    return x + m, aux_l
+
+
+def _remat(fn, policy: str):
+    """The reference's ``_remat`` (``model.py:309``): ``"nothing"`` saves
+    every activation; ``"full"`` checkpoints the layer (non-reentrant: the
+    backward reruns its forward, hand kernels included, and only the
+    layer's inputs stay saved). No randomness runs in a layer, so no RNG
+    state is stashed. ``"dots"`` (save the matrix products) is used by no
+    configuration the port trains yet."""
+    if policy == "nothing":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+    if policy == "dots":
+        raise NotImplementedError(
+            "remat_policy 'dots' is not ported yet (ROADMAP A, item 6)")
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -249,7 +304,9 @@ def embed_tokens(cfg: ArchConfig, params: Params,
     if cfg.embedding_frontend_stub and "embeds" in batch:
         x = batch["embeds"]  # modality frontend stub: precomputed embeddings
     else:
-        x = params["embed"][batch["tokens"]]
+        # a gather whose backward sums repeated tokens in a fixed order
+        # (indexing's accumulating backward does not, on the CPU)
+        x = F.embedding(batch["tokens"], params["embed"])
     return scale_embedding(cfg, x)
 
 
@@ -304,23 +361,13 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             shape = kv_shape(cfg, bsz, s)
             cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                      "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+        # under autograd each layer is rematerialised per the config
+        body = _remat(_attn_layer, cfg.remat_policy) \
+            if torch.is_grad_enabled() and x.requires_grad else _attn_layer
         for i, lp in enumerate(params["layers"]):
-            a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]),
-                                   cfg, positions=positions,
-                                   window=_layer_window(cfg, i),
-                                   attn_impl=attn_impl, return_kv=True)
-            if cache is not None:
-                cache["k"][i].copy_(k)
-                cache["v"][i].copy_(v)
-            del k, v
-            x = x + a
-            hn = L.rms_norm(x, lp["norm2"])
-            if cfg.moe is not None:
-                m, aux_l = MOE.moe_apply(lp["moe"], hn, cfg.moe, cfg.mlp_act)
+            x, aux_l = body(lp, x, cfg, i, positions, attn_impl, cache)
+            if aux_l is not None:
                 aux = aux + aux_l
-            else:
-                m = L.mlp_apply(lp["mlp"], hn, cfg.mlp_act)
-            x = x + m
     x = L.rms_norm(x, params["final_norm"])
     if collect_cache:
         return x, aux, cache
@@ -339,3 +386,53 @@ def ssm_state_shapes(cfg: ArchConfig, batch: int
 def kv_shape(cfg: ArchConfig, batch: int, seq: int) -> Tuple[int, ...]:
     """Shape of one stacked KV cache tensor: [L, B, Hkv, S, hd]."""
     return (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.resolved_head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(cfg: ArchConfig, params: Params, h: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross-entropy of one chunk: [B, chunk, V] f32
+    logits, their log-sum-exp minus the gold logit."""
+    logits = logits_from_hidden(cfg, params, h)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_softmax_xent(cfg: ArchConfig, params: Params,
+                         hidden: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Mean next-token cross-entropy without keeping [B, S, V] logits: the
+    sequence in chunks of ``chunk`` positions, each chunk's f32 logits
+    recomputed in the backward (a non-reentrant checkpoint) instead of
+    saved (2.1e9 B a chunk at vocab 256000 and batch 4). Port of the
+    reference's ``chunked_softmax_xent`` (``model.py:438``)."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{chunk}")
+    grad = torch.is_grad_enabled() and hidden.requires_grad
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        h, y = hidden[:, i:i + chunk], labels[:, i:i + chunk]
+        if grad:
+            part = checkpoint(_xent_chunk, cfg, params, h, y,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _xent_chunk(cfg, params, h, y)
+        tot = tot + part
+    return tot / (b * s)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, attn_impl: str = "flash_kernel",
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """The training loss: chunked cross-entropy + ``aux_weight`` x the MoE
+    aux loss (reference ``loss_fn``, ``model.py:467``)."""
+    hidden, aux = forward(params, cfg, batch, attn_impl=attn_impl)
+    ce = chunked_softmax_xent(cfg, params, hidden, batch["labels"])
+    return ce + aux_weight * aux

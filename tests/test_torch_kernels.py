@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops  # noqa: E402
@@ -210,19 +211,27 @@ def test_build_sources_are_every_cu_file():
 
 @pytest.mark.parametrize("name", build.SOURCES)
 def test_ctypes_argtypes_match_c_signature(name):
-    """Each wrapper's ``_ARGTYPES`` against its C function: the same count,
+    """Every ``extern "C"`` function of a source (the forward's
+    ``repro_<name>`` and any other, such as a backward) against its ctypes
+    signature in the wrapper's ``ENTRY_POINTS``: the same count,
     ``c_void_p`` for every pointer and the stream, ``c_longlong`` for every
     ``long long``, ``c_int`` and ``c_float`` for ints and floats. A mismatch
     would otherwise show only as a crash on the card."""
     import importlib
     module = importlib.import_module(f"repro_torch.kernels.{name}")
-    kinds = _c_params((build.CSRC / f"{name}.cu").read_text(),
-                      f"repro_{name}")
-    assert len(kinds) == len(module._ARGTYPES)
-    for i, (kind, argtype) in enumerate(zip(kinds, module._ARGTYPES)):
-        assert kind in _CTYPE_OF, f"parameter {i}: unknown C type {kind!r}"
-        assert argtype is _CTYPE_OF[kind], \
-            f"parameter {i} is {kind} in C but {argtype} in _ARGTYPES"
+    source = (build.CSRC / f"{name}.cu").read_text()
+    symbols = re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(', source)
+    assert f"repro_{name}" in symbols
+    assert sorted(symbols) == sorted(module.ENTRY_POINTS)
+    assert module.ENTRY_POINTS[f"repro_{name}"] is module._ARGTYPES
+    for symbol in symbols:
+        kinds = _c_params(source, symbol)
+        argtypes = module.ENTRY_POINTS[symbol]
+        assert len(kinds) == len(argtypes), symbol
+        for i, (kind, argtype) in enumerate(zip(kinds, argtypes)):
+            assert kind in _CTYPE_OF, f"{symbol} parameter {i}: {kind!r}"
+            assert argtype is _CTYPE_OF[kind], \
+                f"{symbol} parameter {i} is {kind} in C but {argtype}"
 
 
 def test_ctypes_argtypes_match_gated_gmm_signature():
@@ -276,3 +285,175 @@ def test_cuda_kernels_match_plain_on_card():
             FA.flash_attention(q, k, v, **kw).float(),
             FA.flash_attention_plain(q, k, v, **kw).float(),
             atol=2e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# backward: flash attention and RMSNorm against jax.vjp of the reference
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, s, d, softcap, window): f32; GQA 4/2; softcap 50; window 0
+# and a window shorter than S; S = 600, ragged against the reference's
+# 512-key blocks
+BWD_CASES = [(2, 2, 2, 128, 32, 0.0, 0), (1, 4, 2, 128, 32, 0.0, 0),
+             (1, 4, 2, 96, 64, 50.0, 0), (1, 4, 2, 128, 32, 0.0, 40),
+             (1, 4, 2, 600, 32, 50.0, 0), (1, 2, 1, 600, 32, 50.0, 200)]
+
+
+def _bwd_inputs(case, seed=0):
+    b, hq, hkv, s, d, cap, win = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(shape, dtype=np.float32)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d), (b, hq, s, d)))
+    return q, k, v, do
+
+
+def _jax_flash_vjp(q, k, v, do, cap, win):
+    out, vjp = jax.vjp(lambda a, b, c: JL.flash_attention_cvjp(
+        a, b, c, causal=True, window=win, logit_softcap=cap),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _close(got, want, rel=1e-5):
+    """Within ``rel`` of the reference's largest magnitude, elementwise:
+    f32 sums taken in another order (einsum blocks, the GQA fold)."""
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_plain_matches_jax_vjp(case):
+    """The port's plain backward (from the plain forward's o and lse) and
+    the op's CPU backward through ``register_autograd`` against ``jax.vjp``
+    of the reference's custom-VJP flash attention, f32, 1e-5 relative."""
+    b, hq, hkv, s, d, cap, win = case
+    q, k, v, do = _bwd_inputs(case)
+    want_o, want = _jax_flash_vjp(q, k, v, do, cap, win)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = FA.flash_attention_lse_plain(tq, tk, tv, causal=True,
+                                          window=win, logit_softcap=cap)
+    _close(o.numpy(), want_o)
+    plain = FA.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                         causal=True, window=win,
+                                         logit_softcap=cap)
+    for g, w in zip(plain, want):
+        _close(g.numpy(), w)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    before = FA.BWD_LAUNCHES.value
+    out = FA.flash_attention(*leaves, window=win, logit_softcap=cap)
+    grads = torch.autograd.grad(out, leaves, tdo)
+    assert FA.BWD_LAUNCHES.value == before  # CPU tensors: the plain version
+    _close(out.detach().numpy(), want_o)
+    for g, w in zip(grads, want):
+        _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("cap,win", [(0.0, 0), (5.0, 3)])
+def test_flash_op_passes_gradcheck(cap, win):
+    """``torch.autograd.gradcheck`` of the differentiable flash op in f64 at
+    a tiny GQA shape: its backward (the plain recompute backward on the
+    CPU) against finite differences."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 9, 8, dtype=torch.float64, generator=gen)
+    k = torch.randn(1, 2, 9, 8, dtype=torch.float64, generator=gen)
+    v = torch.randn(1, 2, 9, 8, dtype=torch.float64, generator=gen)
+    args = [t.requires_grad_(True) for t in (q, k, v)]
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: FA.flash_attention(a, b, c, window=win,
+                                           logit_softcap=cap), args)
+
+
+def test_flash_uses_the_lse_op_only_under_autograd():
+    """Without grad (the serving paths) the forward op runs and writes no
+    lse; under autograd the differentiable op; both give one output."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 16, 32),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    plain = FA.flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    with torch.no_grad():
+        assert torch.equal(FA.flash_attention(q.requires_grad_(True), k, v),
+                           plain)
+    out = FA.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    np.testing.assert_allclose(out.detach().numpy(), plain.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_flash_bwd_flop_formula_is_five_products():
+    from torch.utils.flop_counter import FlopCounterMode
+    q = torch.zeros(2, 4, 10, 32)
+    k = torch.zeros(2, 2, 10, 32)
+    pairs = FA.visible_pairs(10, 10, causal=True, window=3)
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.flash_attention_bwd(q, k, k, q, q[..., 0], q,
+                                                  True, 3, 0.0)
+    assert fc.get_total_flops() == 10 * 2 * 4 * pairs * 32
+
+
+@pytest.mark.parametrize("shape", [(8, 256), (4, 96, 256), (1000, 512),
+                                   (3, 100)])
+def test_rmsnorm_bwd_matches_jax_vjp(shape):
+    """The plain backward and the op's CPU backward against ``jax.vjp`` of
+    the reference's ``layers.rms_norm``, f32, 1e-5 relative."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    sc = rng.standard_normal(shape[-1:], dtype=np.float32) * 0.1
+    dy = rng.standard_normal(shape, dtype=np.float32)
+    _, vjp = jax.vjp(JL.rms_norm, jnp.asarray(x), jnp.asarray(sc))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    tx, tsc, tdy = (torch.from_numpy(a) for a in (x, sc, dy))
+    for g, w in zip(RN.rmsnorm_bwd_plain(tx, tsc, tdy), want):
+        _close(g.numpy(), w)
+    leaves = [tx.clone().requires_grad_(True),
+              tsc.clone().requires_grad_(True)]
+    before = RN.BWD_LAUNCHES.value
+    grads = torch.autograd.grad(RN.rmsnorm(*leaves), leaves, tdy)
+    assert RN.BWD_LAUNCHES.value == before
+    for g, w in zip(grads, want):
+        _close(g.numpy(), w)
+
+
+def test_rmsnorm_op_passes_gradcheck():
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 16, dtype=torch.float64, generator=gen)
+    sc = torch.randn(16, dtype=torch.float64, generator=gen) * 0.1
+    assert torch.autograd.gradcheck(
+        RN.rmsnorm, (x.requires_grad_(True), sc.requires_grad_(True)))
+
+
+@pytest.mark.gpu
+def test_backward_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for (b, hq, hkv, s, d, cap, win) in [(1, 4, 2, 300, 256, 50.0, 0),
+                                             (2, 4, 2, 200, 128, 0.0, 64)]:
+            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dtype) for shape in
+                           ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                            (b, hq, s, d)))
+            o, lse = torch.ops.repro_torch.flash_attention_lse(
+                q, k, v, True, win, cap)
+            got = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o, lse, do, True, win, cap)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                window=win, logit_softcap=cap)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+        x = torch.randn(1000, 3584, generator=gen, device=dev).to(dtype)
+        sc = (torch.randn(3584, generator=gen, device=dev) * 0.1).to(dtype)
+        dy = torch.randn(1000, 3584, generator=gen, device=dev).to(dtype)
+        got = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+        want = RN.rmsnorm_bwd_plain(x, sc, dy)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(got[1].float(), want[1].float(),
+                                   rtol=tol, atol=tol * 100)
+        assert torch.equal(got[1], torch.ops.repro_torch.rmsnorm_bwd(
+            x, sc, dy, 1e-5)[1])
