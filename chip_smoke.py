@@ -137,6 +137,7 @@ PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
                 "mamba_scan_kernel", "gmm_tma_kernel", "gmm_small_kernel",
                 "gmm_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_tc_dkdv_kernel", "flash_bwd_tc_dq_kernel",
                 "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
@@ -404,7 +405,10 @@ def phase_flash(torch, randn, table) -> None:
     so distinct, V columns: a wrong V layout cannot pass), ragged lengths,
     top-left causal with Sq != Sk, windows below, at and above a tile,
     softcaps on scores scaled up, non-causal, and q, k, v as the model's
-    einsum views (a [B, S, H, D] buffer seen as [B, H, S, D])."""
+    einsum views (a [B, S, H, D] buffer seen as [B, H, S, D]). Last, the
+    train path's forward (f32, with lse) at gemma2's training shape and at
+    D 128 with a window, timed beside its bound, its plain version and
+    flex_attention's (gemma2) or SDPA's (D 128) f32 forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     bf16, f32 = torch.bfloat16, torch.float32
@@ -526,6 +530,58 @@ def phase_flash(torch, randn, table) -> None:
         = worst[bf16]
     table["flash_attention"]["routes"]["float32"]["max_abs_err_all_cases"] \
         = worst[f32]
+
+    # the train path's forward, f32 with lse, at the backward's timed shapes
+    # (gemma2-9b's training case, D 128 with a window of 256) beside its
+    # bound, its plain version and the same library's f32 forward
+    for (b, hq, hkv, s, d), cap, win, name in [
+            ((4, 16, 8, 1024, 256), 50.0, 4096, "train_case"),
+            ((2, 32, 8, 1024, 128), 0.0, 256, "d128_case")]:
+        q = randn((b, hq, s, d), f32)
+        k, v = randn((b, hkv, s, d), f32), randn((b, hkv, s, d), f32)
+        args = (True, win, cap)
+        kw = dict(causal=True, window=win, logit_softcap=cap)
+        o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, *args)
+        torch.cuda.synchronize()
+        want_o, want_lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+        what = (f"flash forward with lse {(b, hq, hkv, s, s, d)} float32 "
+                f"(CUDA cores) softcap {cap:g} window {win}")
+        err = max(compare(torch, o, want_o, f32, f"{what} o"),
+                  compare(torch, lse, want_lse, f32, f"{what} lse"))
+        del o, lse, want_o, want_lse
+        ms = time_ms(torch, lambda: torch.ops.repro_torch
+                     .flash_attention_lse(q, k, v, *args), 3)
+        plain_ms = time_ms(torch, lambda: FA.flash_attention_lse_plain(
+            q, k, v, **kw), 2)
+        # q, k, v read, o and lse written; four flops a visible pair and
+        # head dim
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 4 + b * hq * s * 4
+        flops = 4 * b * hq * d * FA.visible_pairs(s, s, causal=True,
+                                                  window=win)
+        t_bytes, t_ops = nbytes / H100_HBM_BW, flops / H100_F32_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes > t_ops else "operations"
+        if cap:
+            lib = "flex_attention"
+            call, _ = flex_library(torch, q, k, v, cap, win)
+        else:
+            lib = "SDPA"
+            mask = FA.visible_mask(s, s, causal=True, window=win,
+                                   device=q.device)
+            call = (lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True))
+        lib_ms = time_ms(torch, call, 3) if call is not None else None
+        print(f"[kernels] {what}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, "
+              + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
+                 f"{lib} refused, ")
+              + f"bound {bound:.4f} ms ({by}), "
+              f"{100 * bound / ms:.1f}% of the bound", flush=True)
+        table["flash_attention"]["routes"]["float32"][f"forward_lse_{name}"] \
+            = dict(shape=[b, hq, hkv, s, s, d], softcap=cap, window=win,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, library_ms=lib_ms, library=lib)
+        del q, k, v
 
 
 def grouped_mm_library(torch, x, w, gs):
@@ -728,29 +784,34 @@ def phase_gmm(torch, randn, table) -> None:
         del x, ws, gs, out, lib
 
 
-def phase_backward(torch, randn, table) -> None:
+# the flash backward's cases, (b, hq, hkv, sq, sk, d, softcap, window) and
+# whether it is timed: gemma2-9b's training shape with window 4096 and 0, D
+# 128 with a window of 256, and ragged Sq/Sk tails at D 256, 64 and 32
+FLASH_BWD_CASES = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
+                   ((4, 16, 8, 1024, 1024, 256, 50.0, 0), False),
+                   ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
+                   ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
+                   ((1, 4, 2, 100, 300, 64, 0.0, 33), False),
+                   ((2, 4, 4, 77, 77, 32, 0.0, 0), False)]
+
+
+def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
     """The backward kernels against their plain versions, and against
     autograd through the forward's plain version (``gradcheck``-style), in
-    f32 and bf16. Flash: gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
-    1024, D 256, softcap 50) with window 4096 and 0, D 128 with a window of
-    256, and ragged Sq/Sk tails; timed at gemma2's shape against the
-    backward of flex_attention (softcap as a score_mod, causal + window as
-    a block mask) and at D 128 against SDPA's backward. RMSNorm: the train
-    path's rows [4096, 3584] and row tails, timed against the backward of
-    ``F.rms_norm``; its dscale must be the same bits from run to run (no
-    atomics). A library's backward is timed alone, graph-replayed, as the
-    kernel is (``time_grad_ms``)."""
+    f32 and bf16. Flash (bf16 on the tensor cores, f32 on the CUDA cores):
+    ``cases``; dq, dk and dv must be the same bits on two calls. Timed at
+    gemma2's shape against the backward of flex_attention (softcap as a
+    score_mod, causal + window as a block mask) and at D 128 against SDPA's
+    backward. RMSNorm: the train path's rows [4096, 3584] and row tails,
+    timed against the backward of ``F.rms_norm``; its dscale must be the
+    same bits from run to run (no atomics). A library's backward is timed
+    alone, graph-replayed, as the kernel is (``time_grad_ms``). Needs no
+    other phase: a short check can call it alone with its own cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     bf16, f32 = torch.bfloat16, torch.float32
-    # (b, hq, hkv, sq, sk, d, softcap, window), timed when marked
-    cases = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
-             ((4, 16, 8, 1024, 1024, 256, 50.0, 0), False),
-             ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
-             ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
-             ((1, 4, 2, 100, 300, 64, 0.0, 33), False),
-             ((2, 4, 4, 77, 77, 32, 0.0, 0), False)]
+    bwd_row = table.setdefault("flash_attention_bwd", {})
     for (b, hq, hkv, sq, sk, d, cap, win), timed in cases:
         for dtype in (f32, bf16):
             q, do = randn((b, hq, sq, d), dtype), randn((b, hq, sq, d), dtype)
@@ -759,10 +820,17 @@ def phase_backward(torch, randn, table) -> None:
             o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, *args)
             got = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse,
                                                             do, *args)
+            again = torch.ops.repro_torch.flash_attention_bwd(q, k, v, o,
+                                                              lse, do, *args)
             torch.cuda.synchronize()
             kw = dict(causal=True, window=win, logit_softcap=cap)
+            route = "tensor cores" if dtype == bf16 else "CUDA cores"
             what = (f"flash backward {(b, hq, hkv, sq, sk, d)} "
-                    f"{str(dtype)[6:]} softcap {cap:g} window {win}")
+                    f"{str(dtype)[6:]} ({route}) softcap {cap:g} window {win}")
+            for n, g, g2 in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(g, g2):
+                    fail(f"{what}: {n} differs between two calls")
+            del again
             # the forward's lse (natural log on both routes) against plain
             lse_err = compare(torch, lse, FA.flash_attention_lse_plain(
                 q, k, v, **kw)[1], dtype, f"{what} forward's lse")
@@ -779,13 +847,12 @@ def phase_backward(torch, randn, table) -> None:
             del want, ref, leaves
             line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
                     f"backward, {ag:.3e} vs autograd through the plain "
-                    f"forward; forward's lse {lse_err:.3e}")
+                    f"forward; forward's lse {lse_err:.3e}; dq, dk, dv the "
+                    f"same bits twice")
             if timed:
                 ms = time_ms(torch, lambda: torch.ops.repro_torch
                              .flash_attention_bwd(q, k, v, o, lse, do, *args),
                              3)
-                fwd_ms = time_ms(torch, lambda: torch.ops.repro_torch
-                                 .flash_attention_lse(q, k, v, *args), 3)
                 plain_ms = time_ms(torch, lambda: FA.flash_attention_bwd_plain(
                     q, k, v, o, lse, do, **kw), 2)
                 pairs = FA.visible_pairs(sq, sk, causal=True, window=win)
@@ -822,8 +889,7 @@ def phase_backward(torch, randn, table) -> None:
                     line += f", {lib} max_abs_err {lib_err:.3e} vs the kernel"
                     del lib_grads
                 del leaves
-                line += (f", kernel {ms:.4f} ms (forward with lse "
-                         f"{fwd_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                          + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
                             f"{lib}, ")
                          + f"bound {bound:.4f} ms ({by}), "
@@ -833,9 +899,9 @@ def phase_backward(torch, randn, table) -> None:
                              window=win, dtype=str(dtype)[6:],
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                             library=lib, forward_lse_ms=fwd_ms)
+                             library=lib)
                 if d == 256 and dtype == f32:
-                    table["flash_attention_bwd"] = dict(
+                    bwd_row.update(
                         name="flash_attention_bwd", route="cuda",
                         source="src/repro_torch/kernels/csrc/"
                                "flash_attention.cu",
@@ -844,12 +910,14 @@ def phase_backward(torch, randn, table) -> None:
                         **{k: entry[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "library")},
-                        kernels="flash_bwd_delta_kernel, "
+                        kernels="flash_bwd_delta_kernel, then bf16: "
+                                "flash_bwd_tc_dkdv_kernel, "
+                                "flash_bwd_tc_dq_kernel (tensor cores: "
+                                "wgmma fed by TMA, warp-specialised); f32: "
                                 "flash_bwd_dkdv_kernel, flash_bwd_dq_kernel "
-                                "(CUDA cores, f32 and bf16)")
+                                "(CUDA cores, cp.async into two buffers)")
                 else:
-                    table["flash_attention_bwd"][
-                        f"case_d{d}_{str(dtype)[6:]}"] = entry
+                    bwd_row[f"case_d{d}_{str(dtype)[6:]}"] = entry
             print(line, flush=True)
             del q, k, v, o, lse, do, got
 

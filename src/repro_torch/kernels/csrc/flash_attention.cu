@@ -590,7 +590,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 }
 
 // ---------------------------------------------------------------------------
-// the backward (CUDA cores, float32 and bfloat16)
+// the backward
 // ---------------------------------------------------------------------------
 //
 // What `_make_flash_cvjp`'s bwd computes (src/repro/models/layers.py:242-294),
@@ -599,63 +599,158 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 //   (1 - (s / cap)^2) under a softcap, zero where masked;
 //   dQ = dS K / sqrt(D); dK = dS^T Q / sqrt(D), dV = P^T dO, summed over the
 //   query heads that share a KV head.
-// Bound on the card: operations. Five products of the visible (q, k) pairs
-// against the forward's two (10 B Hq pairs D flops), which the f32 CUDA cores
-// would run at best at 67 TFLOP/s. Design, simple and deterministic (no
-// atomics): flash_bwd_delta_kernel writes delta (one warp a row); then
-// flash_bwd_dkdv_kernel, one block of 256 threads per (KV tile of 32 keys, KV
-// head, batch), keeps dK and dV of its tile in registers and walks the group's
-// query heads and the q tiles that see the tile (causal diagonal, window),
-// writing dK and dV once; then flash_bwd_dq_kernel, one block per (q tile of
-// 32 rows, q head, batch), keeps dQ in registers and walks the visible KV
-// tiles. Each pass recomputes S and dP of a tile (seven products in all).
-// Tiles are staged in shared memory as f32, rows padded by 4 floats so that
-// 16-byte loads of 8 neighbouring rows hit 32 distinct banks: Q (pre-scaled),
-// dO, K, V (4 x 32 x 260 floats = 133 KB at D = 256) and P, dS (2 x 32 x 34).
-// Thread (ty, tx) of a 16 x 16 grid computes the scores of rows 2ty, 2ty+1
-// and keys tx, tx+16 from 16-byte loads along D (four FMAs a load), and
-// accumulates rows 2ty, 2ty+1 of its output tile in the head dims
-// VW tx + 16 VW m (VW = 4 consecutive dims, 2 at D = 32), again from 16-byte
-// loads. The wide loads cut the load instructions, not the shared-memory
-// bytes read per FMA (each Q and dO row serves the 16 threads of its row
-// group), which likely bound the kernel: larger register tiles come next.
-constexpr int BB = 32;         // q rows and keys of a backward tile
-constexpr int kRowPad = 4;     // floats of padding per staged row
-constexpr int kPS = BB + 2;    // row stride of the P and dS tiles (8-byte rows)
+// Masked pairs count for nothing, as in the forward: P is 0 there, so a row
+// that sees no key at all (the forward wrote zeros for it) passes no
+// gradient to V, where the reference's average over masked keys would.
+// Bound on the card: operations, five products of the visible (q, k) pairs
+// (10 B Hq pairs D flops) at the dtype's peak. Deterministic on both routes (no
+// atomics): every output element is written once, by the block that owns it.
+// Three launches: flash_bwd_delta_kernel writes delta and a copy of lse into
+// rows padded to a multiple of 64 (zeros past Sq), so every tile reads them as
+// whole aligned runs; a dK/dV pass, one block per KV tile of one KV head,
+// keeps dK and dV in registers and walks the group's query heads and the q
+// tiles that see the tile (causal diagonal, window); a dQ pass, one block per
+// q tile, keeps dQ in registers and walks the visible KV tiles. Each pass
+// recomputes S and dP of a tile (seven products in all). Two routes, by dtype:
+//
+// bfloat16: tensor cores (flash_bwd_tc_dkdv_kernel, flash_bwd_tc_dq_kernel),
+// built like flash_tc_kernel from hopper.cuh: 64-row bf16 tiles that TMA
+// writes under the 128-byte swizzle (64-byte at D = 32), one producer thread
+// feeding an mbarrier ring, consumer warpgroups on wgmma. P and dS are rounded
+// to bf16 where they feed a product (as in any tensor-core flash backward);
+// every product accumulates in f32 and the outputs are rounded once.
+//   dK/dV: a block of three warpgroups owns 64 keys. The producer loads K and V
+//   once and streams Q, dO and their lse, delta rows through a two-stage ring.
+//   Warpgroup 1 owns dV, warpgroup 2 dK (64 x D f32 each: 128 registers a
+//   thread at D = 256, so one warpgroup could not hold both). Per q tile,
+//   warpgroup 1 computes S^T = K Q^T (wgmma, both operands K-major), then P^T
+//   and P' = P^T (1 - (s / cap)^2), masked, on the accumulator fragment; it
+//   hands P' to warpgroup 2 through shared memory (same fragment layout, one
+//   f32 a register, named barriers both ways) and runs dV += P^T dO (P^T in
+//   registers as the bf16 A operand, dO MN-major from shared memory).
+//   Warpgroup 2 meanwhile computes dP^T = V dO^T, then dS^T = P' (dP^T - delta)
+//   and dK += dS^T Q. Each warpgroup runs two of the four products a tile.
+//   dQ: a block of three warpgroups owns 128 q rows, 64 per consumer
+//   warpgroup, which run in turn as the forward's do; Q and dO are loaded
+//   once, K and V stream through a two-stage ring in tiles of 64 keys (32 at
+//   D = 256, with wgmma m64n32: 64-key stages would not fit beside Q and dO).
+//   Per KV tile: S = Q K^T and dP = dO V^T (one wgmma group), dS on the
+//   fragment, dQ += dS K (dQ alone is 128 registers a thread at D = 256).
+//   Shared memory at D = 256: dK/dV 210 KB (K and V 32 KB each, two stages of
+//   Q and dO 128 KB, the 16 KB exchange), dQ 193 KB; one block an SM.
+//
+// float32: CUDA cores, exact f32 arithmetic (no TF32: the reference trains in
+// f32). Tiles of 32 rows and 32 keys staged with cp.async in f32, rows padded
+// by 4 floats; the q-side tiles of the dK/dV pass (Q, dO, lse, delta) and the
+// KV tiles of the dQ pass go to two buffers, the next tile's copy in flight
+// while the current one is computed. 256 threads in two halves of four
+// warps: for the scores, half 0 computes S = Q K^T and half 1 dP = dO V^T,
+// each thread a 4 x 4 block over half of D (its partner lane has the other
+// half; one shuffle adds them), so that each 16-byte load feeds 16 FMAs; all
+// 256 threads then turn S and dP into P and dS, four entries each. Then half 0 accumulates dV += P^T dO and half 1 dK += dS^T Q (dK/dV pass),
+// each thread 4 keys x D/16 dims, or all 256 threads dQ += dS K, each 4 rows x
+// D/32 dims (dQ pass). 209 KB of shared memory at D = 256 (one block an SM),
+// 108.5 KB at D = 128 (two blocks an SM, 128 registers a thread).
+
+constexpr int kPadRows = 64;  // lse and delta rows padded to a multiple of this
+
+struct BwdArgs {
+  const float* lse_pad;    // [B, Hq, Sq_pad], natural log, zeros past Sq
+  const float* delta_pad;  // [B, Hq, Sq_pad]
+  int Hq, Hkv, Sq, Sk, Sq_pad, causal, window;
+  float softcap, scale;
+};
+
+__device__ __forceinline__ bool visible(const BwdArgs& a, int qpos, int kpos) {
+  bool ok = qpos < a.Sq && kpos < a.Sk;
+  if (a.causal) ok = ok && kpos <= qpos;
+  if (a.window > 0) ok = ok && qpos - kpos < a.window;
+  return ok;
+}
+
+// delta = rowsum(dO * O) and a copy of lse, one warp a padded row
+template <typename T>
+__global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                                       const float* __restrict__ lse, float* __restrict__ lse_pad,
+                                       float* __restrict__ delta_pad, long long rows_pad, int Sq,
+                                       int Sq_pad, int D) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= rows_pad) return;
+  const int lane = threadIdx.x % 32;
+  const long long bh = row / Sq_pad;
+  const int r = (int)(row % Sq_pad);
+  float acc = 0.f, l = 0.f;
+  if (r < Sq) {
+    const long long src = bh * Sq + r;
+    const T* orow = o + src * D;
+    const T* drow = dout + src * D;
+    for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
+    l = lse[src];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    delta_pad[row] = acc;
+    lse_pad[row] = l;
+  }
+}
+
+// --- the CUDA-core route (float32) -------------------------------------------
+
+constexpr int BB = 32;      // q rows and keys of a CUDA-core backward tile
+constexpr int kRowPad = 4;  // floats of padding per staged row
+constexpr int kPS = BB + 4; // row stride of the P and dS tiles (16-byte rows)
 
 template <int D>
 struct Bwd {
-  static constexpr int LD = D + kRowPad;            // staged row stride, floats
-  static constexpr int VW = D >= 64 ? 4 : 2;        // output dims a vector
-  static constexpr int NM = D / (16 * VW);          // vectors a thread a row
+  static constexpr int LD = D + kRowPad;  // staged row stride, floats
+  // dK/dV accumulation: 8 key blocks x 16 dim blocks over 128 threads
+  static constexpr int VW = D >= 64 ? 4 : 2;
+  static constexpr int NM = D / (16 * VW);
+  // dQ accumulation: 8 row blocks x 32 dim blocks over 256 threads
+  static constexpr int VWQ = D >= 128 ? 4 : D / 32;
+  static constexpr int NMQ = D / (32 * VWQ);
+  // K, V, Q and dO, two of either side's; P and dS; lse and delta, two stages
   static constexpr size_t SMEM =
-      sizeof(float) * (4 * (size_t)BB * LD + 2 * (size_t)BB * kPS + 2 * BB);
+      sizeof(float) * (6 * (size_t)BB * LD + 2 * (size_t)BB * kPS + 4 * BB);
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  static_assert(SMEM * MIN_BLOCKS <= 232448, "CUDA-core backward tiles exceed shared memory");
 };
 
-template <typename T>
-__global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                                       float* __restrict__ delta, long long rows, int D) {
-  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const T* orow = o + row * D;
-  const T* drow = dout + row * D;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// four consecutive elements as f32 (16 bytes of f32, 8 of bf16)
+// rows [r0, r0 + BB) of a [S, D] f32 operand into shared memory (row stride
+// LD), zeros past S, as 16-byte cp.async copies (not waited for)
+template <int D>
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int r0, int S) {
+  constexpr int LD = Bwd<D>::LD, Q4 = D / 4;
+  for (int idx = threadIdx.x; idx < BB * Q4; idx += kThreads) {
+    const int r = idx / Q4, c = (idx % Q4) * 4;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * LD + c, in ? src + (long long)(r0 + r) * D + c : src, in);
+  }
+}
+
+// BB floats of lse and of delta (padded rows: always in bounds)
+__device__ __forceinline__ void stage_rows_async(float* lse_s, float* delta_s, const BwdArgs& a,
+                                                 long long row) {
+  const int t = threadIdx.x;
+  if (t < BB / 4) cp_async16(lse_s + 4 * t, a.lse_pad + row + 4 * t, true);
+  else if (t < BB / 2) cp_async16(delta_s + 4 * (t - BB / 4), a.delta_pad + row + 4 * (t - BB / 4), true);
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // VW consecutive f32 of shared memory
@@ -664,51 +759,20 @@ __device__ __forceinline__ void lds(float (&v)[VW], const float* p) {
   if constexpr (VW == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
+  } else if constexpr (VW == 2) {
     const float2 x = *reinterpret_cast<const float2*>(p);
     v[0] = x.x; v[1] = x.y;
-  }
-}
-
-// VW consecutive outputs, as one store
-template <typename T, int VW>
-__device__ __forceinline__ void store_vec(T* dst, const float* v) {
-  if constexpr (sizeof(T) == 4) {
-    if constexpr (VW == 4)
-      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    else
-      *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
   } else {
-    __nv_bfloat162 h[VW / 2];
-#pragma unroll
-    for (int e = 0; e < VW / 2; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-    if constexpr (VW == 4)
-      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(dst) = h[0];
+    v[0] = *p;
   }
 }
 
-// rows [r0, r0 + BB) of a [S, D] operand into shared memory as f32 (times
-// `mul`), zeros past S; 16-byte (f32) or 8-byte (bf16) loads
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int S, float mul) {
-  constexpr int LD = Bwd<D>::LD, Q4 = D / 4;
-  for (int idx = threadIdx.x; idx < BB * Q4; idx += kThreads) {
-    const int r = idx / Q4, c = (idx % Q4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) {
-      v = load4(src + (long long)(r0 + r) * D + c);
-      v.x *= mul; v.y *= mul; v.z *= mul; v.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * LD + c) = v;
-  }
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* v) {
+  if constexpr (VW == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (VW == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  else *dst = v[0];
 }
-
-struct BwdArgs {
-  int Hq, Hkv, Sq, Sk, causal, window;
-  float softcap, scale;
-};
 
 __device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -717,264 +781,822 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc)
   return fmaf(a.w, b.w, acc);
 }
 
-// P and dS of one (q tile at q0, key tile at k0) into Ps, dSs [BB][kPS]
+// The 4 x 4 block of A B^T at rows ra + 8i of A and rb + 8j of B (32-row
+// tiles in shared memory): this lane sums the head dims of its split `sp`
+// (16-dim runs 16 sp + 32 m), the partner lane (lane ^ 1) the others, and one
+// shuffle a value adds the halves. Rows 8 apart and the two splits 16 floats
+// apart put a warp's eight distinct 16-byte loads in distinct banks.
 template <int D>
-__device__ __forceinline__ void bwd_tile(const BwdArgs& a, const float* Qs, const float* dOs,
-                                         const float* Ks, const float* Vs, const float* lse_s,
-                                         const float* delta_s, float* Ps, float* dSs, int q0,
-                                         int k0) {
+__device__ __forceinline__ void score_block(float (&s)[4][4], const float* A, const float* B,
+                                            int ra, int rb, int sp) {
   constexpr int LD = Bwd<D>::LD;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  const float* q0r = Qs + (2 * ty) * LD;
-  const float* d0r = dOs + (2 * ty) * LD;
-  const float* k0r = Ks + tx * LD;
-  const float* k1r = Ks + (tx + 16) * LD;
-  const float* v0r = Vs + tx * LD;
-  const float* v1r = Vs + (tx + 16) * LD;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 kv0 = load4(k0r + d), kv1 = load4(k1r + d);
-    const float4 vv0 = load4(v0r + d), vv1 = load4(v1r + d);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float4 qv = load4(q0r + i * LD + d), gv = load4(d0r + i * LD + d);
-      s[i][0] = dot4(qv, kv0, s[i][0]);
-      s[i][1] = dot4(qv, kv1, s[i][1]);
-      dp[i][0] = dot4(gv, vv0, dp[i][0]);
-      dp[i][1] = dot4(gv, vv1, dp[i][1]);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int d0 = 16 * sp; d0 < D; d0 += 32) {
+#pragma unroll
+    for (int e = 0; e < 16; e += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = load4(A + (ra + 8 * i) * LD + d0 + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = load4(B + (rb + 8 * j) * LD + d0 + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(x[i], y[j], s[i][j]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 2 * ty + i, qpos = q0 + r;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tx + 16 * j, kpos = k0 + c;
-      float x = s[i][j];
-      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-      bool ok = qpos < a.Sq && kpos < a.Sk;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && (qpos - kpos) < a.window;
-      const float p = ok ? expf(x - lse_s[r]) : 0.f;
-      float ds = p * (dp[i][j] - delta_s[r]);
-      if (a.softcap > 0.f) {
-        const float t = x / a.softcap;
-        ds *= 1.f - t * t;
-      }
-      Ps[r * kPS + c] = p;
-      dSs[r * kPS + c] = ok ? ds : 0.f;
+    for (int j = 0; j < 4; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 1);
+}
+
+// The score-phase coordinates of a thread in its half (128 threads): split,
+// q-row block and key block; a warp covers 16 q rows x 16 keys.
+struct ScoreLane {
+  int sp, qb, kb;
+  __device__ __forceinline__ ScoreLane() {
+    const int h = threadIdx.x & 127, w = h >> 5, l = (h & 31) >> 1;
+    sp = h & 1;
+    qb = 4 * (w >> 1) + (l >> 2);
+    kb = 4 * (w & 1) + (l & 3);
+  }
+};
+
+// A half's 4 x 4 block of scores (both lanes of a split pair hold it; each
+// writes the rows of its split) into a [BB][kPS] tile, as [q][k] or, with
+// TRANSPOSED, [k][q]. Rows are selected, not indexed, so s stays in registers.
+template <bool TRANSPOSED>
+__device__ __forceinline__ void write_block(const float (&s)[4][4], const ScoreLane& L, float* dst) {
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int ql = L.qb + 8 * (ii + 2 * L.sp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kl = L.kb + 8 * j;
+      dst[TRANSPOSED ? kl * kPS + ql : ql * kPS + kl] = L.sp ? s[ii + 2][j] : s[ii][j];
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)  // D = 256 fits one block an SM
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      const T* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                      const BwdArgs a) {
+// The elementwise step, four entries a thread over all 256: from the raw
+// score s = q.k and dP, P = exp(x - lse) with x = s / sqrt(D) (capped:
+// cap tanh(x / cap)) and dS = P (1 - (x / cap)^2) (dP - delta), zero where
+// masked. [q][k] tiles (dK/dV pass: P over S, dS over dP) or, TRANSPOSED,
+// [k][q] (dQ pass: dS over dP only).
+template <bool TRANSPOSED>
+__device__ __forceinline__ void p_and_ds(const BwdArgs& a, float* Ps, float* dSs,
+                                         const float* lse_s, const float* delta_s, int q0,
+                                         int k0) {
+  const int r = threadIdx.x >> 3, c0 = 4 * (threadIdx.x & 7);
+  float4* pv = reinterpret_cast<float4*>(Ps + r * kPS + c0);
+  float4* dv = reinterpret_cast<float4*>(dSs + r * kPS + c0);
+  float sv[4], dp[4];
+  {
+    const float4 x = *pv, y = *dv;
+    sv[0] = x.x; sv[1] = x.y; sv[2] = x.z; sv[3] = x.w;
+    dp[0] = y.x; dp[1] = y.y; dp[2] = y.z; dp[3] = y.w;
+  }
+  float p[4], ds[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int ql = TRANSPOSED ? c0 + e : r, kl = TRANSPOSED ? r : c0 + e;
+    float x = sv[e] * a.scale, dcap = 1.f;
+    if (a.softcap > 0.f) {
+      const float t = tanhf(x / a.softcap);
+      x = a.softcap * t;
+      dcap = 1.f - t * t;
+    }
+    const bool ok = visible(a, q0 + ql, k0 + kl);
+    p[e] = ok ? expf(x - lse_s[ql]) : 0.f;
+    ds[e] = p[e] * dcap * (dp[e] - delta_s[ql]);
+  }
+  if (!TRANSPOSED) *pv = make_float4(p[0], p[1], p[2], p[3]);
+  *dv = make_float4(ds[0], ds[1], ds[2], ds[3]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Bwd<D>::MIN_BLOCKS)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      float* __restrict__ dk, float* __restrict__ dv, const BwdArgs a) {
   using C = Bwd<D>;
   constexpr int LD = C::LD, VW = C::VW, NM = C::NM;
   extern __shared__ float4 bwd_smem[];  // 16-byte aligned rows
-  float* Qs = reinterpret_cast<float*>(bwd_smem);  // [BB][LD], pre-scaled
-  float* dOs = Qs + BB * LD;         // [BB][LD]
-  float* Ks = dOs + BB * LD;         // [BB][LD]
-  float* Vs = Ks + BB * LD;          // [BB][LD]
-  float* Ps = Vs + BB * LD;          // [BB][kPS]
-  float* dSs = Ps + BB * kPS;        // [BB][kPS]
-  float* lse_s = dSs + BB * kPS;
-  float* delta_s = lse_s + BB;
+  float* Ks = reinterpret_cast<float*>(bwd_smem);  // [BB][LD]
+  float* Vs = Ks + BB * LD;
+  float* Qs = Vs + BB * LD;          // two stages of [BB][LD]
+  float* dOs = Qs + 2 * BB * LD;     // two stages
+  float* Ps = dOs + 2 * BB * LD;     // [BB][kPS], S then P, [q][k]
+  float* dSs = Ps + BB * kPS;        // [BB][kPS], dP then dS, [q][k]
+  float* rows_s = dSs + BB * kPS;    // two stages of lse[BB], delta[BB]
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int k0 = blockIdx.x * BB, hk = blockIdx.y, b = blockIdx.z;
+  // the first KV tiles are seen by the most q tiles: they start first
+  const int k0 = blockIdx.y * BB, hk = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
   const int G = a.Hq / a.Hkv;
   const long long kv_off = ((long long)b * a.Hkv + hk) * a.Sk * D;
-  stage_rows<T, D>(Ks, k + kv_off, k0, a.Sk, 1.f);
-  stage_rows<T, D>(Vs, v + kv_off, k0, a.Sk, 1.f);
-
-  float acc_k[2][NM * VW], acc_v[2][NM * VW];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < NM * VW; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
   // the q rows that see a key of this tile: from the diagonal (causal) to
   // the window's reach of its last key
   const int lo_q = a.causal ? k0 : 0;
   int hi_q = a.Sq;
   if (a.window > 0) hi_q = min(hi_q, k0 + BB - 1 + a.window);
-  const int qt_lo = lo_q / BB, qt_hi = hi_q > lo_q ? (hi_q + BB - 1) / BB : qt_lo;
+  const int qt_lo = lo_q / BB;
+  const int nqt = hi_q > lo_q ? (hi_q + BB - 1) / BB - qt_lo : 0;
+  const int n = G * nqt;
 
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const long long q_off = ((long long)b * a.Hq + h) * a.Sq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * BB;
-      __syncthreads();  // the previous tile's readers are done
-      stage_rows<T, D>(Qs, q + q_off * D, q0, a.Sq, a.scale);
-      stage_rows<T, D>(dOs, dout + q_off * D, q0, a.Sq, 1.f);
-      if (threadIdx.x < BB) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < a.Sq ? lse[q_off + r] : 0.f;
-        delta_s[threadIdx.x] = r < a.Sq ? delta[q_off + r] : 0.f;
-      }
-      __syncthreads();
-      bwd_tile<D>(a, Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0);
-      __syncthreads();
-      // dV[j] += P[i, j] dO[i]; dK[j] += dS[i, j] Q[i] (Q carries 1/sqrt(D))
-#pragma unroll 2
-      for (int i = 0; i < BB; ++i) {
-        const float2 p = *reinterpret_cast<const float2*>(Ps + i * kPS + 2 * ty);
-        const float2 ds = *reinterpret_cast<const float2*>(dSs + i * kPS + 2 * ty);
+  auto stage = [&](int i) {  // tile i's q side into buffer i % 2
+    const int h = hk * G + i / nqt, q0 = (qt_lo + i % nqt) * BB, st = i & 1;
+    const long long bh = (long long)b * a.Hq + h;
+    stage_async<D>(Qs + st * BB * LD, q + bh * a.Sq * D, q0, a.Sq);
+    stage_async<D>(dOs + st * BB * LD, dout + bh * a.Sq * D, q0, a.Sq);
+    stage_rows_async(rows_s + st * 2 * BB, rows_s + st * 2 * BB + BB, a, bh * a.Sq_pad + q0);
+  };
+  stage_async<D>(Ks, k + kv_off, k0, a.Sk);
+  stage_async<D>(Vs, v + kv_off, k0, a.Sk);
+  if (n > 0) stage(0);
+  cp_async_commit();
+
+  const int half = threadIdx.x >> 7;
+  const ScoreLane L;
+  // accumulation: keys 4 kb .. 4 kb + 3, dims VW db + 16 VW m
+  const int lane = threadIdx.x & 31;
+  const int kb = lane >> 2, db = 4 * ((threadIdx.x & 127) >> 5) + (lane & 3);
+  float acc[4][NM * VW];
 #pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          float dov[VW], qv[VW];
-          lds<VW>(dov, dOs + i * LD + VW * tx + 16 * VW * m);
-          lds<VW>(qv, Qs + i * LD + VW * tx + 16 * VW * m);
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int e = 0; e < VW; ++e) {
-            acc_v[0][m * VW + e] = fmaf(p.x, dov[e], acc_v[0][m * VW + e]);
-            acc_v[1][m * VW + e] = fmaf(p.y, dov[e], acc_v[1][m * VW + e]);
-            acc_k[0][m * VW + e] = fmaf(ds.x, qv[e], acc_k[0][m * VW + e]);
-            acc_k[1][m * VW + e] = fmaf(ds.y, qv[e], acc_k[1][m * VW + e]);
-          }
+    for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i landed; every reader of tile i - 1 is done
+    if (i + 1 < n) stage(i + 1);
+    cp_async_commit();
+    const int st = i & 1, q0 = (qt_lo + i % nqt) * BB;
+    const float* Qt = Qs + st * BB * LD;
+    const float* dOt = dOs + st * BB * LD;
+    const float* lse_s = rows_s + st * 2 * BB;
+    // half 0: S = Q K^T into Ps; half 1: dP = dO V^T into dSs
+    float s[4][4];
+    score_block<D>(s, half == 0 ? Qt : dOt, half == 0 ? Ks : Vs, L.qb, L.kb, L.sp);
+    write_block<false>(s, L, half == 0 ? Ps : dSs);
+    __syncthreads();
+    p_and_ds<false>(a, Ps, dSs, lse_s, lse_s + BB, q0, k0);
+    __syncthreads();  // P and dS complete
+    // half 0: dV[j] += P[i, j] dO[i]; half 1: dK[j] += dS[i, j] Q[i]
+    const float* W = half == 0 ? Ps : dSs;
+    const float* X = half == 0 ? dOt : Qt;
+#pragma unroll 4
+    for (int r = 0; r < BB; ++r) {
+      const float4 w = load4(W + r * kPS + 4 * kb);
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        float x[VW];
+        lds<VW>(x, X + r * LD + VW * db + 16 * VW * m);
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          acc[0][m * VW + e] = fmaf(w.x, x[e], acc[0][m * VW + e]);
+          acc[1][m * VW + e] = fmaf(w.y, x[e], acc[1][m * VW + e]);
+          acc[2][m * VW + e] = fmaf(w.z, x[e], acc[2][m * VW + e]);
+          acc[3][m * VW + e] = fmaf(w.w, x[e], acc[3][m * VW + e]);
         }
       }
     }
   }
+  float* out = half == 0 ? dv : dk;
+  const float mul = half == 0 ? 1.f : a.scale;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kr = k0 + 2 * ty + i;
+  for (int r = 0; r < 4; ++r) {
+    const int kr = k0 + 4 * kb + r;
     if (kr >= a.Sk) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
-      const long long at = kv_off + (long long)kr * D + VW * tx + 16 * VW * m;
-      store_vec<T, VW>(dk + at, &acc_k[i][m * VW]);
-      store_vec<T, VW>(dv + at, &acc_v[i][m * VW]);
+      float o4[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) o4[e] = acc[r][m * VW + e] * mul;
+      store_vec<VW>(out + kv_off + (long long)kr * D + VW * db + 16 * VW * m, o4);
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)  // D = 256 fits one block an SM
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, const BwdArgs a) {
+template <int D>
+__global__ void __launch_bounds__(kThreads, Bwd<D>::MIN_BLOCKS)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    float* __restrict__ dq, const BwdArgs a) {
   using C = Bwd<D>;
-  constexpr int LD = C::LD, VW = C::VW, NM = C::NM;
+  constexpr int LD = C::LD, VW = C::VWQ, NM = C::NMQ;
   extern __shared__ float4 bwd_smem[];
-  float* Qs = reinterpret_cast<float*>(bwd_smem);
+  float* Qs = reinterpret_cast<float*>(bwd_smem);  // [BB][LD]
   float* dOs = Qs + BB * LD;
-  float* Ks = dOs + BB * LD;
-  float* Vs = Ks + BB * LD;
-  float* Ps = Vs + BB * LD;
-  float* dSs = Ps + BB * kPS;
-  float* lse_s = dSs + BB * kPS;
-  float* delta_s = lse_s + BB;
+  float* Ks = dOs + BB * LD;          // two stages of [BB][LD]
+  float* Vs = Ks + 2 * BB * LD;       // two stages
+  float* Ss = Vs + 2 * BB * LD;       // [BB][kPS], S transposed: [k][q]
+  float* dSs = Ss + BB * kPS;         // [BB][kPS], dP then dS, transposed
+  float* rows_s = dSs + BB * kPS;     // lse[BB], delta[BB]
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int q0 = blockIdx.x * BB, h = blockIdx.y, b = blockIdx.z;
+  // the last q tiles see the most keys: they start first
+  const int q0 = ((a.Sq + BB - 1) / BB - 1 - (int)blockIdx.y) * BB;
+  const int h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
   const int hk = h / (a.Hq / a.Hkv);
-  const long long q_off = ((long long)b * a.Hq + h) * a.Sq;
+  const long long bh = (long long)b * a.Hq + h;
   const long long kv_off = ((long long)b * a.Hkv + hk) * a.Sk * D;
-  stage_rows<T, D>(Qs, q + q_off * D, q0, a.Sq, a.scale);
-  stage_rows<T, D>(dOs, dout + q_off * D, q0, a.Sq, 1.f);
-  if (threadIdx.x < BB) {
-    const int r = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = r < a.Sq ? lse[q_off + r] : 0.f;
-    delta_s[threadIdx.x] = r < a.Sq ? delta[q_off + r] : 0.f;
-  }
-
-  float acc[2][NM * VW];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < NM * VW; ++c) acc[i][c] = 0.f;
-
   // the keys this tile's rows see: up to the diagonal of its last row, back
   // to the window of its first
   const int hi_k = a.causal ? min(a.Sk, q0 + BB) : a.Sk;
   const int lo_k = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
-  const int kt_lo = lo_k / BB, kt_hi = hi_k > lo_k ? (hi_k + BB - 1) / BB : kt_lo;
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BB;
+  const int kt_lo = lo_k / BB;
+  const int n = hi_k > lo_k ? (hi_k + BB - 1) / BB - kt_lo : 0;
+
+  auto stage = [&](int i) {
+    const int kr0 = (kt_lo + i) * BB, st = i & 1;
+    stage_async<D>(Ks + st * BB * LD, k + kv_off, kr0, a.Sk);
+    stage_async<D>(Vs + st * BB * LD, v + kv_off, kr0, a.Sk);
+  };
+  stage_async<D>(Qs, q + bh * a.Sq * D, q0, a.Sq);
+  stage_async<D>(dOs, dout + bh * a.Sq * D, q0, a.Sq);
+  stage_rows_async(rows_s, rows_s + BB, a, bh * a.Sq_pad + q0);
+  if (n > 0) stage(0);
+  cp_async_commit();
+
+  const int half = threadIdx.x >> 7;
+  const ScoreLane L;
+  // accumulation: rows 4 qb .. 4 qb + 3, dims VW db + 32 VW m
+  const int qb = threadIdx.x & 7, db = threadIdx.x >> 3;
+  float acc[4][NM * VW];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_all();
     __syncthreads();
-    stage_rows<T, D>(Ks, k + kv_off, k0, a.Sk, 1.f);
-    stage_rows<T, D>(Vs, v + kv_off, k0, a.Sk, 1.f);
+    if (i + 1 < n) stage(i + 1);
+    cp_async_commit();
+    const int st = i & 1, k0 = (kt_lo + i) * BB;
+    const float* Kt = Ks + st * BB * LD;
+    const float* Vt = Vs + st * BB * LD;
+    // half 0: S = Q K^T, half 1: dP = dO V^T, both as [k][q]
+    float s[4][4];
+    score_block<D>(s, half == 0 ? Qs : dOs, half == 0 ? Kt : Vt, L.qb, L.kb, L.sp);
+    write_block<true>(s, L, half == 0 ? Ss : dSs);
     __syncthreads();
-    bwd_tile<D>(a, Qs, dOs, Ks, Vs, lse_s, delta_s, Ps, dSs, q0, k0);
-    __syncthreads();
+    p_and_ds<true>(a, Ss, dSs, rows_s, rows_s + BB, q0, k0);
+    __syncthreads();  // dS complete
     // dQ[i] += dS[i, j] K[j]
-#pragma unroll 2
+#pragma unroll 4
     for (int j = 0; j < BB; ++j) {
-      const float s0 = dSs[(2 * ty) * kPS + j], s1 = dSs[(2 * ty + 1) * kPS + j];
+      const float4 w = load4(dSs + j * kPS + 4 * qb);
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
-        float kv[VW];
-        lds<VW>(kv, Ks + j * LD + VW * tx + 16 * VW * m);
+        float x[VW];
+        lds<VW>(x, Kt + j * LD + VW * db + 32 * VW * m);
 #pragma unroll
         for (int e = 0; e < VW; ++e) {
-          acc[0][m * VW + e] = fmaf(s0, kv[e], acc[0][m * VW + e]);
-          acc[1][m * VW + e] = fmaf(s1, kv[e], acc[1][m * VW + e]);
+          acc[0][m * VW + e] = fmaf(w.x, x[e], acc[0][m * VW + e]);
+          acc[1][m * VW + e] = fmaf(w.y, x[e], acc[1][m * VW + e]);
+          acc[2][m * VW + e] = fmaf(w.z, x[e], acc[2][m * VW + e]);
+          acc[3][m * VW + e] = fmaf(w.w, x[e], acc[3][m * VW + e]);
         }
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qr = q0 + 2 * ty + i;
+  for (int r = 0; r < 4; ++r) {
+    const int qr = q0 + 4 * qb + r;
     if (qr >= a.Sq) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
-      float out[VW];
+      float o4[VW];
 #pragma unroll
-      for (int e = 0; e < VW; ++e) out[e] = acc[i][m * VW + e] * a.scale;
-      store_vec<T, VW>(dq + (q_off + qr) * D + VW * tx + 16 * VW * m, out);
+      for (int e = 0; e < VW; ++e) o4[e] = acc[r][m * VW + e] * a.scale;
+      store_vec<VW>(dq + (bh * a.Sq + qr) * D + VW * db + 32 * VW * m, o4);
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int B, const BwdArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = Bwd<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* dop = static_cast<const T*>(dout);
-  const long long rows = (long long)B * a.Hq * a.Sq;
-  flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), dop, delta, rows, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (a.Sk > 0) {
-    flash_bwd_dkdv_kernel<T, D><<<dim3((a.Sk + BB - 1) / BB, a.Hkv, B), kThreads, smem, stream>>>(
-        qp, kp, vp, dop, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+// --- the tensor-core route (bfloat16) ----------------------------------------
+
+constexpr int kBr = 64;  // q rows and keys of a tensor-core backward tile
+
+template <int D>
+struct TcB {
+  static constexpr int SPAN = D >= 64 ? 128 : 64;  // swizzle span, bytes
+  static constexpr int CW = SPAN / 2;              // bf16 columns per chunk
+  static constexpr int NC = D / CW;                // chunks per row
+  static constexpr int TILE = kBr * D * 2;         // bytes of a 64-row tile
+  static constexpr int CHUNK = kBr * SPAN;         // bytes of one of its chunks
+  static constexpr int ROWS = 2 * kBr * 4;         // lse and delta of a q tile
+  static constexpr int XCH = 32 * 128 * 4;         // P': 32 f32 a consumer thread
+  // dK/dV: K, V, two stages of Q and dO and of their rows, the P' exchange,
+  // 5 barriers, slack to align the tiles to 1024 B
+  static constexpr size_t SMEM_KV =
+      2 * TILE + 2 * kStages * TILE + kStages * ROWS + XCH + 64 + 1024;
+  // dQ: two consumer warpgroups of 64 q rows each; KV tiles of BKQ keys (32
+  // at D = 256, where two 64-key stages of K and V would not fit beside Q
+  // and dO of 128 rows)
+  static constexpr int NQ = 2;
+  static constexpr int BKQ = D == 256 ? 32 : 64;
+  static constexpr int KTILE = BKQ * D * 2;
+  static constexpr int KCHUNK = BKQ * SPAN;
+  static constexpr size_t SMEM_Q = 2 * NQ * TILE + 2 * kStages * KTILE + 64 + 1024;
+  static_assert(SMEM_KV <= 232448 && SMEM_Q <= 232448, "backward tiles exceed shared memory");
+};
+
+struct TcBwdArgs {
+  BwdArgs m;
+  __nv_bfloat16 *dq, *dk, *dv;
+  float s_log2;    // 1/sqrt(D) * log2(e)
+  float s_cap;     // 2/(sqrt(D) * cap) * log2(e): exponent of exp(2u) in tanh(u)
+};
+
+// P (natural: exp(x - lse)) and the softcap's derivative of a raw score
+template <bool SOFTCAP>
+__device__ __forceinline__ float tc_p(const TcBwdArgs& a, float raw, float lse2, float& dcap) {
+  if (SOFTCAP) {
+    const float ex = exp2_approx(raw * a.s_cap);
+    const float th = 1.f - __fdividef(2.f, ex + 1.f);  // tanh(raw / (sqrt(D) cap))
+    dcap = 1.f - th * th;
+    return exp2_approx(fmaf(a.m.softcap * kLog2e, th, -lse2));
   }
-  flash_bwd_dq_kernel<T, D><<<dim3((a.Sq + BB - 1) / BB, a.Hq, B), kThreads, smem, stream>>>(
-      qp, kp, vp, dop, lse, delta, static_cast<T*>(dq), a);
+  dcap = 1.f;
+  return exp2_approx(fmaf(raw, a.s_log2, -lse2));
+}
+
+// K-major operand descriptor of k16 slice kk of a tile at `tile` whose
+// column chunks are `chunk` bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk, int chunk = TcB<D>::CHUNK) {
+  using C = TcB<D>;
+  const int c = kk / (C::CW / 16), w = kk % (C::CW / 16);
+  return hopper::make_desc(tile + c * chunk + 32 * w, 16, 8 * C::SPAN, C::SPAN);
+}
+
+// MN-major (B, N = D) descriptor of rows 16 kk .. 16 kk + 15 of such a tile
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int chunk = TcB<D>::CHUNK) {
+  using C = TcB<D>;
+  return hopper::make_desc(tile + kk * 16 * C::SPAN, chunk, 8 * C::SPAN, C::SPAN);
+}
+
+// a 64 x D f32 accumulator (rows `row0` + 16 warp + g (+ 8)) into bf16 rows
+// [.., S) of a contiguous [rows, D] array, times `mul`
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2], int row0,
+                                          int S, float mul) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * warp + g + 8 * r;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (long long)row * D + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+  }
+}
+
+// the dK/dV pass's consumers: warpgroup 1 (dV) or 2 (dK)
+template <int D, bool SOFTCAP>
+__device__ __forceinline__ void tc_dkdv_consume(const TcBwdArgs& a, uint32_t sK, uint32_t sV,
+                                                uint32_t sQ, uint32_t sdO, const float* rows_g,
+                                                float* xch, uint32_t bars, int wg, int k0, int hk,
+                                                int b, int qt_lo, int nqt, int n) {
+  using C = TcB<D>;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kpos[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  hopper::mbar_wait(bars, 0);  // K and V
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kStages;
+    const uint32_t ph = (i / kStages) & 1;
+    const uint32_t full = bars + 8 + 8 * st, empty = bars + 24 + 8 * st;
+    const int q0 = (qt_lo + i % nqt) * kBr;
+    const uint32_t qt = sQ + st * C::TILE, dot = sdO + st * C::TILE;
+    const float* lse_s = rows_g + st * (C::ROWS / 4);
+    hopper::mbar_wait(full, ph);
+    float s[32];
+    uint32_t frag[4][4];
+    if (wg == 1) {
+      // S^T = K Q^T
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(s, kmajor<D>(sK, kk), kmajor<D>(qt, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      // P^T in s, P' to the exchange (after warpgroup 2 has read the last)
+      if (i > 0) hopper::named_barrier(2, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * j + 2 * t + c;
+          const float lse2 = lse_s[col] * kLog2e;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + c;
+            float dcap;
+            const float p = tc_p<SOFTCAP>(a, s[e], lse2, dcap);
+            const bool ok = visible(a.m, q0 + col, kpos[r]);
+            s[e] = ok ? p : 0.f;
+            xch[e * 128 + tid] = ok ? p * dcap : 0.f;
+          }
+        }
+      hopper::named_barrier_arrive(1, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) frag[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      // dV += P^T dO
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(dot, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    } else {
+      // dP^T = V dO^T
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_n64(s, kmajor<D>(sV, kk), kmajor<D>(dot, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      // dS^T = P' (dP^T - delta)
+      hopper::named_barrier(1, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float dl = lse_s[kBr + 8 * j + 2 * t + c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + c;
+            s[e] = xch[e * 128 + tid] * (s[e] - dl);
+          }
+        }
+      if (i + 1 < n) hopper::named_barrier_arrive(2, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) frag[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      // dK += dS^T Q
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(qt, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty);
+  }
+  const long long kv_row = ((long long)b * a.m.Hkv + hk) * a.m.Sk;
+  if (wg == 1) store_acc<D>(a.dv + kv_row * D, acc, k0, a.m.Sk, 1.f);
+  else store_acc<D>(a.dk + kv_row * D, acc, k0, a.m.Sk, a.m.scale);
+}
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_tc_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo, const TcBwdArgs a) {
+  using C = TcB<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;  // swizzled tiles start 1024-aligned
+  uint8_t* gK = smem_raw + (sK - raw);
+  const uint32_t sV = sK + C::TILE, sQ = sV + C::TILE, sdO = sQ + kStages * C::TILE;
+  const uint32_t sRows = sdO + kStages * C::TILE, sX = sRows + kStages * C::ROWS;
+  // barriers: kv_full, full[2], empty[2]
+  const uint32_t bars = sX + C::XCH;
+
+  // lightest KV tiles last: the first keys are seen by the most q tiles
+  const int kt = blockIdx.y;
+  const int hk = blockIdx.x % a.m.Hkv, b = blockIdx.x / a.m.Hkv;
+  const int G = a.m.Hq / a.m.Hkv;
+  const int k0 = kt * kBr;
+  const int lo_q = a.m.causal ? k0 : 0;
+  int hi_q = a.m.Sq;
+  if (a.m.window > 0) hi_q = min(hi_q, k0 + kBr - 1 + a.m.window);
+  const int qt_lo = lo_q / kBr;
+  const int nqt = hi_q > lo_q ? (hi_q + kBr - 1) / kBr - qt_lo : 0;
+  const int n = G * nqt;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bars + 8 + 8 * s, 1);
+      hopper::mbar_init(bars + 24 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tdo);
+      hopper::mbar_expect_tx(bars, 2 * C::TILE);
+      for (int c = 0; c < C::NC; ++c) {
+        hopper::tma_load_4d(sK + c * C::CHUNK, &tk, bars, c * C::CW, k0, hk, b);
+        hopper::tma_load_4d(sV + c * C::CHUNK, &tv, bars, c * C::CW, k0, hk, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const uint32_t full = bars + 8 + 8 * st;
+        const int h = hk * G + i / nqt, q0 = (qt_lo + i % nqt) * kBr;
+        hopper::mbar_wait(bars + 24 + 8 * st, ph ^ 1);  // stage released
+        hopper::mbar_expect_tx(full, 2 * C::TILE + C::ROWS);
+        for (int c = 0; c < C::NC; ++c) {
+          hopper::tma_load_4d(sQ + st * C::TILE + c * C::CHUNK, &tq, full, c * C::CW, q0, h, b);
+          hopper::tma_load_4d(sdO + st * C::TILE + c * C::CHUNK, &tdo, full, c * C::CW, q0, h, b);
+        }
+        const long long row = ((long long)b * a.m.Hq + h) * a.m.Sq_pad + q0;
+        hopper::bulk_load(sRows + st * C::ROWS, a.m.lse_pad + row, C::ROWS / 2, full);
+        hopper::bulk_load(sRows + st * C::ROWS + C::ROWS / 2, a.m.delta_pad + row, C::ROWS / 2, full);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<240>();
+    tc_dkdv_consume<D, SOFTCAP>(a, sK, sV, sQ, sdO,
+                                reinterpret_cast<const float*>(gK + (sRows - sK)),
+                                reinterpret_cast<float*>(gK + (sX - sK)), bars, wg, k0, hk, b,
+                                qt_lo, nqt, n);
+  }
+}
+
+// the dQ pass's consumer warpgroup `cw`: q rows r0 .. r0 + 63
+template <int D, bool SOFTCAP>
+__device__ __forceinline__ void tc_dq_consume(const TcBwdArgs& a, uint32_t sQ, uint32_t sdO,
+                                              uint32_t sK, uint32_t sV, uint32_t bars, int cw,
+                                              int q0, int h, int b, int kt_lo, int ntiles) {
+  using C = TcB<D>;
+  constexpr int BK = C::BKQ;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + kBr * cw;
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const long long bh = (long long)b * a.m.Hq + h;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = row[r] < a.m.Sq;
+    lse2[r] = in ? a.m.lse_pad[bh * a.m.Sq_pad + row[r]] * kLog2e : 0.f;
+    dl[r] = in ? a.m.delta_pad[bh * a.m.Sq_pad + row[r]] : 0.f;
+  }
+  const bool has_rows = r0 < a.m.Sq;
+  const int r_last = min(r0 + kBr - 1, a.m.Sq - 1);
+  // this warpgroup's keys: [lo_k, hi_k)
+  const int lo_k = a.m.window > 0 ? max(r0 - a.m.window + 1, 0) : 0;
+  const int hi_k = !has_rows ? 0 : a.m.causal ? min(a.m.Sk, r_last + 1) : a.m.Sk;
+  const uint32_t qt = sQ + cw * C::TILE, dot = sdO + cw * C::TILE;
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  hopper::mbar_wait(bars, 0);  // Q and dO
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const uint32_t ph = (i / kStages) & 1;
+    const uint32_t k_full = bars + 8 + 8 * st, v_full = bars + 24 + 8 * st;
+    const uint32_t empty = bars + 40 + 8 * st;
+    const int k0 = (kt_lo + i) * BK;
+    const uint32_t kt = sK + st * C::KTILE, vt = sV + st * C::KTILE;
+    hopper::mbar_wait(k_full, ph);
+    hopper::mbar_wait(v_full, ph);
+    if (k0 < hi_k && k0 + BK > lo_k) {
+      // S = Q K^T and dP = dO V^T, one group
+      float s[BK / 2], dp[BK / 2];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<BK>::ss(s, kmajor<D>(qt, kk), kmajor<D>(kt, kk, C::KCHUNK), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<BK>::ss(dp, kmajor<D>(dot, kk), kmajor<D>(vt, kk, C::KCHUNK), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      hopper::fence_regs(dp);
+      // dS = P (dP - delta) (1 - (s / cap)^2), masked
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kp = k0 + 8 * j + 2 * t + c;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r + c;
+            float dcap;
+            const float p = tc_p<SOFTCAP>(a, s[e], lse2[r], dcap);
+            s[e] = visible(a.m, row[r], kp) ? p * dcap * (dp[e] - dl[r]) : 0.f;
+          }
+        }
+      uint32_t frag[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) frag[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      // dQ += dS K, K MN-major
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(kt, kk, C::KCHUNK), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty);
+  }
+  if (has_rows) store_acc<D>(a.dq + bh * a.m.Sq * D, acc, r0, a.m.Sq, a.m.scale);
+}
+
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_tc_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, const TcBwdArgs a) {
+  using C = TcB<D>;
+  constexpr int NQ = C::NQ, R = NQ * kBr, BK = C::BKQ;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t sQ = (raw + 1023) & ~1023u;
+  const uint32_t sdO = sQ + NQ * C::TILE, sK = sdO + NQ * C::TILE;
+  const uint32_t sV = sK + kStages * C::KTILE;
+  // barriers: q_full, k_full[2], v_full[2], empty[2]
+  const uint32_t bars = sV + kStages * C::KTILE;
+
+  // heaviest q tiles first: block rows of the grid run in order
+  const int nqt = (a.m.Sq + R - 1) / R;
+  const int qt = nqt - 1 - (int)blockIdx.y;
+  const int h = blockIdx.x % a.m.Hq, b = blockIdx.x / a.m.Hq;
+  const int hk = h / (a.m.Hq / a.m.Hkv);
+  const int q0 = qt * R;
+  const int q_last = min(q0 + R, a.m.Sq) - 1;
+  const int hi_k = a.m.causal ? min(a.m.Sk, q_last + 1) : a.m.Sk;
+  const int lo_k = a.m.window > 0 ? max(q0 - a.m.window + 1, 0) : 0;
+  const int kt_lo = lo_k / BK;
+  const int ntiles = max((hi_k + BK - 1) / BK - kt_lo, 0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bars + 8 + 8 * s, 1);
+      hopper::mbar_init(bars + 24 + 8 * s, 1);
+      hopper::mbar_init(bars + 40 + 8 * s, 4 * NQ);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::mbar_expect_tx(bars, 2 * NQ * C::TILE);
+      for (int cw = 0; cw < NQ; ++cw)
+        for (int c = 0; c < C::NC; ++c) {
+          hopper::tma_load_4d(sQ + cw * C::TILE + c * C::CHUNK, &tq, bars, c * C::CW,
+                              q0 + kBr * cw, h, b);
+          hopper::tma_load_4d(sdO + cw * C::TILE + c * C::CHUNK, &tdo, bars, c * C::CW,
+                              q0 + kBr * cw, h, b);
+        }
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % kStages;
+        const uint32_t ph = (i / kStages) & 1;
+        const uint32_t k_full = bars + 8 + 8 * st, v_full = bars + 24 + 8 * st;
+        const int k0 = (kt_lo + i) * BK;
+        hopper::mbar_wait(bars + 40 + 8 * st, ph ^ 1);  // stage released
+        hopper::mbar_expect_tx(k_full, C::KTILE);
+        for (int c = 0; c < C::NC; ++c)
+          hopper::tma_load_4d(sK + st * C::KTILE + c * C::KCHUNK, &tk, k_full, c * C::CW, k0, hk,
+                              b);
+        hopper::mbar_expect_tx(v_full, C::KTILE);
+        for (int c = 0; c < C::NC; ++c)
+          hopper::tma_load_4d(sV + st * C::KTILE + c * C::KCHUNK, &tv, v_full, c * C::CW, k0, hk,
+                              b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<240>();
+    tc_dq_consume<D, SOFTCAP>(a, sQ, sdO, sK, sV, bars, wg - 1, q0, h, b, kt_lo, ntiles);
+  }
+}
+
+// --- launches ------------------------------------------------------------------
+
+template <typename T>
+cudaError_t launch_bwd_delta(const void* o, const void* dout, const float* lse, float* scratch,
+                             int B, const BwdArgs& a, int D, cudaStream_t stream) {
+  const long long rows_pad = (long long)B * a.Hq * a.Sq_pad;
+  flash_bwd_delta_kernel<T><<<(unsigned)((rows_pad + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, scratch, scratch + rows_pad,
+      rows_pad, a.Sq, a.Sq_pad, D);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v, const void* o,
-                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                         void* dv, int B, const BwdArgs& a, cudaStream_t s) {
+template <int D>
+cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                           void* dq, void* dk, void* dv, int B, const BwdArgs& a,
+                           cudaStream_t stream) {
+  constexpr size_t smem = Bwd<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* dop = static_cast<const float*>(dout);
+  if (a.Sk > 0) {
+    flash_bwd_dkdv_kernel<D><<<dim3(B * a.Hkv, (a.Sk + BB - 1) / BB), kThreads, smem, stream>>>(
+        qp, kp, vp, dop, static_cast<float*>(dk), static_cast<float*>(dv), a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_dq_kernel<D><<<dim3(B * a.Hq, (a.Sq + BB - 1) / BB), kThreads, smem, stream>>>(
+      qp, kp, vp, dop, static_cast<float*>(dq), a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
+                          void* dq, void* dk, void* dv, int B, const BwdArgs& m,
+                          cudaStream_t stream) {
+  using C = TcB<D>;
+  constexpr uint64_t E = 2;  // bytes of a bf16
+  CUtensorMap tq, tk, tv, tdo, tkq, tvq;  // tkq, tvq: the dQ pass's KV tiles
+  const uint64_t qd[4] = {D, (uint64_t)m.Sq, (uint64_t)m.Hq, (uint64_t)B};
+  // K and V of Sk = 0 are never read: a one-row tensor keeps the descriptor valid
+  const uint64_t sk = m.Sk > 1 ? m.Sk : 1;
+  const uint64_t kd[4] = {D, sk, (uint64_t)m.Hkv, (uint64_t)B};
+  const uint64_t q_st[3] = {D * E, (uint64_t)m.Sq * D * E, (uint64_t)m.Hq * m.Sq * D * E};
+  const uint64_t k_st[3] = {D * E, sk * D * E, (uint64_t)m.Hkv * sk * D * E};
+  if (!hopper::encode_bf16_4d(&tq, q, qd, q_st, C::CW, kBr, C::SPAN) ||
+      !hopper::encode_bf16_4d(&tdo, dout, qd, q_st, C::CW, kBr, C::SPAN) ||
+      !hopper::encode_bf16_4d(&tk, k, kd, k_st, C::CW, kBr, C::SPAN) ||
+      !hopper::encode_bf16_4d(&tv, v, kd, k_st, C::CW, kBr, C::SPAN) ||
+      !hopper::encode_bf16_4d(&tkq, k, kd, k_st, C::CW, C::BKQ, C::SPAN) ||
+      !hopper::encode_bf16_4d(&tvq, v, kd, k_st, C::CW, C::BKQ, C::SPAN))
+    return cudaErrorInvalidValue;
+  const bool cap = m.softcap > 0.f;
+  const auto dkdv = cap ? flash_bwd_tc_dkdv_kernel<D, true> : flash_bwd_tc_dkdv_kernel<D, false>;
+  const auto dqk = cap ? flash_bwd_tc_dq_kernel<D, true> : flash_bwd_tc_dq_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_KV);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_Q);
+  if (err != cudaSuccess) return err;
+  TcBwdArgs a{m, static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+              static_cast<__nv_bfloat16*>(dv), m.scale * kLog2e,
+              cap ? 2.f * m.scale / m.softcap * kLog2e : 0.f};
+  if (m.Sk > 0) {
+    dkdv<<<dim3(B * m.Hkv, (m.Sk + kBr - 1) / kBr), kTcThreads, C::SMEM_KV, stream>>>(tq, tk, tv,
+                                                                                      tdo, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dqk<<<dim3(B * m.Hq, (m.Sq + C::NQ * kBr - 1) / (C::NQ * kBr)), kTcThreads, C::SMEM_Q,
+        stream>>>(tq, tkq, tvq, tdo, a);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd(int D, bool bf16, const void* q, const void* k, const void* v,
+                         const void* dout, void* dq, void* dk, void* dv, int B, const BwdArgs& a,
+                         cudaStream_t s) {
   switch (D) {
-    case 32: return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
-    case 64: return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
-    case 128: return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
-    case 256: return launch_bwd<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, a, s);
+    case 32: return bf16 ? launch_bwd_tc<32>(q, k, v, dout, dq, dk, dv, B, a, s)
+                         : launch_bwd_f32<32>(q, k, v, dout, dq, dk, dv, B, a, s);
+    case 64: return bf16 ? launch_bwd_tc<64>(q, k, v, dout, dq, dk, dv, B, a, s)
+                         : launch_bwd_f32<64>(q, k, v, dout, dq, dk, dv, B, a, s);
+    case 128: return bf16 ? launch_bwd_tc<128>(q, k, v, dout, dq, dk, dv, B, a, s)
+                          : launch_bwd_f32<128>(q, k, v, dout, dq, dk, dv, B, a, s);
+    case 256: return bf16 ? launch_bwd_tc<256>(q, k, v, dout, dq, dk, dv, B, a, s)
+                          : launch_bwd_f32<256>(q, k, v, dout, dq, dk, dv, B, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1018,29 +1640,35 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 
 // The backward of repro_flash_attention. q, o, dout, dq: contiguous [B, Hq, Sq, D];
 // k, v, dk, dv: contiguous [B, Hkv, Sk, D], each starting on 16 bytes; lse: the
-// forward's f32 [B, Hq, Sq];
-// delta: f32 [B, Hq, Sq] scratch. All of one dtype (0 = float32, 1 = bfloat16),
-// accumulated in f32. Returns the first failing launch's cudaError_t (0 on
-// success); the three kernels run asynchronously on `stream`.
+// forward's f32 [B, Hq, Sq]; scratch: f32 [2, B, Hq, Sq_pad], Sq_pad = Sq rounded
+// up to a multiple of 64 (16-byte aligned), which receives lse and delta in
+// padded rows. All of one dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores), accumulated in f32. Returns the first failing launch's cudaError_t (0
+// on success); the three kernels run asynchronously on `stream`.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, const void* lse,
-                                         void* delta, void* dq, void* dk, void* dv, int B,
+                                         void* scratch, void* dq, void* dk, void* dv, int B,
                                          int Hq, int Hkv, int Sq, int Sk, int D, int causal,
                                          int window, float softcap, int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || Hq > 65535 || B > 65535)
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || Hq > 65535 || B > 65535 || Sk > 65535 * BB ||
+      Sq > 65535 * BB ||
+      (D != 32 && D != 64 && D != 128 && D != 256) || (dtype != kF32 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
-  // the tiles move in 16-byte (f32) or 8-byte (bf16) vectors
+  // the f32 tiles move as 16-byte copies; TMA and the bulk copies need 16 bytes
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
-       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)scratch) % 16)
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{Hq, Hkv, Sq, Sk, causal, window, softcap, 1.f / sqrtf((float)D)};
+  const int Sq_pad = (Sq + kPadRows - 1) / kPadRows * kPadRows;
+  float* pad = static_cast<float*>(scratch);
+  const long long rows_pad = (long long)B * Hq * Sq_pad;
+  const BwdArgs a{pad, pad + rows_pad, Hq, Hkv, Sq, Sk, Sq_pad, causal, window, softcap,
+                  1.f / sqrtf((float)D)};
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return (int)dispatch_bwd<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, a, s);
-  if (dtype == kBF16)
-    return (int)dispatch_bwd<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, a, s);
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t err = dtype == kF32
+                              ? launch_bwd_delta<float>(o, dout, l, pad, B, a, D, s)
+                              : launch_bwd_delta<__nv_bfloat16>(o, dout, l, pad, B, a, D, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch_bwd(D, dtype == kBF16, q, k, v, dout, dq, dk, dv, B, a, s);
 }

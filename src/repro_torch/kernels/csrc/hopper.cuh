@@ -82,6 +82,12 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrives at named barrier `id` without waiting: the producer's half of a
+// hand-over whose consumer waits with named_barrier (the count covers both).
+__device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Register hand-over between warpgroups: every warp of a warpgroup executes
 // it together, on paths that never reconverge.
 template <int N>
@@ -111,6 +117,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16) of contiguous global memory at `src`
+// (16-byte aligned) into shared memory at `dst`, completing on the barrier's
+// transaction count like tma_load_4d.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -182,6 +199,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // A operand is the bf16 fragment of the same rows over one k16 slice: the
 // accumulator's entries 8s..8s+7 packed in pairs are the A operand of
 // slice s. `accumulate` = 0 overwrites d.
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B in shared memory (descriptors).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B in shared memory (descriptors).
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
@@ -355,6 +385,7 @@ template <> struct Wgmma<128> {
   static __device__ __forceinline__ void rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n128_tb(d, a, b, acc); }
 };
 template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_ss_n32(d, a, b, acc); }
   static __device__ __forceinline__ void rs_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n32_tb(d, a, b, acc); }
 };
 template <> struct Wgmma<256> {

@@ -25,8 +25,11 @@ nothing of size Sq x Sk, and its backward is the op
 ``repro_torch::flash_attention_bwd``, ``(dq, dk, dv)``, the port of the
 reference's recompute backward (``_make_flash_cvjp``,
 ``src/repro/models/layers.py:215``): on a CUDA tensor the backward kernels of
-``csrc/flash_attention.cu`` (CUDA cores, f32 and bf16, f32 accumulation, no
-atomics), on a CPU tensor ``flash_attention_bwd_plain``. Its flop formula is
+``csrc/flash_attention.cu`` (two routes picked by dtype: bfloat16 on the
+tensor cores, wgmma fed by TMA, P and dS rounded to bf16 where they feed a
+product; float32 on the CUDA cores with ``cp.async`` double-buffered tiles;
+f32 accumulation and no atomics on both), on a CPU tensor
+``flash_attention_bwd_plain``. Its flop formula is
 ``10 * B * Hq * (visible pairs) * D``: five products against the forward's
 two. ``BWD_LAUNCHES`` counts the backward's launches.
 """
@@ -257,13 +260,15 @@ def _launch_bwd(q, k, v, o, lse, do, causal: bool, window: int,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    # lse and delta in rows padded to a multiple of 64 (the kernels' tiles)
+    scratch = torch.empty(2 * b * hq * (-(-sq // 64) * 64),
+                          dtype=torch.float32, device=q.device)
     fn = build.load("flash_attention", "repro_flash_attention_bwd",
                     _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 b, hq, hkv, sq, sk, d, int(causal), int(window),
                 float(logit_softcap), _DTYPES[q.dtype], stream)

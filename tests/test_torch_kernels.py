@@ -393,6 +393,66 @@ def test_flash_bwd_flop_formula_is_five_products():
     assert fc.get_total_flops() == 10 * 2 * 4 * pairs * 32
 
 
+def _tc_bwd_emulated(q, k, v, o, lse, do, *, window, cap):
+    """The bf16 tensor-core backward's arithmetic in plain PyTorch: f32
+    products of the bf16 inputs, P and dS rounded to bf16 where they feed
+    dV = P^T dO, dK = dS^T Q and dQ = dS K, f32 accumulation, each output
+    rounded to bf16 once."""
+    bf16 = torch.bfloat16
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d ** -0.5
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    dcap = torch.ones_like(s)
+    if cap:
+        t = torch.tanh(s / cap)
+        s, dcap = cap * t, 1.0 - t * t
+    mask = FA.visible_mask(sq, sk, causal=True, window=window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros(()))
+    delta = (dof * o.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    ds = p * dcap * (dp - delta[..., None])
+    pb, dsb = p.to(bf16).float(), ds.to(bf16).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, dof)
+    fold = (lambda x: x.reshape(b, hkv, g, sk, d).sum(2).to(bf16))
+    return dq.to(bf16), fold(dk), fold(dv)
+
+
+# (b, hq, hkv, s, d, softcap, window): gemma2-9b's training case cut to
+# S 256 and 4 / 2 heads (D 256, softcap 50), and D 128 with a window
+@pytest.mark.parametrize("case", [(1, 4, 2, 256, 256, 50.0, 0),
+                                  (1, 4, 2, 256, 256, 50.0, 96),
+                                  (2, 4, 2, 200, 128, 0.0, 64)])
+def test_flash_bwd_tensor_core_roundings_within_card_tolerance(case):
+    """The bf16 route rounds P and dS to bf16 before its three products
+    (the tensor cores take bf16 operands): emulated here, its dq, dk, dv are
+    within the card checks' bf16 tolerance (atol = rtol = 2e-2, as
+    ``chip_smoke.compare`` and the gpu test hold the kernel) of
+    ``flash_attention_bwd_plain`` in f32 on the same bf16 inputs."""
+    b, hq, hkv, s, d, cap, win = case
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                   .to(torch.bfloat16)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                                 (b, hq, s, d)))
+    o, lse = FA.flash_attention_lse_plain(q, k, v, causal=True, window=win,
+                                          logit_softcap=cap)
+    got = _tc_bwd_emulated(q, k, v, o, lse, do, window=win, cap=cap)
+    want = FA.flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        causal=True, window=win, logit_softcap=cap)
+    for g, w in zip(got, want):
+        err = (g.float() - w).abs()
+        assert bool((err <= 2e-2 + 2e-2 * w.abs()).all()), float(err.max())
+        # the roundings move the result: the check is not vacuous
+        assert float(err.max()) > 0.0
+
+
 @pytest.mark.parametrize("shape", [(8, 256), (4, 96, 256), (1000, 512),
                                    (3, 100)])
 def test_rmsnorm_bwd_matches_jax_vjp(shape):
@@ -425,27 +485,83 @@ def test_rmsnorm_op_passes_gradcheck():
 
 
 @pytest.mark.gpu
+def test_backward_rows_that_see_no_key_on_card():
+    """ROADMAP C10: with top-left causal, Sq > Sk and a window, rows from
+    Sk + window - 1 on see no key. The kernels pass no gradient from such a
+    row (P is 0 on every masked pair), so on both routes and at every head
+    dim they equal the plain backward given those rows' dO as zeros. The
+    plain backward (the CPU route, the reference's arithmetic: the -1e30
+    mask leaves the row's weights equal and its lse at -1e30) gives every
+    key's dV that row's dO: the two disagree, and this pins that they do
+    until C10 is settled."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, hq, hkv, sq, sk, win = 2, 2, 1, 129, 65, 17
+    kw = dict(causal=True, window=win, logit_softcap=0.0)
+    sees = FA.visible_mask(sq, sk, causal=True, window=win,
+                           device=dev).any(-1)
+    assert int((~sees).sum()) == sq - (sk + win - 1)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for d in FA.HEAD_DIMS:
+            q, do = (torch.randn(b, hq, sq, d, generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            # the plain forward's o and lse, so that both backwards read
+            # the same finite inputs
+            o, lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+            got = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o.contiguous(), lse, do, True, win, 0.0)
+            want = FA.flash_attention_bwd_plain(
+                q, k, v, o, lse, do * sees[:, None].to(dtype), **kw)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+            plain_dv = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    **kw)[2].float()
+            gap = float((got[2].float() - plain_dv).abs().max())
+            print(f"C10 {str(dtype)[6:]} D {d}: the card's dV against the "
+                  f"plain backward's, max abs {gap:.4g}")
+            assert not torch.allclose(got[2].float(), plain_dv, rtol=tol,
+                                      atol=tol)
+
+
+@pytest.mark.gpu
 def test_backward_kernels_match_plain_on_card():
+    """Both routes of the flash backward (f32 on the CUDA cores, bf16 on the
+    tensor cores) at every head dim, with GQA, softcaps, windows and ragged
+    Sq / Sk tails, against the plain backward, and the same bits on two
+    calls; then RMSNorm's backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for (b, hq, hkv, s, d, cap, win) in [(1, 4, 2, 300, 256, 50.0, 0),
-                                             (2, 4, 2, 200, 128, 0.0, 64)]:
-            q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
-                           .to(dtype) for shape in
-                           ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d),
-                            (b, hq, s, d)))
+        for (b, hq, hkv, sq, sk, d, cap, win) in [
+                (1, 4, 2, 300, 300, 256, 50.0, 0),
+                (2, 4, 2, 200, 200, 128, 0.0, 64),
+                (1, 4, 2, 100, 300, 64, 0.0, 33),
+                (2, 4, 4, 77, 77, 32, 0.0, 0),
+                (1, 2, 1, 130, 90, 128, 20.0, 0),
+                (1, 4, 2, 96, 96, 256, 0.0, 40)]:
+            q, do = (torch.randn(b, hq, sq, d, generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
             o, lse = torch.ops.repro_torch.flash_attention_lse(
                 q, k, v, True, win, cap)
             got = torch.ops.repro_torch.flash_attention_bwd(
                 q, k, v, o, lse, do, True, win, cap)
+            again = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o, lse, do, True, win, cap)
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                 window=win, logit_softcap=cap)
-            for g, w in zip(got, want):
+            for g, w, g2 in zip(got, want, again):
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                            atol=tol)
+                assert torch.equal(g, g2)
         x = torch.randn(1000, 3584, generator=gen, device=dev).to(dtype)
         sc = (torch.randn(3584, generator=gen, device=dev) * 0.1).to(dtype)
         dy = torch.randn(1000, 3584, generator=gen, device=dev).to(dtype)
