@@ -40,7 +40,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    in f32 and bf16, at gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
    1024, D 256, softcap 50, window 4096 and 0), D 128 with a window of
    256, ragged tails and rows; RMSNorm's dscale must be the same bits run
-   to run. Yardsticks: SDPA's and ``F.rms_norm``'s forward + backward
+   to run. Flash's forward and backward also run, on both routes at every
+   head dim, at (B 2, Hq 2, Hkv 1, Sq 129, Sk 65) with a window of 17,
+   whose last 48 rows see no key: o 0 and lse +inf there, exactly, and no
+   gradient (ROADMAP C10). Yardsticks: SDPA's and ``F.rms_norm``'s forward + backward
    through autograd where they compute the same function (none for
    gemma2's softcap).
 5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
@@ -113,7 +116,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    + 1 a step, its backward 2 a layer + 1), the probe's flops at least
    2.5x the analytic forward; then one step alone whose probe must cover
    ``torch.cuda.max_memory_allocated`` (fails below 1.0), and a
-   ``torch.profiler`` breakdown of one step.
+   ``torch.profiler`` breakdown of one step, with the flash forward's and
+   RMSNorm backward's ms a step.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -243,6 +247,17 @@ def compare(torch, got, want, dtype, what: str) -> float:
     return float(err.max())
 
 
+def compare_lse(torch, got, want, dtype, what: str) -> float:
+    """``compare`` for a forward's lse: +inf, exactly, on the rows that see
+    no key (ROADMAP C10) and only there; the other rows within the dtype's
+    tolerance."""
+    empty = torch.isinf(want)
+    if not torch.equal(torch.isinf(got), empty) \
+            or not bool((got[empty] == want[empty]).all()):
+        fail(f"{what}: lse is not +inf on exactly the rows that see no key")
+    return compare(torch, got[~empty], want[~empty], dtype, what)
+
+
 def phase_build(torch):
     from repro_torch.kernels import build
     t = time.time()
@@ -274,6 +289,7 @@ def phase_kernels(torch):
     # (d 4096), then a narrow edge case
     for shape, dtype in [((4000, 3584), torch.bfloat16),
                          ((4000, 3584), torch.float32),
+                         ((4096, 3584), torch.float32),
                          ((4, 3584), torch.bfloat16),
                          ((4, 3584), torch.float32),
                          ((4096, 4096), torch.bfloat16),
@@ -299,8 +315,8 @@ def phase_kernels(torch):
         bound = max(nbytes / H100_HBM_BW, flops / H100_F32_FLOPS) * 1e3
         print(f"[kernels] rmsnorm {shape} {str(dtype)[6:]}: max_abs_err "
               f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes)",
-              flush=True)
+              f"F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+              f"{100 * bound / ms:.1f}% of the bound", flush=True)
         if shape == (4000, 3584) and dtype == torch.bfloat16:
             table["rmsnorm"] = dict(
                 name="rmsnorm", route="cuda",
@@ -520,12 +536,48 @@ def phase_flash(torch, randn, table) -> None:
                             design="tensor cores: wgmma, TMA into an "
                                    "mbarrier ring, warp-specialised"),
                         "float32": dict(kernel="flash_fwd_kernel",
-                                        design="CUDA cores")})
+                                        design="CUDA cores: cp.async into "
+                                               "two buffers, 4 x 4 score "
+                                               "and 8-row PV register "
+                                               "blocks, heaviest q tiles "
+                                               "first")})
         elif d == 128:
             table["flash_attention"]["mixtral_case"] = entry
         elif dtype == f32:
             table["flash_attention"]["routes"]["float32"]["gemma2_case"] = \
                 entry
+    # rows that see no key (ROADMAP C10): top-left causal with Sq > Sk and a
+    # window, the rows from Sk + window - 1 on; on both routes and at every
+    # head dim o is 0 and lse +inf there exactly, as the plain versions give,
+    # with and without the lse output
+    b, hq, hkv, sq, sk, win = 2, 2, 1, 129, 65, 17
+    sees = FA.visible_mask(sq, sk, causal=True, window=win,
+                           device=torch.device("cuda", 0)).any(-1)
+    for d in FA.HEAD_DIMS:
+        for dtype in (f32, bf16):
+            q = randn((b, hq, sq, d), dtype)
+            k, v = randn((b, hkv, sk, d), dtype), randn((b, hkv, sk, d), dtype)
+            o, lse = torch.ops.repro_torch.flash_attention_lse(q, k, v, True,
+                                                               win, 0.0)
+            o_fwd = FA.flash_attention(q, k, v, window=win)
+            torch.cuda.synchronize()
+            want_o, want_lse = FA.flash_attention_lse_plain(q, k, v,
+                                                            causal=True,
+                                                            window=win)
+            route = "tensor cores" if dtype == bf16 else "CUDA cores"
+            what = (f"flash {(b, hq, hkv, sq, sk, d)} {str(dtype)[6:]} "
+                    f"({route}) window {win}, {int((~sees).sum())} rows that "
+                    f"see no key")
+            if bool(o[:, :, ~sees].any()) or bool(o_fwd[:, :, ~sees].any()):
+                fail(f"{what}: o is not 0 on the rows that see no key")
+            err = max(compare(torch, o, want_o, dtype, f"{what} o"),
+                      compare(torch, o_fwd, want_o, dtype,
+                              f"{what} o without lse"),
+                      compare_lse(torch, lse, want_lse, dtype, f"{what} lse"))
+            worst[dtype] = max(worst[dtype], err)
+            print(f"[kernels] {what}: max_abs_err {err:.3e} (o, lse); o 0 and "
+                  f"lse +inf on those rows", flush=True)
+            del q, k, v, o, lse, o_fwd, want_o, want_lse
     table["flash_attention"]["routes"]["bfloat16"]["max_abs_err_all_cases"] \
         = worst[bf16]
     table["flash_attention"]["routes"]["float32"]["max_abs_err_all_cases"] \
@@ -547,7 +599,7 @@ def phase_flash(torch, randn, table) -> None:
         what = (f"flash forward with lse {(b, hq, hkv, s, s, d)} float32 "
                 f"(CUDA cores) softcap {cap:g} window {win}")
         err = max(compare(torch, o, want_o, f32, f"{what} o"),
-                  compare(torch, lse, want_lse, f32, f"{what} lse"))
+                  compare_lse(torch, lse, want_lse, f32, f"{what} lse"))
         del o, lse, want_o, want_lse
         ms = time_ms(torch, lambda: torch.ops.repro_torch
                      .flash_attention_lse(q, k, v, *args), 3)
@@ -571,12 +623,19 @@ def phase_flash(torch, randn, table) -> None:
             call = (lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=True))
         lib_ms = time_ms(torch, call, 3) if call is not None else None
+        # what the softcap's tanh costs the kernel: the same launch without
+        # it (another function, timed for the kernel's own breakdown)
+        nocap_ms = time_ms(torch, lambda: torch.ops.repro_torch
+                           .flash_attention_lse(q, k, v, True, win, 0.0),
+                           3) if cap else None
         print(f"[kernels] {what}: max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, "
               + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
                  f"{lib} refused, ")
               + f"bound {bound:.4f} ms ({by}), "
-              f"{100 * bound / ms:.1f}% of the bound", flush=True)
+              f"{100 * bound / ms:.1f}% of the bound"
+              + (f"; the kernel without the softcap {nocap_ms:.4f} ms"
+                 if cap else ""), flush=True)
         table["flash_attention"]["routes"]["float32"][f"forward_lse_{name}"] \
             = dict(shape=[b, hq, hkv, s, s, d], softcap=cap, window=win,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -786,13 +845,16 @@ def phase_gmm(torch, randn, table) -> None:
 
 # the flash backward's cases, (b, hq, hkv, sq, sk, d, softcap, window) and
 # whether it is timed: gemma2-9b's training shape with window 4096 and 0, D
-# 128 with a window of 256, and ragged Sq/Sk tails at D 256, 64 and 32
+# 128 with a window of 256, ragged Sq/Sk tails at D 256, 64 and 32, and Sq >
+# Sk with a window (48 rows that see no key) at every head dim
 FLASH_BWD_CASES = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
                    ((4, 16, 8, 1024, 1024, 256, 50.0, 0), False),
                    ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
                    ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
                    ((1, 4, 2, 100, 300, 64, 0.0, 33), False),
-                   ((2, 4, 4, 77, 77, 32, 0.0, 0), False)]
+                   ((2, 4, 4, 77, 77, 32, 0.0, 0), False)] + [
+    # rows that see no key (ROADMAP C10) at every head dim
+    ((2, 2, 1, 129, 65, d, 0.0, 17), False) for d in (32, 64, 128, 256)]
 
 
 def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
@@ -832,7 +894,7 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
                     fail(f"{what}: {n} differs between two calls")
             del again
             # the forward's lse (natural log on both routes) against plain
-            lse_err = compare(torch, lse, FA.flash_attention_lse_plain(
+            lse_err = compare_lse(torch, lse, FA.flash_attention_lse_plain(
                 q, k, v, **kw)[1], dtype, f"{what} forward's lse")
             want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
             err = max(compare(torch, g, w, dtype, f"{what} {n}")
@@ -1641,11 +1703,12 @@ def phase_continuous(torch, arch: str, prompt_len: int, n_layers=None):
     return launches
 
 
-def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
+def device_breakdown(torch, label: str, fn, top: int = 8) -> list:
     """Run ``fn()`` once under ``torch.profiler`` and print the device time
     by kernel: the busy total against the host wall time, the ``top``
     kernels, and the port's own kernels below them. The profiler's own cost
-    inflates the wall time, not the kernels' device times."""
+    inflates the wall time, not the kernels' device times. Returns the rows,
+    (device ms, launches, kernel name)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1678,6 +1741,7 @@ def device_breakdown(torch, label: str, fn, top: int = 8) -> None:
         if any(k in name for k in PORT_KERNELS):
             print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}% "
                   f"x{count:<5d} {name[:110]} (port kernel)", flush=True)
+    return rows
 
 
 def phase_decode(torch, arch: str, s: int, n_layers=None, streams: int = 0):
@@ -1995,9 +2059,18 @@ def phase_train(torch) -> dict:
                                           "train"), seed=0)
     batch = batch_to(pipe.batch_at(0), dev)
     step(params, state, batch)  # warm-up
-    device_breakdown(torch, f"gemma2-9b train step, {TRAIN_LAYERS} layers, "
-                     f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}",
-                     lambda: step(params, state, batch), top=12)
+    label = (f"gemma2-9b train step, {TRAIN_LAYERS} layers, f32, batch "
+             f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+    rows = device_breakdown(torch, label, lambda: step(params, state, batch),
+                            top=12)
+    # the kernels this slice redesigned, summed over the step
+    for what, names in (("flash forward", ("flash_fwd_kernel",)),
+                        ("RMSNorm backward", ("rmsnorm_bwd_kernel",
+                                              "rmsnorm_dscale_kernel"))):
+        mine = [(ms, n) for ms, n, name in rows
+                if any(k in name for k in names)]
+        print(f"[profile] {label}: {what} {sum(m for m, _ in mine):.3f} ms "
+              f"a step over {sum(n for _, n in mine)} launches", flush=True)
     del params, state, batch
     return launches
 

@@ -6,10 +6,14 @@
 // (kernel body :54-91, pallas_call at :93). Same arithmetic: scores scaled by
 // 1/sqrt(D), softcap before the mask, top-left causal mask (q_pos starts at 0 even
 // when Sq != Sk), window rule q - k < w, f32 accumulation, output in q's type.
-// Masked scores count for nothing (the reference's -1e30 underflows to a weight
-// of 0); a row that sees no key at all writes zeros (the reference would average
-// V over the masked keys). K tiles outside the causal diagonal and left of the
-// window are skipped (the loop bounds of flash_attention.py:84-86).
+// Masked scores count for nothing: both routes mask them to -inf and guard the
+// running max while a row has seen nothing, so a masked key weighs exactly 0. A
+// row that sees no key at all (top-left causal with Sq > Sk and a window: rows
+// from Sk + window - 1 on) writes o = 0 and lse = +inf on both routes, as the
+// plain versions do; with lse = +inf, exp(s - lse) = 0, so both backwards pass
+// such a row no gradient (ROADMAP C10; the reference's -1e30 mask would instead
+// average V over the masked keys). K tiles outside the causal diagonal and left
+// of the window are skipped (the loop bounds of flash_attention.py:84-86).
 //
 // Bound on the card: at gemma2-9b prefill, (B, Hq, Hkv, S, D) = (4, 16, 8, 1000, 256)
 // causal, it reads q, k, v and writes o (~98 MB, >= 29 us at 3.35 TB/s) and does
@@ -45,17 +49,30 @@
 // The wgmma, TMA and mbarrier helpers live in hopper.cuh.
 //
 // float32: the CUDA-core kernel (flash_fwd_kernel), exact to f32 rounding
-// (tensor cores would round its inputs to TF32). One block of 256 threads per
-// (q tile of 64 rows, q head, batch). The Q tile is staged once in shared memory
-// as f32 (pre-scaled); K and V stream through shared memory 32 keys at a time
-// (137 KB of dynamic shared memory at D = 256). Thread (ty, tx) of a 16 x 16 grid
-// owns q rows ty*4..ty*4+3: for S = QK^T it computes keys tx and tx+16, for
-// O += PV head dims tx + 16j. The 16 threads sharing a row group sit in one
-// half-warp, so row max and row sum are reduced with shuffles and the running
-// (m, l) stay in registers. Rows of Q and K are padded by one float so the
-// half-warp reads 16 distinct banks. Ragged Sq and Sk tails are masked
-// (zero-filled tiles, k < Sk in the mask). Masked scores are -1e30. The kv head
-// of q head h is h / (Hq / Hkv).
+// (tensor cores would round its inputs to TF32). Bound by operations at f32's
+// 67 TFLOP/s: each SM sub-partition issues one warp instruction a clock and
+// has 32 FMA lanes, so every instruction that is not an FMA (a shared load, an
+// address, a shuffle) takes an FMA's slot. One block of 256 threads per (q
+// tile of 64 rows, q head, batch), the heaviest q tiles (the bottom of the
+// causal triangle) first. Q is staged once; K and V stream in tiles of 32 keys
+// into two buffers by 16-byte cp.async, the next tile's copy in flight while
+// this one is computed (208 KB of shared memory at D = 256: one block an SM;
+// 110 KB at D = 128: two). Per K tile, three steps between barriers:
+//   S = Q K^T   each half of the block takes 32 rows, each thread a 4 x 4
+//               block over half of D (the partner lane has the other half;
+//               one shuffle adds them): 8 float4 shared loads feed 64 FMAs,
+//               rows padded by 4 floats so that a warp's loads fall in
+//               distinct banks; S goes to a [64][36] tile;
+//   softmax     four lanes a row, 8 keys each: scale, softcap, mask to -inf,
+//               the row's running max and sum in registers, P written over
+//               S and the row's rescale factor to shared memory;
+//   O += P V    each thread 8 rows x D/32 dims (a warp 4 row groups x 8 dim
+//               groups, so P's and V's loads hit distinct banks): per 4 keys,
+//               8 float4 loads of P and 8 of V (D = 256) feed 256 FMAs.
+// O stays in registers (64 a thread at D = 256) and is written as float4s
+// after O / l. Ragged Sq and Sk tails are zero-filled copies and masked; the kv
+// head of q head h is h / (Hq / Hkv). Rows must start on 16 bytes (the wrapper
+// copies a view whose strides do not).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,182 +86,355 @@ namespace {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
-// the CUDA-core route (float32)
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 32;        // keys per K/V tile
+// ---------------------------------------------------------------------------
+// the CUDA-core route (float32): tiles and helpers of the forward and the
+// backward
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
+constexpr int BB = 32;       // keys of a CUDA-core tile (and q rows of a backward tile)
+constexpr int kRowPad = 4;   // floats of padding per staged row
+constexpr int kPS = BB + 4;  // row stride of the score tiles (16-byte rows)
+
+template <int D>
+__host__ __device__ constexpr int row_ld() {  // staged Q, K (and the backward's dO, V) row stride, floats
+  return D + kRowPad;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-                          (size_t)BQ * (BK + 1));
-}
 
 struct Strides {  // element strides of one [B, H, S, D] operand (D stride is 1)
   long long b, h, s;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                 Strides qs, Strides ks, Strides vs, int causal, int window, float softcap,
-                 float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                       // [BQ][D + 1]
-  float* Ks = Qs + BQ * (D + 1);          // [BK][D + 1]
-  float* Vs = Ks + BK * (D + 1);          // [BK][D]
-  float* Ps = Vs + BK * D;                // [BQ][BK + 1]
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
-
-  for (int idx = tid; idx < BQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int qr = q0 + r;
-    Qs[r * (D + 1) + c] = qr < Sq ? to_f32(qb[qr * qs.s + c]) * scale : 0.f;
-  }
-
-  constexpr int DJ = D / 16;
-  float acc[4][DJ];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // block pruning: causal upper bound at the diagonal, window lower bound at
-  // the oldest key the first row of the tile can see
-  const int nk = (Sk + BK - 1) / BK;
-  int hi = nk;
-  if (causal) hi = min(hi, (q0 + BQ + BK - 1) / BK);
-  int lo = 0;
-  if (window > 0) lo = max(q0 - window + 1, 0) / BK;
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers of Ks/Vs/Ps are done
-    for (int idx = tid; idx < BK * D; idx += kThreads) {
-      const int r = idx / D, c = idx % D;
-      const int kr = k0 + r;
-      const bool in = kr < Sk;
-      Ks[r * (D + 1) + c] = in ? to_f32(kb[kr * ks.s + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[kr * vs.s + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-    const float* qrow = Qs + (ty * 4) * (D + 1);
-    const float* k0row = Ks + tx * (D + 1);
-    const float* k1row = Ks + (tx + 16) * (D + 1);
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kv0 = k0row[d], kv1 = k1row[d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = qrow[i * (D + 1) + d];
-        s[i][0] = fmaf(qv, kv0, s[i][0]);
-        s[i][1] = fmaf(qv, kv1, s[i][1]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && (qpos - kpos) < window;
-        x = ok ? x : kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      const float p0 = expf(s[i][0] - m_new), p1 = expf(s[i][1] - m_new);
-      float rs = p0 + p1;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-      Ps[(ty * 4 + i) * (BK + 1) + tx] = p0;
-      Ps[(ty * 4 + i) * (BK + 1) + tx + 16] = p1;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (BK + 1) + c];
-      const float* vrow = Vs + c * D + tx;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = vrow[16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-  T* ob = o + ((long long)b * Hq + h) * (long long)Sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[(long long)qr * D + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
-    // the row's log-sum-exp of its (scaled, capped) scores, for the backward
-    if (lse != nullptr && tx == 0)
-      lse[((long long)b * Hq + h) * Sq + qr] = m[i] + logf(fmaxf(l[i], 1e-30f));
+// rows [r0, r0 + R) of a [S, D] f32 operand whose rows are `stride` elements
+// apart (each starting on 16 bytes) into shared memory (row stride LDS),
+// zeros past S, as 16-byte cp.async copies (not waited for)
+template <int D, int R = BB, int LDS = row_ld<D>()>
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int r0, int S,
+                                            long long stride = D) {
+  constexpr int Q4 = D / 4;
+  for (int idx = threadIdx.x; idx < R * Q4; idx += kThreads) {
+    const int r = idx / Q4, c = (idx % Q4) * 4;
+    const bool in = r0 + r < S;
+    cp_async16(dst + r * LDS + c, in ? src + (long long)(r0 + r) * stride + c : src, in);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                   int Hq, int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                   int causal, int window, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// VW consecutive f32 of shared memory
+template <int VW>
+__device__ __forceinline__ void lds(float (&v)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else if constexpr (VW == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_vec(float* dst, const float* v) {
+  if constexpr (VW == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (VW == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  else *dst = v[0];
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// The 4 x 4 block of A B^T at rows ra + 8i of A and rb + 8j of B (32-row
+// tiles in shared memory): this lane sums the head dims of its split `sp`
+// (16-dim runs 16 sp + 32 m), the partner lane (lane ^ 1) the others, and one
+// shuffle a value adds the halves. Rows 8 apart and the two splits 16 floats
+// apart put a warp's eight distinct 16-byte loads in distinct banks.
+template <int D>
+__device__ __forceinline__ void score_block(float (&s)[4][4], const float* A, const float* B,
+                                            int ra, int rb, int sp) {
+  constexpr int LD = row_ld<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int d0 = 16 * sp; d0 < D; d0 += 32) {
+#pragma unroll
+    for (int e = 0; e < 16; e += 4) {
+      float4 x[4], y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = load4(A + (ra + 8 * i) * LD + d0 + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) y[j] = load4(B + (rb + 8 * j) * LD + d0 + e);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(x[i], y[j], s[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 1);
+}
+
+// The score-phase coordinates of a thread in its half (128 threads): split,
+// q-row block and key block; a warp covers 16 q rows x 16 keys.
+struct ScoreLane {
+  int sp, qb, kb;
+  __device__ __forceinline__ ScoreLane() {
+    const int h = threadIdx.x & 127, w = h >> 5, l = (h & 31) >> 1;
+    sp = h & 1;
+    qb = 4 * (w >> 1) + (l >> 2);
+    kb = 4 * (w & 1) + (l & 3);
+  }
+};
+
+// A half's 4 x 4 block of scores (both lanes of a split pair hold it; each
+// writes the rows of its split) into a [BB][kPS] tile, as [q][k] or, with
+// TRANSPOSED, [k][q]. Rows are selected, not indexed, so s stays in registers.
+template <bool TRANSPOSED>
+__device__ __forceinline__ void write_block(const float (&s)[4][4], const ScoreLane& L, float* dst) {
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int ql = L.qb + 8 * (ii + 2 * L.sp);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kl = L.kb + 8 * j;
+      dst[TRANSPOSED ? kl * kPS + ql : ql * kPS + kl] = L.sp ? s[ii + 2][j] : s[ii][j];
+    }
+  }
+}
+
+// --- the forward --------------------------------------------------------------
+
+constexpr int FQ = 64;  // q rows of a forward block
+
+template <int D>
+struct Fwd {
+  static constexpr int LD = row_ld<D>();
+  // O += P V: each thread 8 rows x VW * NM dims, a warp 4 row groups x 8
+  // dim groups
+  static constexpr int VW = D >= 128 ? 4 : D / 32;
+  static constexpr int NM = D / (32 * VW);
+  // Q; K and V, two buffers each; the score tile; each row's rescale
+  // factor and sum
+  static constexpr size_t SMEM = sizeof(float) * ((size_t)FQ * LD + 2 * (size_t)BB * LD +
+                                                  2 * (size_t)BB * D + (size_t)FQ * kPS + 2 * FQ);
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
+  static_assert(SMEM * MIN_BLOCKS <= 232448, "CUDA-core forward tiles exceed shared memory");
+};
+
+struct FwdArgs {
+  float* lse;  // [B, Hq, Sq] natural-log log-sum-exp of each row, or null
+  int Hq, Hkv, Sq, Sk, causal, window;
+  float softcap, scale;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Fwd<D>::MIN_BLOCKS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, const FwdArgs a,
+                 const Strides qs, const Strides ks, const Strides vs) {
+  using C = Fwd<D>;
+  constexpr int LD = C::LD, VW = C::VW, NM = C::NM;
+  extern __shared__ float4 fwd_smem[];  // 16-byte aligned rows
+  float* Qs = reinterpret_cast<float*>(fwd_smem);  // [FQ][LD]
+  float* Ks = Qs + FQ * LD;                        // two buffers of [BB][LD]
+  float* Vs = Ks + 2 * BB * LD;                    // two buffers of [BB][D]
+  float* Ss = Vs + 2 * BB * D;                     // [FQ][kPS]: S, then P
+  float* alpha_s = Ss + FQ * kPS;                  // [FQ]
+  float* l_s = alpha_s + FQ;                       // [FQ]
+
+  // heaviest q tiles first: block rows of the grid run in order
+  const int nqt = (a.Sq + FQ - 1) / FQ;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * FQ;
+  const int h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  // the block's K tiles: up to the diagonal of its last row, back to the
+  // window of its first
+  const int q_last = min(q0 + FQ, a.Sq) - 1;
+  const int hi_k = a.causal ? min(a.Sk, q_last + 1) : a.Sk;
+  const int lo_k = a.window > 0 ? max(q0 - a.window + 1, 0) : 0;
+  const int kt_lo = lo_k / BB;
+  const int n = hi_k > lo_k ? (hi_k + BB - 1) / BB - kt_lo : 0;
+
+  auto stage = [&](int i) {  // K and V tile i into buffer i % 2
+    const int k0 = (kt_lo + i) * BB, st = i & 1;
+    stage_async<D>(Ks + st * BB * LD, kb, k0, a.Sk, ks.s);
+    stage_async<D, BB, D>(Vs + st * BB * D, vb, k0, a.Sk, vs.s);
+  };
+  stage_async<D, FQ>(Qs, q + b * qs.b + h * qs.h, q0, a.Sq, qs.s);
+  if (n > 0) stage(0);
+  cp_async_commit();
+
+  const int tid = threadIdx.x, half = tid >> 7;
+  const ScoreLane L;
+  // the softmax: four lanes a row (row sr, keys sc .. sc + 7), each holding
+  // the row's running max and sum
+  const int sr = tid >> 2, sc = 8 * (tid & 3);
+  float m_run = -INFINITY, l_run = 0.f;
+  // O: rows rg + 8 i, dims VW dg + 32 VW m
+  const int lane = tid & 31, w = tid >> 5;
+  const int rg = 4 * (w >> 2) + (lane >> 3), dg = 8 * (w & 3) + (lane & 7);
+  float acc[8][NM * VW];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i landed; every reader of tile i - 1 is done
+    if (i + 1 < n) stage(i + 1);
+    cp_async_commit();
+    const int st = i & 1, k0 = (kt_lo + i) * BB;
+    const float* Vt = Vs + st * BB * D;
+
+    // S = Q K^T, each half of the block 32 rows
+    {
+      float s[4][4];
+      score_block<D>(s, Qs + half * BB * LD, Ks + st * BB * LD, L.qb, L.kb, L.sp);
+      write_block<false>(s, L, Ss + half * BB * kPS);
+    }
+    __syncthreads();
+
+    // online softmax of row sr: scale, softcap, mask to -inf; the running
+    // max is guarded while the row has seen nothing (m_use), so a masked
+    // key weighs exactly 0 and a row with no key keeps l = 0
+    {
+      float* srow = Ss + sr * kPS + sc;
+      const float4 s0 = load4(srow), s1 = load4(srow + 4);
+      float x[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+      const int qpos = q0 + sr;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float t = x[j] * a.scale;
+        if (a.softcap > 0.f) t = a.softcap * tanhf(t / a.softcap);
+        const int kpos = k0 + sc + j;
+        bool ok = kpos < a.Sk;
+        if (a.causal) ok = ok && kpos <= qpos;
+        if (a.window > 0) ok = ok && qpos - kpos < a.window;
+        x[j] = ok ? t : -INFINITY;
+        mx = fmaxf(mx, x[j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run, mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m_run - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[j] = expf(x[j] - m_use);
+        sum += x[j];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run = l_run * alpha + sum;
+      m_run = m_new;
+      *reinterpret_cast<float4*>(srow) = make_float4(x[0], x[1], x[2], x[3]);
+      *reinterpret_cast<float4*>(srow + 4) = make_float4(x[4], x[5], x[6], x[7]);
+      if ((tid & 3) == 0) alpha_s[sr] = alpha;
+    }
+    __syncthreads();  // P and the rescale factors complete
+
+    // O = alpha O + P V: per 4 keys, 8 float4 loads of P and 4 NM of V
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float al = alpha_s[rg + 8 * r];
+#pragma unroll
+      for (int c = 0; c < NM * VW; ++c) acc[r][c] *= al;
+    }
+#pragma unroll 2
+    for (int c4 = 0; c4 < BB; c4 += 4) {
+      float p[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 t = load4(Ss + (rg + 8 * r) * kPS + c4);
+        p[r][0] = t.x; p[r][1] = t.y; p[r][2] = t.z; p[r][3] = t.w;
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float* vrow = Vt + (c4 + cc) * D + VW * dg;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          float xv[VW];
+          lds<VW>(xv, vrow + 32 * VW * m);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              acc[r][m * VW + e] = fmaf(p[r][cc], xv[e], acc[r][m * VW + e]);
+        }
+      }
+    }
+  }
+
+  // each row's sum; O / l, and lse = m + log(l), or o = 0 and lse = +inf for
+  // a row that saw no key
+  if ((tid & 3) == 0) {
+    l_s[sr] = l_run;
+    const int qr = q0 + sr;
+    if (a.lse != nullptr && qr < a.Sq)
+      a.lse[((long long)b * a.Hq + h) * a.Sq + qr] = l_run > 0.f ? m_run + logf(l_run) : INFINITY;
+  }
+  __syncthreads();
+  float* ob = o + ((long long)b * a.Hq + h) * (long long)a.Sq * D;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int qr = q0 + rg + 8 * r;
+    if (qr >= a.Sq) continue;
+    const float l = l_s[rg + 8 * r];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      float o4[VW];
+#pragma unroll
+      for (int e = 0; e < VW; ++e) o4[e] = acc[r][m * VW + e] * inv;
+      store_vec<VW>(ob + (long long)qr * D + VW * dg + 32 * VW * m, o4);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int Hq, int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
+                       int causal, int window, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = Fwd<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap,
-      1.f / sqrtf((float)D));
+  const FwdArgs a{lse, Hq, Hkv, Sq, Sk, causal, window, softcap, 1.f / sqrtf((float)D)};
+  const dim3 grid(B * Hq, (Sq + FQ - 1) / FQ);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), a, qs, ks, vs);
   return cudaGetLastError();
 }
 
@@ -436,9 +626,10 @@ __device__ __forceinline__ void tc_consume(const TcArgs& a, const CUtensorMap* t
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     inv[r] = 1.f / fmaxf(sum, 1e-30f);
     // m and the sum are in log2 units; the backward takes natural logs, as
-    // the CUDA-core route writes them
+    // the CUDA-core route writes them; a row that saw no key gets +inf
     if (a.lse != nullptr && t == 0 && row[r] < a.Sq)
-      a.lse[((long long)b * a.Hq + h) * a.Sq + row[r]] = (m[r] + log2f(fmaxf(sum, 1e-30f))) * kLn2;
+      a.lse[((long long)b * a.Hq + h) * a.Sq + row[r]] =
+          m[r] == -INFINITY ? INFINITY : (m[r] + log2f(sum)) * kLn2;
   }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -576,15 +767,14 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void
   }
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o, float* lse,
-                       int B, int Hq, int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-                       int causal, int window, float softcap, cudaStream_t s) {
+cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, void* o, float* lse,
+                         int B, int Hq, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
+                         Strides vs, int causal, int window, float softcap, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
-    case 256: return launch<T, 256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 32: return launch_f32<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 64: return launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 128: return launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 256: return launch_f32<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -600,8 +790,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
 //   dQ = dS K / sqrt(D); dK = dS^T Q / sqrt(D), dV = P^T dO, summed over the
 //   query heads that share a KV head.
 // Masked pairs count for nothing, as in the forward: P is 0 there, so a row
-// that sees no key at all (the forward wrote zeros for it) passes no
-// gradient to V, where the reference's average over masked keys would.
+// that sees no key at all (the forward wrote o = 0 and lse = +inf for it, and
+// exp(s - inf) = 0) passes no gradient, where the reference's average over
+// masked keys would.
 // Bound on the card: operations, five products of the visible (q, k) pairs
 // (10 B Hq pairs D flops) at the dtype's peak. Deterministic on both routes (no
 // atomics): every output element is written once, by the block that owns it.
@@ -697,13 +888,9 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restr
 
 // --- the CUDA-core route (float32) -------------------------------------------
 
-constexpr int BB = 32;      // q rows and keys of a CUDA-core backward tile
-constexpr int kRowPad = 4;  // floats of padding per staged row
-constexpr int kPS = BB + 4; // row stride of the P and dS tiles (16-byte rows)
-
 template <int D>
 struct Bwd {
-  static constexpr int LD = D + kRowPad;  // staged row stride, floats
+  static constexpr int LD = row_ld<D>();  // staged row stride, floats
   // dK/dV accumulation: 8 key blocks x 16 dim blocks over 128 threads
   static constexpr int VW = D >= 64 ? 4 : 2;
   static constexpr int NM = D / (16 * VW);
@@ -717,130 +904,12 @@ struct Bwd {
   static_assert(SMEM * MIN_BLOCKS <= 232448, "CUDA-core backward tiles exceed shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [r0, r0 + BB) of a [S, D] f32 operand into shared memory (row stride
-// LD), zeros past S, as 16-byte cp.async copies (not waited for)
-template <int D>
-__device__ __forceinline__ void stage_async(float* dst, const float* src, int r0, int S) {
-  constexpr int LD = Bwd<D>::LD, Q4 = D / 4;
-  for (int idx = threadIdx.x; idx < BB * Q4; idx += kThreads) {
-    const int r = idx / Q4, c = (idx % Q4) * 4;
-    const bool in = r0 + r < S;
-    cp_async16(dst + r * LD + c, in ? src + (long long)(r0 + r) * D + c : src, in);
-  }
-}
-
 // BB floats of lse and of delta (padded rows: always in bounds)
 __device__ __forceinline__ void stage_rows_async(float* lse_s, float* delta_s, const BwdArgs& a,
                                                  long long row) {
   const int t = threadIdx.x;
   if (t < BB / 4) cp_async16(lse_s + 4 * t, a.lse_pad + row + 4 * t, true);
   else if (t < BB / 2) cp_async16(delta_s + 4 * (t - BB / 4), a.delta_pad + row + 4 * (t - BB / 4), true);
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// VW consecutive f32 of shared memory
-template <int VW>
-__device__ __forceinline__ void lds(float (&v)[VW], const float* p) {
-  if constexpr (VW == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else if constexpr (VW == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x; v[1] = x.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void store_vec(float* dst, const float* v) {
-  if constexpr (VW == 4) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  else if constexpr (VW == 2) *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-  else *dst = v[0];
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// The 4 x 4 block of A B^T at rows ra + 8i of A and rb + 8j of B (32-row
-// tiles in shared memory): this lane sums the head dims of its split `sp`
-// (16-dim runs 16 sp + 32 m), the partner lane (lane ^ 1) the others, and one
-// shuffle a value adds the halves. Rows 8 apart and the two splits 16 floats
-// apart put a warp's eight distinct 16-byte loads in distinct banks.
-template <int D>
-__device__ __forceinline__ void score_block(float (&s)[4][4], const float* A, const float* B,
-                                            int ra, int rb, int sp) {
-  constexpr int LD = Bwd<D>::LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll
-  for (int d0 = 16 * sp; d0 < D; d0 += 32) {
-#pragma unroll
-    for (int e = 0; e < 16; e += 4) {
-      float4 x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = load4(A + (ra + 8 * i) * LD + d0 + e);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = load4(B + (rb + 8 * j) * LD + d0 + e);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(x[i], y[j], s[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] += __shfl_xor_sync(0xffffffffu, s[i][j], 1);
-}
-
-// The score-phase coordinates of a thread in its half (128 threads): split,
-// q-row block and key block; a warp covers 16 q rows x 16 keys.
-struct ScoreLane {
-  int sp, qb, kb;
-  __device__ __forceinline__ ScoreLane() {
-    const int h = threadIdx.x & 127, w = h >> 5, l = (h & 31) >> 1;
-    sp = h & 1;
-    qb = 4 * (w >> 1) + (l >> 2);
-    kb = 4 * (w & 1) + (l & 3);
-  }
-};
-
-// A half's 4 x 4 block of scores (both lanes of a split pair hold it; each
-// writes the rows of its split) into a [BB][kPS] tile, as [q][k] or, with
-// TRANSPOSED, [k][q]. Rows are selected, not indexed, so s stays in registers.
-template <bool TRANSPOSED>
-__device__ __forceinline__ void write_block(const float (&s)[4][4], const ScoreLane& L, float* dst) {
-#pragma unroll
-  for (int ii = 0; ii < 2; ++ii) {
-    const int ql = L.qb + 8 * (ii + 2 * L.sp);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kl = L.kb + 8 * j;
-      dst[TRANSPOSED ? kl * kPS + ql : ql * kPS + kl] = L.sp ? s[ii + 2][j] : s[ii][j];
-    }
-  }
 }
 
 // The elementwise step, four entries a thread over all 256: from the raw
@@ -1608,9 +1677,11 @@ cudaError_t dispatch_bwd(int D, bool bf16, const void* q, const void* k, const v
 // element strides for batch, head and sequence; o: contiguous [B, Hq, Sq, D];
 // lse: null, or contiguous f32 [B, Hq, Sq] that receives each row's natural-log
 // log-sum-exp of its scaled (and capped) scores, which the backward reads.
-// D in {32, 64, 128, 256}; dtype codes: 0 = float32 (CUDA cores), 1 = bfloat16
-// (tensor cores: pointers 16-byte aligned and every stride a multiple of 8
-// elements, as TMA needs). window <= 0 means no window; softcap <= 0 means no
+// D in {32, 64, 128, 256}; dtype codes: 0 = float32 (CUDA cores: pointers
+// 16-byte aligned and every stride a multiple of 4 elements, for the 16-byte
+// cp.async copies), 1 = bfloat16 (tensor cores: pointers 16-byte aligned and
+// every stride a multiple of 8 elements, as TMA needs). A row that sees no key
+// gets o = 0 and lse = +inf. window <= 0 means no window; softcap <= 0 means no
 // softcap. Returns the launch's cudaError_t (0 on success); the kernel runs
 // asynchronously on `stream`.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -1625,8 +1696,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return (int)dispatch_d<float>(D, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+  if (dtype == kF32) {
+    // rows move as 16-byte cp.async copies
+    const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+    const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
+    if (ptrs % 16) return (int)cudaErrorInvalidValue;
+    for (long long st : strides)
+      if (st < 0 || st % 4) return (int)cudaErrorInvalidValue;
+    return (int)dispatch_f32(D, q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+  }
   if (dtype == kBF16) {
     const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
     const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};

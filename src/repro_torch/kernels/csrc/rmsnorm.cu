@@ -15,13 +15,22 @@
 // Backward (repro_rmsnorm_bwd): with r = rsqrt(mean(x^2) + eps) and g = dy (1 + scale),
 //   dx = r g - x r^3 mean(g x),   dscale = sum over rows of dy x r.
 // Bound on the card: bytes (x and dy read, dx written: 88 MB at [4096, 3584]
-// bf16, >= 26 us). dx is per row; dscale sums over every row, which blocks
-// cannot carry between them, so rmsnorm_bwd_kernel gives each block a run of
-// rows and a shared-memory row of dscale partials (each column owned by one
-// thread, no atomics) written to a [blocks, d] f32 buffer, and
-// rmsnorm_dscale_kernel sums that buffer down its columns in a fixed order:
-// dscale is the same from run to run. Loads are 16-byte vectors as in the
-// forward; the second pass over a row re-reads it from L1/L2.
+// bf16, >= 26 us; 176 MB in f32). dx is per row; dscale sums over every row,
+// which blocks cannot carry between them. Design (rmsnorm_bwd_kernel): a
+// persistent grid of at most a few blocks an SM, block b taking rows b, b +
+// grid, ...; each thread owns the same VPT 16-byte units of every row (8 bf16
+// or 4 f32 each; single elements where d is not a multiple of a unit), chosen
+// so that about 16 elements a thread cover the row (d = 3584: 224 threads x 2
+// bf16 units or x 4 f32 units, no thread idle; rows past 8192 elements take
+// more units a thread, and those variants spill registers). A thread keeps (1 + scale) and
+// its dscale partials for its columns in registers for the whole run, and a
+// row's x and dy in registers from the load to the dx store, so device memory
+// sees one read of each; the next row's x and dy load while this row is
+// reduced. One barrier a row: the two row sums go through a shared-memory
+// stage in two halves used on alternate rows. At the end each block writes its
+// partials as one row of an f32 [grid, d] buffer, and rmsnorm_dscale_kernel
+// sums that buffer down its columns (8 warps a 32-column strip, then the 8
+// partial sums) in a fixed order: no atomics, dscale the same bits every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,6 +38,8 @@
 namespace {
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
+
+constexpr int kBwdMaxThreads = 512;  // threads of a backward block at most
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -121,135 +132,207 @@ cudaError_t launch(const void* x, const void* scale, void* out, long long rows, 
   return cudaGetLastError();
 }
 
-// Sums of two values over the block; every thread gets both.
-__device__ __forceinline__ float2 block_sum2(float a, float b, float2* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-  }
+// The backward's row pass (see the header): VPT units a thread, a unit being
+// 16 bytes of the row (kVec) or one element; units past the row are zeros.
+template <typename T, typename S, bool kVec, int VPT>
+__global__ void __launch_bounds__(kBwdMaxThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, long long rows, int d,
+                   float eps) {
+  constexpr int PER = kVec ? 16 / sizeof(T) : 1;  // elements a unit
+  constexpr int E = VPT * PER;                     // elements a thread
+  __shared__ float2 red[2][32];                    // the row sums, alternate rows
+  const int units = kVec ? d / PER : d;
+  const int nt = blockDim.x, nw = nt >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();  // red's previous readers are done
-  if (lane == 0) red[warp] = make_float2(a, b);
-  __syncthreads();
-  if (warp == 0) {
-    float2 v = lane < (int)(blockDim.x >> 5) ? red[lane] : make_float2(0.f, 0.f);
+  float w[E], ds[E];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
-      v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  for (int j = 0; j < VPT; ++j) {
+    const int u = threadIdx.x + j * nt;
+#pragma unroll
+    for (int e = 0; e < PER; ++e) {
+      w[j * PER + e] = u < units ? 1.f + to_f32(scale[u * PER + e]) : 0.f;
+      ds[j * PER + e] = 0.f;
     }
-    if (lane == 0) red[32] = v;
   }
-  __syncthreads();
-  return red[32];
-}
-
-template <typename T, typename S, bool kVec>
-__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                                   const T* __restrict__ dy, T* __restrict__ dx,
-                                   float* __restrict__ partial, long long rows, int d, float eps,
-                                   int rows_per_block) {
-  extern __shared__ float dsc[];  // [d]: this block's dscale partials
-  __shared__ float2 red[33];
-  constexpr int V = 16 / sizeof(T);
-  constexpr int per = kVec ? V : 1;  // columns a unit
-  const int units = kVec ? d / V : d;
-  for (int u = threadIdx.x; u < units; u += blockDim.x)
-    for (int j = 0; j < per; ++j) dsc[u * per + j] = 0.f;
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
-  const long long r1 = min(rows, r0 + rows_per_block);
-  for (long long row = r0; row < r1; ++row) {
+  // this thread's units of row `row` (zeros past the row)
+  auto load = [&](long long row, uint4 (&xv)[VPT], uint4 (&gv)[VPT]) {
     const T* xr = x + row * d;
     const T* gr = dy + row * d;
-    T* dxr = dx + row * d;
-    float ss = 0.f, gx = 0.f;
-    for (int u = threadIdx.x; u < units; u += blockDim.x) {
-      uint4 xraw, graw;  // 16 bytes of the row, or one element in their first slot
-      if (kVec) {
-        xraw = reinterpret_cast<const uint4*>(xr)[u];
-        graw = reinterpret_cast<const uint4*>(gr)[u];
-      } else {
-        *reinterpret_cast<T*>(&xraw) = xr[u];
-        *reinterpret_cast<T*>(&graw) = gr[u];
-      }
-      const T* xe = reinterpret_cast<const T*>(&xraw);
-      const T* ge = reinterpret_cast<const T*>(&graw);
 #pragma unroll
-      for (int j = 0; j < per; ++j) {
-        const float xf = to_f32(xe[j]);
-        ss = fmaf(xf, xf, ss);
-        gx = fmaf(to_f32(ge[j]) * (1.f + to_f32(scale[u * per + j])), xf, gx);
+    for (int j = 0; j < VPT; ++j) {
+      const int u = threadIdx.x + j * nt;
+      xv[j] = gv[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (u < units) {
+        if (kVec) {
+          xv[j] = reinterpret_cast<const uint4*>(xr)[u];
+          gv[j] = reinterpret_cast<const uint4*>(gr)[u];
+        } else {
+          *reinterpret_cast<T*>(&xv[j]) = xr[u];
+          *reinterpret_cast<T*>(&gv[j]) = gr[u];
+        }
       }
     }
-    const float2 sums = block_sum2(ss, gx, red);
+  };
+
+  uint4 xn[VPT], gn[VPT];  // the next row's units, in flight
+  long long row = blockIdx.x;
+  if (row < rows) load(row, xn, gn);
+  for (int it = 0; row < rows; row += gridDim.x, ++it) {
+    uint4 xc[VPT], gc[VPT];
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      xc[j] = xn[j];
+      gc[j] = gn[j];
+    }
+    if (row + gridDim.x < rows) load(row + gridDim.x, xn, gn);
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const T* xe = reinterpret_cast<const T*>(&xc[j]);
+      const T* ge = reinterpret_cast<const T*>(&gc[j]);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const float xf = to_f32(xe[e]);
+        ss = fmaf(xf, xf, ss);
+        gx = fmaf(to_f32(ge[e]) * w[j * PER + e], xf, gx);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    // stage `it & 1` was last read two rows ago, before the previous barrier
+    float2* stage = red[it & 1];
+    if (lane == 0) stage[warp] = make_float2(ss, gx);
+    __syncthreads();
+    float2 sums = make_float2(0.f, 0.f);
+    for (int i = 0; i < nw; ++i) {  // the same order in every thread
+      sums.x += stage[i].x;
+      sums.y += stage[i].y;
+    }
     const float inv = rsqrtf(sums.x / (float)d + eps);
     const float c = sums.y / (float)d * inv * inv * inv;
-    for (int u = threadIdx.x; u < units; u += blockDim.x) {
-      uint4 xraw, graw, oraw;
-      if (kVec) {
-        xraw = reinterpret_cast<const uint4*>(xr)[u];
-        graw = reinterpret_cast<const uint4*>(gr)[u];
-      } else {
-        *reinterpret_cast<T*>(&xraw) = xr[u];
-        *reinterpret_cast<T*>(&graw) = gr[u];
-      }
-      const T* xe = reinterpret_cast<const T*>(&xraw);
-      const T* ge = reinterpret_cast<const T*>(&graw);
+    T* dxr = dx + row * d;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int u = threadIdx.x + j * nt;
+      const T* xe = reinterpret_cast<const T*>(&xc[j]);
+      const T* ge = reinterpret_cast<const T*>(&gc[j]);
+      uint4 oraw;
       T* oe = reinterpret_cast<T*>(&oraw);
 #pragma unroll
-      for (int j = 0; j < per; ++j) {
-        const int col = u * per + j;
-        const float xf = to_f32(xe[j]), gf = to_f32(ge[j]);
-        oe[j] = from_f32<T>(inv * gf * (1.f + to_f32(scale[col])) - xf * c);
-        dsc[col] = fmaf(gf, xf * inv, dsc[col]);
+      for (int e = 0; e < PER; ++e) {
+        const float xf = to_f32(xe[e]), gf = to_f32(ge[e]);
+        oe[e] = from_f32<T>(inv * gf * w[j * PER + e] - xf * c);
+        ds[j * PER + e] = fmaf(gf, xf * inv, ds[j * PER + e]);
       }
-      if (kVec)
-        reinterpret_cast<uint4*>(dxr)[u] = oraw;
-      else
-        dxr[u] = oe[0];
+      if (u < units) {
+        if (kVec)
+          reinterpret_cast<uint4*>(dxr)[u] = oraw;
+        else
+          dxr[u] = oe[0];
+      }
     }
   }
-  // each thread wrote only its own columns of dsc: no barrier before the copy
-  for (int u = threadIdx.x; u < units; u += blockDim.x)
-    for (int j = 0; j < per; ++j)
-      partial[(long long)blockIdx.x * d + u * per + j] = dsc[u * per + j];
+  float* part = partial + (long long)blockIdx.x * d;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int u = threadIdx.x + j * nt;
+    if (u < units)
+#pragma unroll
+      for (int e = 0; e < PER; ++e) part[u * PER + e] = ds[j * PER + e];
+  }
 }
 
+// dscale[col] = sum over the nblk rows of partial, in a fixed order: warp ty
+// of a 32-column strip sums rows ty, ty + 8, ..., then warp 0 the 8 sums
 template <typename S>
-__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial, S* __restrict__ dscale,
-                                      int nblk, int d) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
+__global__ void __launch_bounds__(256)
+rmsnorm_dscale_kernel(const float* __restrict__ partial, S* __restrict__ dscale, int nblk, int d) {
+  __shared__ float sums[8][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + tx;
   float acc = 0.f;
-  for (int b = 0; b < nblk; ++b) acc += partial[(long long)b * d + col];
-  dscale[col] = from_f32<S>(acc);
+  if (col < d) {
+#pragma unroll 4
+    for (int b = ty; b < nblk; b += 8) acc += partial[(long long)b * d + col];
+  }
+  sums[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && col < d) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) total += sums[i][tx];
+    dscale[col] = from_f32<S>(total);
+  }
+}
+
+template <typename T, typename S, bool kVec, int VPT>
+cudaError_t launch_bwd_vpt(const void* x, const void* scale, const void* dy, void* dx,
+                           void* dscale, float* partial, long long rows, int d, float eps,
+                           int threads, int max_blocks, cudaStream_t stream) {
+  const auto kernel = rmsnorm_bwd_kernel<T, S, kVec, VPT>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (err != cudaSuccess) return err;
+  // every block resident at once: the grid is one wave
+  const long long resident = (long long)(per_sm > 1 ? per_sm : 1) * sms;
+  const long long cap = max_blocks < resident ? max_blocks : resident;
+  const long long nblk = rows < cap ? rows : cap;
+  kernel<<<(unsigned)nblk, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, rows, d, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<S><<<(unsigned)((d + 31) / 32), 256, 0, stream>>>(
+      partial, static_cast<S*>(dscale), (int)nblk, d);
+  return cudaGetLastError();
+}
+
+// The units a thread takes: about 16 elements (2 bf16 or 4 f32 units, 8
+// single elements), fewer for short rows so that at least 64 threads share
+// a row, more where the row would need more than kBwdMaxThreads; 0 if even 8
+// units a thread leave too many threads.
+inline int bwd_units_per_thread(int units, int per) {
+  int vpt = per > 1 ? 16 / per : 8;
+  while (vpt > 1 && (units + vpt - 1) / vpt < 64) vpt /= 2;
+  while (vpt < 8 && (units + vpt - 1) / vpt > kBwdMaxThreads) vpt *= 2;
+  return (units + vpt - 1) / vpt > kBwdMaxThreads ? 0 : vpt;
 }
 
 template <typename T, typename S>
 cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
-                       float* partial, long long rows, int d, float eps, int rows_per_block,
-                       int nblk, cudaStream_t stream) {
+                       float* partial, long long rows, int d, float eps, int max_blocks,
+                       cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = d % V == 0 && (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx) % 16) == 0;
   const int units = vec ? d / V : d;
-  int threads = ((units + 31) / 32) * 32;
-  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
-  const size_t smem = sizeof(float) * (size_t)d;
-  const auto kernel = vec ? rmsnorm_bwd_kernel<T, S, true> : rmsnorm_bwd_kernel<T, S, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  const int vpt = bwd_units_per_thread(units, vec ? V : 1);
+  if (vpt == 0) return cudaErrorInvalidValue;
+  const int threads = ((units + vpt - 1) / vpt + 31) / 32 * 32;
+#define RMSNORM_BWD_CASE(VEC, N)                                                              \
+  case N:                                                                                     \
+    return launch_bwd_vpt<T, S, VEC, N>(x, scale, dy, dx, dscale, partial, rows, d, eps,      \
+                                        threads, max_blocks, stream);
+  if (vec) {
+    switch (vpt) {
+      RMSNORM_BWD_CASE(true, 1) RMSNORM_BWD_CASE(true, 2) RMSNORM_BWD_CASE(true, 4)
+      RMSNORM_BWD_CASE(true, 8)
+    }
+  } else {
+    switch (vpt) {
+      RMSNORM_BWD_CASE(false, 1) RMSNORM_BWD_CASE(false, 2) RMSNORM_BWD_CASE(false, 4)
+      RMSNORM_BWD_CASE(false, 8)
+    }
   }
-  kernel<<<(unsigned)nblk, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
-      static_cast<T*>(dx), partial, rows, d, eps, rows_per_block);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dscale_kernel<S><<<(unsigned)((d + 255) / 256), 256, 0, stream>>>(
-      partial, static_cast<S*>(dscale), nblk, d);
-  return cudaGetLastError();
+#undef RMSNORM_BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -274,30 +357,31 @@ extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out, long l
 }
 
 // The backward: x, dy, dx: [rows, d] contiguous of x's dtype; scale, dscale: [d]
-// of scale's dtype; partial: f32 [nblk, d] scratch, nblk = ceil(rows /
-// rows_per_block) blocks of rows_per_block rows each. dtype codes as the
-// forward. Returns the first failing launch's cudaError_t (0 on success).
+// of scale's dtype; partial: f32 [max_blocks, d] scratch (the row pass runs at
+// most max_blocks blocks, one row of partials each). dtype codes as the
+// forward. Rows of up to 32768 bf16 or 16384 f32 elements in 16-byte units
+// (d a multiple of a unit, pointers on 16 bytes), else up to 4096 single
+// elements; wider ones return cudaErrorInvalidValue. Returns the first
+// failing launch's cudaError_t (0 on success); the two kernels run
+// asynchronously on `stream`.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,
                                  void* dscale, void* partial, long long rows, int d, float eps,
-                                 int rows_per_block, int nblk, int x_dtype, int scale_dtype,
-                                 void* stream) {
+                                 int max_blocks, int x_dtype, int scale_dtype, void* stream) {
   if (rows <= 0 || d <= 0) return rows == 0 ? 0 : (int)cudaErrorInvalidValue;
-  if (rows_per_block <= 0 || nblk <= 0 || (long long)nblk * rows_per_block < rows ||
-      d > 56 * 1024)
-    return (int)cudaErrorInvalidValue;
+  if (max_blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   if (x_dtype == kF32 && scale_dtype == kF32)
     return (int)launch_bwd<float, float>(x, scale, dy, dx, dscale, part, rows, d, eps,
-                                         rows_per_block, nblk, s);
+                                         max_blocks, s);
   if (x_dtype == kF32 && scale_dtype == kBF16)
     return (int)launch_bwd<float, __nv_bfloat16>(x, scale, dy, dx, dscale, part, rows, d, eps,
-                                                 rows_per_block, nblk, s);
+                                                 max_blocks, s);
   if (x_dtype == kBF16 && scale_dtype == kF32)
     return (int)launch_bwd<__nv_bfloat16, float>(x, scale, dy, dx, dscale, part, rows, d, eps,
-                                                 rows_per_block, nblk, s);
+                                                 max_blocks, s);
   if (x_dtype == kBF16 && scale_dtype == kBF16)
     return (int)launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, dy, dx, dscale, part, rows,
-                                                         d, eps, rows_per_block, nblk, s);
+                                                         d, eps, max_blocks, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,12 @@ tensors it launches the kernel or raises. Unlike the Pallas wrapper
 alternating per-layer window goes through the kernel, and Sq, Sk need not
 divide any block size.
 
+A row that sees no key (top-left causal with Sq > Sk and a window: the
+rows from Sk + window - 1 on) gets o = 0 and lse = +inf on every route, the
+two card routes and the plain versions, so the backward passes it no
+gradient: attention over no keys has no weights (ROADMAP C10; the JAX
+package's ``naive_attention`` gives V's mean there).
+
 Registered as the custom op ``repro_torch::flash_attention`` with a fake
 (shape-only) implementation and a flop formula, so the probe's trace passes
 through it and counts ``4 * B * Hq * (visible q-k pairs) * D`` flops.
@@ -81,19 +87,24 @@ def visible_mask(sq: int, sk: int, *, causal: bool, window: int,
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           logit_softcap: float = 0.0) -> torch.Tensor:
-    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]."""
+    """q: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D] -> [B, Hq, Sq, D]. A row
+    that sees no key (top-left causal, Sq > Sk and a window) gets zeros."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
-    kr = k.float().repeat_interleave(g, dim=1)
-    vr = v.float().repeat_interleave(g, dim=1)
+    acc = _acc(q.dtype)
+    kr = k.to(acc).repeat_interleave(g, dim=1)
+    vr = v.to(acc).repeat_interleave(g, dim=1)
     scale = 1.0 / math.sqrt(d)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), kr) * scale
     if logit_softcap:
         s = logit_softcap * torch.tanh(s / logit_softcap)
     mask = visible_mask(sq, sk, causal=causal, window=window, device=q.device)
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
+    s = torch.where(mask, s, torch.full((), NEG_INF, dtype=acc,
+                                        device=q.device))
+    # a row that sees no key has no weights: zeros (C10)
+    p = torch.where(mask.any(-1, keepdim=True), torch.softmax(s, dim=-1),
+                    torch.zeros((), dtype=acc, device=q.device))
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
 
 
@@ -115,11 +126,15 @@ def _masked_scores(q, k, *, causal: bool, window: int, logit_softcap: float,
 def flash_attention_lse_plain(q, k, v, *, causal: bool = True,
                               window: int = 0, logit_softcap: float = 0.0):
     """(o in q's dtype, lse f32 [B, Hq, Sq]; f64 throughout for f64 q):
-    the forward and each row's log-sum-exp of its masked scores."""
+    the forward and each row's log-sum-exp of its masked scores; a row that
+    sees no key gets o = 0 and lse = +inf."""
     acc = _acc(q.dtype)
-    s, _ = _masked_scores(q, k, causal=causal, window=window,
-                          logit_softcap=logit_softcap, acc=acc)
-    lse = torch.logsumexp(s, dim=-1)
+    s, mask = _masked_scores(q, k, causal=causal, window=window,
+                             logit_softcap=logit_softcap, acc=acc)
+    # a row that sees no key: lse = +inf, so that exp(s - lse) = 0 gives
+    # o = 0 here and no gradient in the backward (C10)
+    lse = torch.where(mask.any(-1), torch.logsumexp(s, dim=-1),
+                      torch.full((), math.inf, dtype=acc, device=q.device))
     p = torch.exp(s - lse[..., None])
     vr = v.to(acc).repeat_interleave(q.shape[1] // v.shape[1], dim=1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype), lse
@@ -130,10 +145,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               block_k: int = 512):
     """(dq, dk, dv): the reference's recompute backward (``bwd`` of
     ``_make_flash_cvjp``, ``src/repro/models/layers.py:242-294``) over KV
-    blocks of ``block_k`` keys: delta = rowsum(dO O), P = exp(s - lse),
-    dS = P (dP - delta) times (1 - (s / cap)^2) under a softcap, zero where
-    masked; dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO, dK and
-    dV summed over the query heads of each KV head. f32 (f64 for f64
+    blocks of ``block_k`` keys: delta = rowsum(dO O), P = exp(s - lse)
+    and dS = P (dP - delta) times (1 - (s / cap)^2) under a softcap, both
+    zero where masked (so a row that sees no key passes no gradient);
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D), dV = P^T dO, dK and dV
+    summed over the query heads of each KV head. f32 (f64 for f64
     inputs); the results in the inputs' dtypes."""
     acc = _acc(q.dtype)
     b, hq, sq, d = q.shape
@@ -152,14 +168,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
         s, mask = _masked_scores(q, kj, causal=causal, window=window,
                                  logit_softcap=logit_softcap, acc=acc,
                                  k_start=j)
-        p = torch.exp(s - lse[..., None])
+        zero = torch.zeros((), dtype=acc, device=q.device)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), zero)
         vjr = vj.to(acc).repeat_interleave(g, dim=1)
         dp = torch.einsum("bhqd,bhkd->bhqk", dof, vjr)
         ds = p * (dp - delta[..., None])
         if logit_softcap:
             ds = ds * (1.0 - torch.square(s / logit_softcap))
-        ds = torch.where(mask, ds, torch.zeros((), dtype=acc,
-                                                device=q.device))
+        ds = torch.where(mask, ds, zero)
         kjr = kj.to(acc).repeat_interleave(g, dim=1)
         dq += torch.einsum("bhqk,bhkd->bhqd", ds, kjr) * scale
         dkj = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
@@ -193,6 +209,16 @@ def check_tma_layout(q, k, v, strides) -> None:
                 f"strides {st}")
 
 
+def rows_on_16_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the f32 route can copy its rows with 16-byte
+    ``cp.async`` (a 16-byte aligned start, B, H, S strides that are
+    multiples of 4 elements), else a dense copy: unlike the bf16 route's
+    TMA, which raises, this route takes any view."""
+    if t.data_ptr() % 16 == 0 and all(x % 4 == 0 for x in tma_strides(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(q, k, v, causal: bool, window: int, logit_softcap: float,
             lse: bool = False):
     """The forward kernel's output, and with ``lse`` the rows'
@@ -211,6 +237,8 @@ def _launch(q, k, v, causal: bool, window: int, logit_softcap: float,
             or not (q.device == k.device == v.device):
         raise ValueError("flash kernel needs unit stride along the head dim "
                          "and q, k, v on one device")
+    if q.dtype == torch.float32:
+        q, k, v = (rows_on_16_bytes(t) for t in (q, k, v))
     strides = [tma_strides(t) for t in (q, k, v)]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     rows = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \

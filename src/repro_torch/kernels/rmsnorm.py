@@ -12,10 +12,11 @@ it without running it.
 The op is differentiable (``torch.library.register_autograd``): its forward
 saves x and scale, and its backward is the op ``repro_torch::rmsnorm_bwd``,
 ``(dx, dscale)``, which launches the backward kernels of ``csrc/rmsnorm.cu``
-on a CUDA tensor (a row pass for dx and per-block dscale partials, then a
-reduction pass down the columns: no atomics, the same dscale every run) and
-runs ``rmsnorm_bwd_plain`` on a CPU tensor. ``BWD_LAUNCHES`` counts the
-backward's launches.
+on a CUDA tensor (a persistent row pass for dx, each thread holding its
+columns' scale and dscale partials in registers, one row of partials a
+block; then a reduction pass down the columns: no atomics, the same dscale
+every run) and runs ``rmsnorm_bwd_plain`` on a CPU tensor.
+``BWD_LAUNCHES`` counts the backward's launches.
 """
 from __future__ import annotations
 
@@ -33,12 +34,13 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, ctypes.c_float,
-                 _I, _I, _I, _I, _P]
+                 _I, _I, _I, _P]
 # every C entry point of csrc/rmsnorm.cu with its ctypes signature
 ENTRY_POINTS = {"repro_rmsnorm": _ARGTYPES, "repro_rmsnorm_bwd": _BWD_ARGTYPES}
-# blocks of rows of the backward's first pass (each writes a row of dscale
-# partials that the second pass sums)
-BWD_BLOCKS = 512
+# blocks an SM of the backward's row pass at most (each block writes one row
+# of dscale partials that the second pass sums; the kernel runs no more than
+# fit on the card at once)
+BWD_BLOCKS_PER_SM = 4
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -106,22 +108,24 @@ def _launch_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"rmsnorm backward: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}, scale {tuple(scale.shape)} on "
                          f"one device")
-    x, scale, dy = x.contiguous(), scale.contiguous(), dy.contiguous()
-    dx = torch.empty_like(x)
+    # dense rows starting on 16 bytes: the kernel moves rows in vectors
+    x, dy = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (x, dy))
+    scale = scale.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     dscale = torch.empty_like(scale)
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, dscale.zero_()
-    per_block = -(-rows // BWD_BLOCKS)
-    nblk = -(-rows // per_block)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblk = min(rows, BWD_BLOCKS_PER_SM * sms)
     partial = torch.empty(nblk, d, dtype=torch.float32, device=x.device)
     fn = build.load("rmsnorm", "repro_rmsnorm_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                 dscale.data_ptr(), partial.data_ptr(), rows, d, float(eps),
-                per_block, nblk, _DTYPES[x.dtype], _DTYPES[scale.dtype],
-                stream)
+                nblk, _DTYPES[x.dtype], _DTYPES[scale.dtype], stream)
     build.check(rc, "rmsnorm_bwd")
     BWD_LAUNCHES.add()
     return dx, dscale

@@ -9,6 +9,7 @@ checked against ``kernels/ref.py`` and ``layers.flash_attention_jnp``. The
 CUDA kernels run only on the card: the ``gpu`` tests skip here.
 """
 import ctypes
+import math
 import re
 
 import numpy as np
@@ -484,48 +485,161 @@ def test_rmsnorm_op_passes_gradcheck():
         RN.rmsnorm, (x.requires_grad_(True), sc.requires_grad_(True)))
 
 
+# ---------------------------------------------------------------------------
+# rows that see no key (ROADMAP C10): o = 0, lse = +inf, no gradient
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, sq, sk) and the window: top-left causal with Sq > Sk, so the
+# rows from Sk + window - 1 = 81 on see no key (48 of 129)
+C10_SHAPE, C10_WINDOW = (2, 2, 1, 129, 65), 17
+
+
+def _c10_inputs(d, seed=5):
+    """q, k, v, dO of the C10 shape at head dim d, numpy f32."""
+    b, hq, hkv, sq, sk = C10_SHAPE
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s, dtype=np.float32) for s in
+            ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, hq, sq, d))]
+
+
+def _c10_sees():
+    sq, sk = C10_SHAPE[3:]
+    sees = FA.visible_mask(sq, sk, causal=True, window=C10_WINDOW).any(-1)
+    assert int((~sees).sum()) == sq - (sk + C10_WINDOW - 1) == 48
+    return sees
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_plain_rows_that_see_no_key(d, dtype):
+    """The plain forward, the plain forward with lse and the plain backward
+    give exactly the rows that ``visible_mask`` says see no key o = 0, lse =
+    +inf and no gradient: dQ is 0 there and those rows' dO moves nothing.
+    The plain backward equals autograd through the plain forward on every
+    output (f32 within 1e-5 of the largest magnitude, f64 within 1e-10)."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _c10_inputs(d))
+    sees = _c10_sees()
+    kw = dict(causal=True, window=C10_WINDOW, logit_softcap=0.0)
+    o = FA.flash_attention_plain(q, k, v, **kw)
+    o_lse, lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+    for out in (o, o_lse):
+        assert not bool(out[:, :, ~sees].any())
+        assert bool((out[:, :, sees].abs().amax(-1) > 0).all())
+    assert bool((lse[:, :, ~sees] == math.inf).all())
+    assert bool(torch.isfinite(lse[:, :, sees]).all())
+    rel = 1e-10 if dtype == torch.float64 else 1e-5
+    _close(o_lse.numpy(), o.numpy(), rel)
+    grads = FA.flash_attention_bwd_plain(q, k, v, o_lse, lse, do, **kw)
+    assert not bool(grads[0][:, :, ~sees].any())
+    quiet = FA.flash_attention_bwd_plain(q, k, v, o_lse, lse,
+                                         do * sees[:, None].to(dtype), **kw)
+    for g, w in zip(grads, quiet):
+        assert torch.equal(g, w)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(FA.flash_attention_plain(*leaves, **kw),
+                              leaves, do)
+    for g, w in zip(grads, ref):
+        assert bool(torch.isfinite(g).all())
+        _close(g.numpy(), w.numpy(), rel)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_rows_that_see_no_key_depart_from_jax(d):
+    """Against the JAX package on the same numpy inputs: on the rows that
+    see a key the port's forward equals ``naive_attention`` and, through the
+    op's CPU backward, its dq, dk, dv equal ``jax.vjp`` of
+    ``flash_attention_cvjp`` given the no-key rows' dO as zeros (f32, 1e-5
+    of the largest magnitude). On the no-key rows the port gives zeros and
+    passes no gradient, where ``naive_attention`` gives V's mean."""
+    q, k, v, do = _c10_inputs(d)
+    sees = _c10_sees()
+    g = C10_SHAPE[1] // C10_SHAPE[2]
+    want_o = np.asarray(JL.naive_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=C10_WINDOW))
+    np.testing.assert_allclose(
+        want_o[:, :, ~sees.numpy()],
+        np.broadcast_to(np.repeat(v.mean(axis=2, keepdims=True), g, axis=1),
+                        want_o[:, :, ~sees.numpy()].shape),
+        rtol=1e-5, atol=1e-5)
+    _, want = _jax_flash_vjp(q, k, v, do * sees.numpy()[:, None], 0.0,
+                             C10_WINDOW)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = FA.flash_attention(*leaves, window=C10_WINDOW)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    got_o = out.detach().numpy()
+    assert not got_o[:, :, ~sees.numpy()].any()
+    _close(got_o[:, :, sees.numpy()], want_o[:, :, sees.numpy()])
+    for gr, w in zip(grads, want):
+        _close(gr.numpy(), w)
+
+
 @pytest.mark.gpu
 def test_backward_rows_that_see_no_key_on_card():
-    """ROADMAP C10: with top-left causal, Sq > Sk and a window, rows from
-    Sk + window - 1 on see no key. The kernels pass no gradient from such a
-    row (P is 0 on every masked pair), so on both routes and at every head
-    dim they equal the plain backward given those rows' dO as zeros. The
-    plain backward (the CPU route, the reference's arithmetic: the -1e30
-    mask leaves the row's weights equal and its lse at -1e30) gives every
-    key's dV that row's dO: the two disagree, and this pins that they do
-    until C10 is settled."""
+    """ROADMAP C10, settled: with top-left causal, Sq > Sk and a window, the
+    rows from Sk + window - 1 on see no key. On both routes and at every head
+    dim the card's forward gives them o = 0 and lse = +inf and equals the
+    plain forward with lse (o, and lse on the other rows); the card's
+    backward, fed its own route's o and lse, equals the plain backward fed
+    the same (dq, dk, dv; bf16 atol = rtol = 2e-2, f32 1e-4) and gives
+    those rows dq = 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    b, hq, hkv, sq, sk, win = 2, 2, 1, 129, 65, 17
+    b, hq, hkv, sq, sk = C10_SHAPE
+    win = C10_WINDOW
     kw = dict(causal=True, window=win, logit_softcap=0.0)
-    sees = FA.visible_mask(sq, sk, causal=True, window=win,
-                           device=dev).any(-1)
-    assert int((~sees).sum()) == sq - (sk + win - 1)
+    sees = _c10_sees().to(dev)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         for d in FA.HEAD_DIMS:
             q, do = (torch.randn(b, hq, sq, d, generator=gen, device=dev)
                      .to(dtype) for _ in range(2))
             k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=dev)
                     .to(dtype) for _ in range(2))
-            # the plain forward's o and lse, so that both backwards read
-            # the same finite inputs
-            o, lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+            o, lse = torch.ops.repro_torch.flash_attention_lse(
+                q, k, v, True, win, 0.0)
+            want_o, want_lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+            assert not bool(o[:, :, ~sees].any())
+            assert bool((lse[:, :, ~sees] == math.inf).all())
+            torch.testing.assert_close(o.float(), want_o.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(lse[:, :, sees], want_lse[:, :, sees],
+                                       rtol=tol, atol=tol)
             got = torch.ops.repro_torch.flash_attention_bwd(
-                q, k, v, o.contiguous(), lse, do, True, win, 0.0)
-            want = FA.flash_attention_bwd_plain(
-                q, k, v, o, lse, do * sees[:, None].to(dtype), **kw)
+                q, k, v, o, lse, do, True, win, 0.0)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
             for g, w in zip(got, want):
+                assert bool(torch.isfinite(g).all())
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                            atol=tol)
-            plain_dv = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                    **kw)[2].float()
-            gap = float((got[2].float() - plain_dv).abs().max())
-            print(f"C10 {str(dtype)[6:]} D {d}: the card's dV against the "
-                  f"plain backward's, max abs {gap:.4g}")
-            assert not torch.allclose(got[2].float(), plain_dv, rtol=tol,
-                                      atol=tol)
+            assert not bool(got[0][:, :, ~sees].any())
+
+
+@pytest.mark.gpu
+def test_rmsnorm_bwd_kernel_matches_plain_on_card():
+    """RMSNorm's backward kernel against the plain backward in both dtypes
+    at the train path's rows [4096, 3584], a ragged row count, d = 100 (the
+    scalar path) and a 3-d input; dscale the same bits on two calls (bf16
+    atol = rtol = 2e-2, f32 1e-4, as chip_smoke holds it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for shape in [(4096, 3584), (4097, 3584), (7, 100), (3, 5, 128)]:
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x, dy = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            sc = (torch.randn(shape[-1:], generator=gen, device=dev) * 0.1) \
+                .to(dtype)
+            got = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            again = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            want = RN.rmsnorm_bwd_plain(x, sc, dy)
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and g.dtype == w.dtype
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+            assert torch.equal(got[1], again[1])
 
 
 @pytest.mark.gpu
