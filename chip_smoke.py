@@ -45,7 +45,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    whose last 48 rows see no key: o 0 and lse +inf there, exactly, and no
    gradient (ROADMAP C10). Yardsticks: SDPA's and ``F.rms_norm``'s forward + backward
    through autograd where they compute the same function (none for
-   gemma2's softcap).
+   gemma2's softcap). Flash also runs, both routes, forward and backward,
+   at zamba2-2.7b's heads (32 of 80, no GQA) and nemotron-4-340b's (96 / 8
+   of 192), and RMSNorm at nemotron's rows (d 18432: in f32 its backward
+   takes the wide path). The backward kernels of the Mamba scan (at
+   falcon-mamba-7b's training shape, timed) and of the grouped matmul
+   (plain and gated, f32 and bf16, at the forward's edge cases and at
+   mixtral-8x7b's training shape, timed; ``torch._grouped_mm``'s backward
+   the yardstick in bf16) are held against their plain versions and
+   autograd through the plain forwards, the same bits on two calls.
 5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
@@ -55,18 +63,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (``serve_continuous``: 6 requests, a loop of 4 rows, 9 tokens each) on
    the card, the loop step replayed from a CUDA graph, against the CPU:
    every request's tokens equal. Then reduced gemma2-9b (softcaps, window
-   64) and qwen1.5-32b (QKV bias) trained 3 steps of 2 x 128 on the card
-   and on the CPU from one seed: losses, grad norms, parameters and
-   moments within the CPU parity tests' tolerances (10x where absolute).
+   64), qwen1.5-32b (QKV bias), falcon-mamba-7b (the scan's backward) and
+   mixtral-8x7b (the grouped matmul's backward, the aux loss) trained 3
+   steps of 2 x 128 on the card and on the CPU from one seed: losses, grad
+   norms, parameters and moments within the CPU parity tests' tolerances
+   (10x where absolute).
 7. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
    after, every kernel's count checked exactly. Each pool worker keeps one
    decoder (``serve.decode.GreedyDecoder``: the padded cache, buffers and
    the step captured in a CUDA graph on its stream at its first batch), and
-   every later step of every batch is a replay: the counters see the
-   warm-up and the capture of each worker's step, so the check takes them
-   as two steps a captured graph, checks the capture and replay counts, and
-   adds replays x launches per step to the reported launches.
+   every later step of every batch is a replay; each worker also captures
+   its prefill once (``serve.decode.PrefillGraph``) and replays it for
+   every batch. The counters see the warm-up and the capture of each
+   graph, so the check takes them as two steps (or prefills) a captured
+   graph, checks the capture and replay counts, and adds replays x
+   launches per step (or prefill) to the reported launches.
    - gemma2-9b, full width and depth, bf16: 32 requests in 8 batches of 4,
      prompt 1000, 32 generated tokens; flash attention 42 launches per
      prefill, RMSNorm 85 per prefill and per decode step. Then one batch
@@ -88,6 +100,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      per prefill, RMSNorm 49 and the grouped matmul 48 (2 a layer: the
      gated wi/wg launch, 24, and wo) per prefill and per decode step. Then
      one batch alone.
+   - nemotron-4-340b, every published width, depth cut to 2 of 96 layers
+     (``NEMOTRON_LAYERS``), bf16: 4 requests in one batch, prompt 1024, 32
+     generated tokens: flash attention at D = 192 and RMSNorm at d = 18432
+     on a main path. Then one batch alone.
 8. continuous, one main path per model at the same widths: 32 requests
    submitted together (prompt 1000 for gemma2-9b, 1024 for the others), 32
    tokens each, one decode loop of 8 rows whose step is replayed from a
@@ -104,20 +120,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (device time, no host gaps): the difference is the time the card waits
    on the host. The step's bound reads its weights once (for MoE only the
    experts the step routed to) and the cache's filled slots.
-10. train, the training main path: gemma2-9b at every published width,
-   depth cut to 12 of 42 layers (all 42 are 9.24e9 parameters x 16 B =
-   148e9 B in f32 with a gradient and two moments), f32, batch 4 x 1024,
+10. train, the training main paths: gemma2-9b (depth cut to 12 of 42
+   layers: all 42 are 9.24e9 parameters x 16 B = 148e9 B in f32 with a
+   gradient and two moments), falcon-mamba-7b and mixtral-8x7b (depth from
+   the probe: the deepest whose step fits 0.9 of the free memory, at most
+   16 and 8 layers), each at every published width, f32, batch 4 x 1024,
    ``remat_policy="full"``, 5 steps through ``launch.train.train``: the
-   probe of one step at 12 and 14 layers against the memory free on the
-   card first, then the run as one task through probe -> MGB ->
-   executor, each step's loss, grad norm, lr, host and device ms and
-   tokens/s printed, the launches checked exactly (flash attention's
-   forward 2 a layer a step, its backward 1; RMSNorm's forward 4 a layer
-   + 1 a step, its backward 2 a layer + 1), the probe's flops at least
-   2.5x the analytic forward; then one step alone whose probe must cover
+   probe of one step at the depth and two layers more against the memory
+   free on the card first, then the run as one task through probe -> MGB
+   -> executor, each step's loss, grad norm, lr, host and device ms and
+   tokens/s printed, the launches checked exactly (each forward kernel
+   twice a layer a step, forward and recompute, each backward once; the
+   final norm once each way), the probe's flops at least 2.5x the analytic
+   forward; then one step alone whose probe must cover
    ``torch.cuda.max_memory_allocated`` (fails below 1.0), and a
-   ``torch.profiler`` breakdown of one step, with the flash forward's and
-   RMSNorm backward's ms a step.
+   ``torch.profiler`` breakdown of one step, with the ms a step of the
+   kernels each path leans on (the scan's and the grouped matmul's
+   backward among them).
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -142,10 +161,20 @@ PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
                 "gmm_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_tc_dkdv_kernel", "flash_bwd_tc_dq_kernel",
-                "rmsnorm_bwd_kernel", "rmsnorm_dscale_kernel")
+                "rmsnorm_bwd_kernel", "rmsnorm_bwd_wide_kernel",
+                "rmsnorm_dscale_kernel", "mamba_scan_bwd_kernel",
+                "gmm_bwd_gate_kernel", "gmm_bwd_dx_kernel",
+                "gmm_bwd_dw_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
 MIXTRAL_LAYERS = 24
+# nemotron-4-340b served at every published width: one layer in bf16 is
+# 6.9e9 B and the 256000 x 18432 embedding and head 18.9e9 B; 2 of 96
+# layers put its head dim (192) and its 18432-wide norms on a main path
+NEMOTRON_LAYERS = 2
+# the backward ops' counters (``counters``)
+BWD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "mamba_scan_bwd",
+               "moe_gmm_bwd", "moe_gmm_gated_bwd")
 
 
 def fail(msg: str) -> None:
@@ -286,7 +315,7 @@ def phase_kernels(torch):
             .to(dtype)
 
     # gemma2-9b's prefill and decode rows (d 3584), falcon-mamba-7b's
-    # (d 4096), then a narrow edge case
+    # (d 4096), nemotron-4-340b's (d 18432), then a narrow edge case
     for shape, dtype in [((4000, 3584), torch.bfloat16),
                          ((4000, 3584), torch.float32),
                          ((4096, 3584), torch.float32),
@@ -296,6 +325,8 @@ def phase_kernels(torch):
                          ((4096, 4096), torch.float32),
                          ((4, 4096), torch.bfloat16),
                          ((4, 4096), torch.float32),
+                         ((4096, 18432), torch.bfloat16),
+                         ((4096, 18432), torch.float32),
                          ((1000, 512), torch.float32),
                          ((1000, 512), torch.bfloat16)]:
         x = randn(shape, dtype)
@@ -324,6 +355,10 @@ def phase_kernels(torch):
                 replaces="src/repro/kernels/rmsnorm.py:40", max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=lib_ms)
+        elif shape == (4096, 18432) and dtype == torch.bfloat16:
+            table["rmsnorm"]["nemotron_case"] = dict(
+                shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, library_ms=lib_ms)
 
     phase_flash(torch, randn, table)
 
@@ -367,6 +402,7 @@ def phase_kernels(torch):
         print(line, flush=True)
     phase_gmm(torch, randn, table)
     phase_backward(torch, randn, table)
+    phase_scan_gmm_backward(torch, randn, table)
     return table
 
 
@@ -429,14 +465,20 @@ def phase_flash(torch, randn, table) -> None:
     from repro_torch.kernels import flash_attention as FA
     bf16, f32 = torch.bfloat16, torch.float32
     # (shape, dtype, softcap, window, score scale, einsum views, causal)
+    # zamba2-2.7b's attention (32 heads of 80, no GQA) and nemotron-4-340b's
+    # prefill (96 / 8 heads of 192), at prompt 1024, in both dtypes
     timed = [((4, 16, 8, 1000, 1000, 256), bf16, 50.0, 4096, 1.0, False, True),
              ((4, 32, 8, 1024, 1024, 128), bf16, 0.0, 4096, 1.0, False, True),
              ((4, 16, 8, 1000, 1000, 256), bf16, 50.0, 0, 1.0, False, True),
              ((4, 16, 8, 1000, 1000, 256), bf16, 0.0, 0, 1.0, False, True),
              ((1, 16, 8, 5000, 5000, 256), bf16, 50.0, 4096, 1.0, False, True),
-             ((4, 16, 8, 1000, 1000, 256), f32, 50.0, 4096, 1.0, False, True)]
+             ((4, 16, 8, 1000, 1000, 256), f32, 50.0, 4096, 1.0, False, True),
+             ((4, 32, 32, 1024, 1024, 80), bf16, 0.0, 0, 1.0, False, True),
+             ((4, 96, 8, 1024, 1024, 192), bf16, 0.0, 0, 1.0, False, True),
+             ((1, 32, 32, 1024, 1024, 80), f32, 0.0, 0, 1.0, False, True),
+             ((1, 96, 8, 1024, 1024, 192), f32, 0.0, 0, 1.0, False, True)]
     cases = []
-    for d in (32, 64, 128, 256):
+    for d in FA.HEAD_DIMS:
         cases += [((1, 4, 2, 256, 256, d), bf16, 0.0, 0, 1.0, False, True),
                   ((2, 2, 1, 128, 192, d), bf16, 0.0, 0, 1.0, False, False),
                   ((1, 4, 2, 100, 100, d), bf16, 0.0, 0, 1.0, False, True)]
@@ -543,6 +585,10 @@ def phase_flash(torch, randn, table) -> None:
                                                "first")})
         elif d == 128:
             table["flash_attention"]["mixtral_case"] = entry
+        elif d in (80, 192):
+            model = "zamba2" if d == 80 else "nemotron"
+            route = "bfloat16" if dtype == bf16 else "float32"
+            table["flash_attention"]["routes"][route][f"{model}_case"] = entry
         elif dtype == f32:
             table["flash_attention"]["routes"]["float32"]["gemma2_case"] = \
                 entry
@@ -845,16 +891,23 @@ def phase_gmm(torch, randn, table) -> None:
 
 # the flash backward's cases, (b, hq, hkv, sq, sk, d, softcap, window) and
 # whether it is timed: gemma2-9b's training shape with window 4096 and 0, D
-# 128 with a window of 256, ragged Sq/Sk tails at D 256, 64 and 32, and Sq >
-# Sk with a window (48 rows that see no key) at every head dim
+# 128 with a window of 256, zamba2-2.7b's heads (32 of 80, no GQA) and
+# nemotron-4-340b's (96 / 8 of 192) at S 1024, ragged Sq/Sk tails at D 256,
+# 192, 80, 64 and 32, and Sq > Sk with a window (48 rows that see no key)
+# at every head dim
 FLASH_BWD_CASES = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
                    ((4, 16, 8, 1024, 1024, 256, 50.0, 0), False),
                    ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
+                   ((1, 32, 32, 1024, 1024, 80, 0.0, 0), True),
+                   ((1, 96, 8, 1024, 1024, 192, 0.0, 0), True),
                    ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
+                   ((1, 4, 2, 300, 500, 192, 50.0, 0), False),
+                   ((2, 4, 4, 333, 333, 80, 0.0, 96), False),
                    ((1, 4, 2, 100, 300, 64, 0.0, 33), False),
                    ((2, 4, 4, 77, 77, 32, 0.0, 0), False)] + [
     # rows that see no key (ROADMAP C10) at every head dim
-    ((2, 2, 1, 129, 65, d, 0.0, 17), False) for d in (32, 64, 128, 256)]
+    ((2, 2, 1, 129, 65, d, 0.0, 17), False) for d in (32, 64, 80, 128, 192,
+                                                      256)]
 
 
 def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
@@ -983,8 +1036,10 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
             print(line, flush=True)
             del q, k, v, o, lse, do, got
 
-    for shape in [(4096, 3584), (4097, 3584), (1000, 512), (7, 100),
-                  (3, 5, 128)]:
+    # the train path's rows, nemotron-4-340b's (18432: in f32 past the
+    # registers, the wide path), a row past 32768 bf16 elements, tails
+    for shape in [(4096, 3584), (4096, 18432), (4097, 3584), (33, 40000),
+                  (1000, 512), (7, 100), (3, 5, 128)]:
         for dtype in (f32, bf16):
             x, dy = randn(shape, dtype), randn(shape, dtype)
             sc = randn(shape[-1:], dtype, 0.1)
@@ -1008,7 +1063,7 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
             line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
                     f"backward, {ag:.3e} vs autograd through the plain "
                     f"forward; dscale the same bits twice")
-            if shape == (4096, 3584):
+            if shape in ((4096, 3584), (4096, 18432)):
                 ms = time_ms(torch, lambda: torch.ops.repro_torch
                              .rmsnorm_bwd(x, sc, dy, 1e-5), 20)
                 plain_ms = time_ms(torch, lambda: RN.rmsnorm_bwd_plain(
@@ -1027,7 +1082,13 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
                          f"F.rms_norm backward {lib_ms:.4f} ms, "
                          f"bound {bound:.4f} ms (bytes), "
                          f"{100 * bound / ms:.1f}% of the bound")
-                if dtype == f32:
+                if shape[-1] == 18432:
+                    table["rmsnorm_bwd"][f"nemotron_case_{str(dtype)[6:]}"] = \
+                        dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound, max_abs_err=err,
+                             kernel="rmsnorm_bwd_wide_kernel"
+                             if dtype == f32 else "rmsnorm_bwd_kernel")
+                elif dtype == f32:
                     table["rmsnorm_bwd"] = dict(
                         name="rmsnorm_bwd", route="cuda",
                         source="src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1036,13 +1097,232 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound, bound_by="bytes", library_ms=lib_ms,
                         library="F.rms_norm backward",
-                        kernels="rmsnorm_bwd_kernel, rmsnorm_dscale_kernel")
+                        kernels="rmsnorm_bwd_kernel (or, for rows past "
+                                "the registers, rmsnorm_bwd_wide_kernel), "
+                                "rmsnorm_dscale_kernel")
                 else:
                     table["rmsnorm_bwd"]["bf16_case"] = dict(
                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                         bound_ms=bound, max_abs_err=err)
             print(line, flush=True)
             del x, dy, sc, got, again, want, ref, leaves
+
+
+def phase_scan_gmm_backward(torch, randn, table) -> None:
+    """The backward kernels of the Mamba scan and of the grouped matmul
+    (plain and gated, f32 and bf16) against their plain versions and
+    against autograd through the plain forwards, each the same bits on two
+    calls. The scan at edge cases (S = 1, E*N off 4) and at falcon-mamba-
+    7b's training shape [4, 1024, 8192, 16], timed (no library call
+    computes it). The grouped matmul at the forward's edge cases (tiles
+    straddling experts, groups of 1, an empty expert, rows past the groups:
+    dx exactly 0 there) and at mixtral-8x7b's training shape (8192 (token,
+    slot) rows over 8 experts, 4096 x 14336) in f32, the main path's dtype,
+    timed beside the plain version, and in bf16 beside the backward of
+    ``torch._grouped_mm`` (which refuses f32 operands), timed alone as
+    ``time_grad_ms`` does."""
+    from repro_torch.kernels import mamba_scan as SC
+    from repro_torch.kernels import moe_gmm as MG
+    dev = torch.device("cuda", 0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape in [(2, 1, 8, 4), (1, 7, 5, 3), (3, 33, 17, 64),
+                  (2, 300, 1000, 16), (4, 1024, 8192, 16)]:
+        a = torch.exp(-randn(shape, f32).abs_())
+        b = randn(shape, f32)
+        h, _ = SC.mamba_scan(a, b)
+        dh, dl = randn(shape, f32), randn(shape[:1] + shape[2:], f32)
+        got = torch.ops.repro_torch.mamba_scan_bwd(a, h, dh, dl)
+        again = torch.ops.repro_torch.mamba_scan_bwd(a, h, dh, dl)
+        torch.cuda.synchronize()
+        what = f"mamba_scan backward {shape} f32"
+        if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+            fail(f"{what}: da or db differs between two calls")
+        del again
+        want = SC.mamba_scan_bwd_plain(a, h, dh, dl)
+        err = max(compare(torch, g, w, f32, f"{what} {n}")
+                  for n, g, w in zip(("da", "db"), got, want))
+        del want
+        leaves = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+        ref = torch.autograd.grad(SC.mamba_scan_plain(*leaves), leaves,
+                                  (dh, dl))
+        ag = max(compare(torch, g, w, f32, f"{what} {n} vs autograd")
+                 for n, g, w in zip(("da", "db"), got, ref))
+        del ref, leaves, got
+        line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
+                f"backward, {ag:.3e} vs autograd through the plain forward; "
+                f"da, db the same bits twice")
+        if shape == (4, 1024, 8192, 16):
+            ms = time_ms(torch, lambda: torch.ops.repro_torch.mamba_scan_bwd(
+                a, h, dh, dl), 5)
+            plain_ms = time_ms(torch, lambda: SC.mamba_scan_bwd_plain(
+                a, h, dh, dl), 2)
+            # a, h_all, dh_all, dh_last read once; da, db written once
+            nbytes = 5 * a.numel() * 4 + dl.numel() * 4
+            t_bytes, t_ops = nbytes / H100_HBM_BW, 3 * a.numel() \
+                / H100_F32_FLOPS
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes > t_ops else "operations"
+            line += (f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
+                     f"library call, bound {bound:.4f} ms ({by}), "
+                     f"{nbytes / ms / 1e6:.1f} GB/s = "
+                     f"{100 * bound / ms:.1f}% of the bound")
+            table["mamba_scan_bwd"] = dict(
+                name="mamba_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                replaces="src/repro/models/ssm.py:47",
+                backward_of="src/repro/kernels/mamba_scan.py:73",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None,
+                kernels="mamba_scan_bwd_kernel: a reverse scan, a thread's "
+                        "channels walked from the end, 16-byte streaming "
+                        "loads of 8 steps in flight")
+        print(line, flush=True)
+        del a, b, h, dh, dl
+
+    def operands(t, d, f, sizes, dtype, dy_scale=1.0):
+        x = randn((t, d), dtype)
+        ws = [randn((len(sizes), d, f), dtype, d ** -0.5) for _ in range(2)]
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        return x, ws, gs, randn((t, f), dtype, dy_scale)
+
+    def kernel(act, dy, x, ws, gs):
+        if act is None:
+            return torch.ops.repro_torch.moe_gmm_bwd(dy, x, ws[0], gs)
+        return torch.ops.repro_torch.moe_gmm_gated_bwd(dy, x, ws[0], ws[1],
+                                                       gs, act)
+
+    def plain(act, dy, x, ws, gs):
+        if act is None:
+            return MG.moe_gmm_bwd_plain(dy, x, ws[0], gs)
+        return MG.moe_gmm_gated_bwd_plain(dy, x, ws[0], ws[1], gs, act)
+
+    def autograd(act, dy, x, ws, gs):
+        # through the plain forward, in f32
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (x, *ws[:1 if act is None else 2])]
+        out = MG.moe_gmm_plain(leaves[0], leaves[1], gs) if act is None \
+            else MG.moe_gmm_gated_plain(*leaves, gs, act)
+        return torch.autograd.grad(out, leaves, dy.float())
+
+    def names(act):
+        return ("dx", "dw") if act is None else ("dx", "dwi", "dwg")
+
+    for label, t, d, f, sizes in [
+            ("mid", 1024, 512, 1024, [300, 0, 1, 129, 200, 77, 250, 60]),
+            ("straddling, many tiles", 2048, 1024, 1024,
+             [300, 700, 129, 500, 400]),
+            ("ragged, empty expert, rows past", 200, 72, 136,
+             [0, 64, 1, 100]),
+            ("groups of 1", 4, 64, 64, [1, 1, 1, 1]),
+            ("T below 64", 40, 128, 264, [17, 0, 20]),
+            ("widths off 8", 77, 50, 70, [13, 0, 33, 31]),
+            ("no rows", 0, 64, 64, [0, 0])]:
+        for dtype in (f32, bf16):
+            x, ws, gs, dy = operands(t, d, f, sizes, dtype)
+            for act in GMM_ACTS:
+                got = kernel(act, dy, x, ws, gs)
+                again = kernel(act, dy, x, ws, gs)
+                torch.cuda.synchronize()
+                what = (f"moe_gmm backward {act or 'plain'} {label} ({t}, "
+                        f"{d}, {f}) groups {sizes} {str(dtype)[6:]}")
+                if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                    fail(f"{what}: the gradients differ between two calls")
+                if bool(got[0][sum(sizes):].ne(0).any()):
+                    fail(f"{what}: dx is not zero past the groups")
+                ns = names(act)
+                err = max([compare(torch, g, w, dtype, f"{what} {n}")
+                           for n, g, w in zip(ns, got,
+                                              plain(act, dy, x, ws, gs))
+                           if g.numel()] + [0.0])
+                ag = max([compare(torch, g, w, dtype, f"{what} {n} vs "
+                                  f"autograd")
+                          for n, g, w in zip(ns, got,
+                                             autograd(act, dy, x, ws, gs))
+                          if g.numel()] + [0.0])
+                print(f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
+                      f"backward, {ag:.3e} vs autograd through the plain "
+                      f"forward; the same bits twice", flush=True)
+                del got, again
+            del x, ws, gs, dy
+
+    # mixtral-8x7b's training shape: 4 x 1024 tokens top-2, a few slots
+    # dropped past the groups; wi's plain product (d 4096 -> 14336) and the
+    # gated pair
+    prefill = [1100, 950, 1280, 1005, 870, 1200, 760, 1020]  # 8185 rows
+    t, d, f = 8192, 4096, 14336
+    n, used = sum(prefill), sum(1 for z in prefill if z)
+    for dtype in (f32, bf16):
+        # dy scaled so that dw, a sum over an expert's ~1000 rows, is of
+        # order 1, as the weights are scaled by d^-0.5 so that y is
+        x, ws, gs, dy = operands(t, d, f, prefill, dtype,
+                                 (t / len(prefill)) ** -0.5)
+        for act in (None, "silu_gated"):
+            n_w = 1 if act is None else 2
+            got = kernel(act, dy, x, ws, gs)
+            torch.cuda.synchronize()
+            what = (f"moe_gmm backward {act or 'plain'} mixtral-8x7b "
+                    f"training ({t}, {d}, {f}) {str(dtype)[6:]}")
+            ns = names(act)
+            err = max(compare(torch, g, w, dtype, f"{what} {nm}")
+                      for nm, g, w in zip(ns, got, plain(act, dy, x, ws, gs)))
+            del got
+            ms = time_ms(torch, lambda: kernel(act, dy, x, ws, gs), 2)
+            plain_ms = time_ms(torch, lambda: plain(act, dy, x, ws, gs), 1)
+            e = x.element_size()
+            # x, dy and the used experts' weights read; dx and every dw
+            # written; the dx and dw products of the rows in the groups and
+            # (gated) the pair's recompute, two flops a multiply-add
+            nbytes = e * (t * d + t * f + n_w * used * d * f + t * d
+                          + n_w * len(prefill) * d * f)
+            flops = (6 if act else 4) * n_w * n * d * f
+            peak = H100_BF16_FLOPS if dtype == bf16 else H100_F32_FLOPS
+            t_bytes = nbytes / H100_HBM_BW
+            t_ops = flops / peak
+            bound = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes > t_ops else "operations"
+            lib, lib_ms = None, None
+            if act is None and dtype == bf16:
+                call = grouped_mm_library(torch, x, ws[0], gs)
+                if call is not None:
+                    xl = x.detach().clone().requires_grad_(True)
+                    wl = ws[0].detach().clone().requires_grad_(True)
+                    offs = torch.cumsum(gs, 0).to(torch.int32)
+                    try:
+                        lib_ms, _ = time_grad_ms(
+                            torch, lambda: torch._grouped_mm(xl, wl,
+                                                             offs=offs),
+                            (xl, wl), dy, 2)
+                        lib = "torch._grouped_mm backward"
+                    except RuntimeError as exc:
+                        lib = (f"torch._grouped_mm backward refused: "
+                               f"{str(exc).splitlines()[0][:80]}")
+                    del xl, wl
+            print(f"[kernels] {what}: max_abs_err {err:.3e}, kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  + (f"{lib} {lib_ms:.4f} ms, " if lib_ms else
+                     f"{lib}, " if lib else "no library call in "
+                     f"{str(dtype)[6:]}, ")
+                  + f"bound {bound:.4f} ms ({by}), "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s = "
+                  f"{100 * bound / ms:.1f}% of the bound", flush=True)
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                         library=lib)
+            name = "moe_gmm_bwd" if act is None else "moe_gmm_gated_bwd"
+            if dtype == f32:
+                table[name] = dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+                    replaces="src/repro/models/moe.py:80",
+                    backward_of="src/repro/kernels/moe_gmm.py:54",
+                    **entry, kernels=(
+                        "gmm_bwd_dx_kernel + gmm_bwd_dw_kernel" if act is None
+                        else "gmm_bwd_gate_kernel (recomputes the gated "
+                             "pair) + gmm_bwd_dx_kernel + gmm_bwd_dw_kernel")
+                    + ": CUDA cores, 64 x 64 tiles, f32 accumulation")
+            else:
+                table[name]["bf16_case"] = entry
+        del x, ws, gs, dy
 
 
 def to_device(tree, dev):
@@ -1254,7 +1534,12 @@ def counters():
             "moe_gmm_gated": MG.GATED_LAUNCHES,
             "flash_attention_bwd": FA.BWD_LAUNCHES,
             "rmsnorm_bwd": RN.BWD_LAUNCHES,
-            "graph_captures": SD.CAPTURES, "graph_replays": SD.REPLAYS}
+            "mamba_scan_bwd": SC.BWD_LAUNCHES,
+            "moe_gmm_bwd": MG.BWD_LAUNCHES,
+            "moe_gmm_gated_bwd": MG.GATED_BWD_LAUNCHES,
+            "graph_captures": SD.CAPTURES, "graph_replays": SD.REPLAYS,
+            "prefill_captures": SD.PREFILL_CAPTURES,
+            "prefill_replays": SD.PREFILL_REPLAYS}
 
 
 def read_counts() -> dict:
@@ -1266,56 +1551,83 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     Mamba layer or one flash attention per attention layer; per prefill and
     per decode step, one RMSNorm per norm of a layer plus the final norm,
     and for an MoE layer two grouped-matmul launches (``moe_gmm`` counts
-    both): the gated one (wi, wg) and wo, or wi and wo ungated."""
+    both): the gated one (wi, wg) and wo, or wi and wo ungated. No
+    backward runs."""
+    bwd = dict.fromkeys(BWD_KERNELS, 0)
     if cfg.family == "ssm":
         return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
                 "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills,
-                "moe_gmm": 0, "moe_gmm_gated": 0, "flash_attention_bwd": 0,
-                "rmsnorm_bwd": 0}
+                "moe_gmm": 0, "moe_gmm_gated": 0, **bwd}
     moe_layers = 0 if cfg.moe is None else cfg.n_layers
     gated = moe_layers if cfg.mlp_act.endswith("gated") else 0
     return {"rmsnorm": (2 * cfg.n_layers + 1) * (prefills + steps),
             "flash_attention": cfg.n_layers * prefills, "mamba_scan": 0,
             "moe_gmm": 2 * moe_layers * (prefills + steps),
-            "moe_gmm_gated": gated * (prefills + steps),
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+            "moe_gmm_gated": gated * (prefills + steps), **bwd}
 
 
 def expected_train_launches(cfg, steps: int) -> dict:
-    """Each kernel's launches over ``steps`` train steps of a dense model
-    under ``remat_policy="full"``: per step and layer, flash attention's
-    forward twice (the forward and the layer's recompute in the backward)
-    and its backward once; RMSNorm's forward 4 times a layer (two norms,
-    each run again in the recompute) plus the final norm once, its
-    backward twice a layer plus once."""
+    """Each kernel's launches over ``steps`` train steps under
+    ``remat_policy="full"``: every forward launch of a layer twice (the
+    forward and the layer's recompute in the backward) and each op's
+    backward once. Per step and layer: an attention layer runs two
+    RMSNorms and one flash attention, and an MoE layer two grouped matmuls
+    (the gated one, wi and wg, and wo), each backward once (``moe_gmm_bwd``
+    counts both backward ops, ``moe_gmm_gated_bwd`` its own); a Mamba-1
+    layer one RMSNorm and one scan. The final norm runs once a step, and
+    its backward once."""
     n = cfg.n_layers
-    assert cfg.remat_policy == "full" and cfg.family == "dense"
-    return {"rmsnorm": (4 * n + 1) * steps, "flash_attention": 2 * n * steps,
-            "mamba_scan": 0, "moe_gmm": 0, "moe_gmm_gated": 0,
-            "flash_attention_bwd": n * steps, "rmsnorm_bwd": (2 * n + 1) * steps}
+    assert cfg.remat_policy == "full"
+    out = {"rmsnorm": 1, "flash_attention": 0, "mamba_scan": 0, "moe_gmm": 0,
+           "moe_gmm_gated": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 1,
+           "mamba_scan_bwd": 0, "moe_gmm_bwd": 0, "moe_gmm_gated_bwd": 0}
+    if cfg.family == "ssm":
+        out.update(rmsnorm=2 * n + 1, mamba_scan=2 * n, rmsnorm_bwd=n + 1,
+                   mamba_scan_bwd=n)
+    else:
+        assert cfg.family == "dense" or cfg.moe is not None
+        out.update(rmsnorm=4 * n + 1, flash_attention=2 * n,
+                   flash_attention_bwd=n, rmsnorm_bwd=2 * n + 1)
+        if cfg.moe is not None:
+            gated = cfg.mlp_act.endswith("gated")
+            out.update(moe_gmm=4 * n, moe_gmm_gated=2 * n if gated else 0,
+                       moe_gmm_bwd=2 * n, moe_gmm_gated_bwd=n if gated else 0)
+    return {k: v * steps for k, v in out.items()}
 
 
 def check_launches(what: str, cfg, counts: dict, prefills: int,
-                   steps: int, captures: int, replays: int) -> dict:
-    """A path's launches, replays included. A decode step replayed from a
-    CUDA graph runs its kernels without their wrappers, so the counters see
-    the warm-up and the capture of each graph (both counted as a step here)
-    and no replay: they must equal the formula for ``prefills`` prefills
-    and ``steps - replays + captures`` steps exactly, the capture and replay
-    counts must be the ones given, and the launches that ran are the counted
-    ones plus replays x the launches of one step taken at capture (the
-    formula's). Returns the launches by kernel, replays included."""
+                   steps: int, captures: int, replays: int,
+                   prefill_captures: int = 0, prefill_replays: int = 0
+                   ) -> dict:
+    """A path's launches, replays included. A decode step or a prefill
+    replayed from a CUDA graph runs its kernels without their wrappers, so
+    the counters see the warm-up and the capture of each graph (both
+    counted as a step, or a prefill, here) and no replay: they must equal
+    the formula for ``prefills - prefill_replays + prefill_captures``
+    prefills and ``steps - replays + captures`` steps exactly, the capture
+    and replay counts must be the ones given, and the launches that ran are
+    the counted ones plus replays x the launches of one step, and prefill
+    replays x those of one prefill, taken at capture (the formula's).
+    Returns the launches by kernel, replays included."""
     got = {k: counts[k] for k in expected_launches(cfg, 0, 0)}
-    want = expected_launches(cfg, prefills, steps - replays + captures)
-    print(f"[launches] {what}: counted {got}, expected {want}; graphs "
-          f"captured {counts['graph_captures']} (expected {captures}), "
-          f"replayed {counts['graph_replays']} (expected {replays})",
-          flush=True)
+    want = expected_launches(cfg, prefills - prefill_replays
+                             + prefill_captures, steps - replays + captures)
+    print(f"[launches] {what}: counted {got}, expected {want}; decode "
+          f"graphs captured {counts['graph_captures']} (expected "
+          f"{captures}), replayed {counts['graph_replays']} (expected "
+          f"{replays}); prefill graphs captured "
+          f"{counts['prefill_captures']} (expected {prefill_captures}), "
+          f"replayed {counts['prefill_replays']} (expected "
+          f"{prefill_replays})", flush=True)
     if got != want or counts["graph_captures"] != captures \
-            or counts["graph_replays"] != replays:
+            or counts["graph_replays"] != replays \
+            or counts["prefill_captures"] != prefill_captures \
+            or counts["prefill_replays"] != prefill_replays:
         fail(f"{what}: launches, captures or replays differ from expected")
-    per_step = expected_launches(cfg, 0, 1)
-    return {k: got[k] + replays * per_step[k] for k in got}
+    per_step, per_prefill = expected_launches(cfg, 0, 1), \
+        expected_launches(cfg, 1, 0)
+    return {k: got[k] + replays * per_step[k]
+            + prefill_replays * per_prefill[k] for k in got}
 
 
 def fresh_card(torch) -> int:
@@ -1355,7 +1667,8 @@ def check_tokens(what: str, generated, shape, vocab: int) -> None:
 
 class PhaseClock:
     """While the block runs, the host, stream and wall seconds of each
-    prefill and each decode graph's warm-up and capture made on a pool
+    prefill (a captured prefill's input copy and replay) and each graph's
+    warm-up and capture (decode steps' and prefills') made on a pool
     thread: ``host`` until the Python call returns, ``stream`` between CUDA
     events on the worker's stream around it, ``wall`` until that stream is
     synchronised (``tools/pool_workers.py`` splits them further, with stack
@@ -1388,19 +1701,17 @@ class PhaseClock:
         return run
 
     def __enter__(self):
-        from repro_torch.launch import serve as S
         from repro_torch.serve import decode as SD
-        self._saved = (S.make_prefill_step, SD.StepGraph.__init__)
-        make = S.make_prefill_step
-        S.make_prefill_step = lambda cfg: self._timed("prefill", make(cfg))
+        self._saved = (SD.PrefillGraph.__call__, SD.StepGraph.__init__)
+        SD.PrefillGraph.__call__ = self._timed("prefill",
+                                               SD.PrefillGraph.__call__)
         SD.StepGraph.__init__ = self._timed("warm-up + capture",
                                             SD.StepGraph.__init__)
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.launch import serve as S
         from repro_torch.serve import decode as SD
-        S.make_prefill_step, SD.StepGraph.__init__ = self._saved
+        SD.PrefillGraph.__call__, SD.StepGraph.__init__ = self._saved
 
     def summary(self) -> str:
         def mean(v, i):
@@ -1411,14 +1722,14 @@ class PhaseClock:
 
 
 def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
-                n_layers=None):
+                n_layers=None, requests: int = 32):
     """One main path: ``arch`` at every published width (depth cut to
-    ``n_layers`` if given) in bf16 through ``serve()``, every decode loop
-    replayed from a CUDA graph, with every kernel's launch count checked
-    exactly; then one batch alone (the probe and the worker's reserve
-    against the observed peak: fails below 1.0) and, with ``wide``, the
-    same 32 requests on four pool workers sharing the card (fails where
-    they serve fewer tokens/s than one)."""
+    ``n_layers`` if given) in bf16 through ``serve()``, each pool worker's
+    prefill and decode step replayed from CUDA graphs, with every kernel's
+    launch count checked exactly; then one batch alone (the probe and the
+    worker's reserve against the observed peak: fails below 1.0) and, with
+    ``wide``, the same requests on four pool workers sharing the card
+    (fails where they serve fewer tokens/s than one)."""
     from repro_torch.launch.serve import serve
     cfg = full_cfg(arch, n_layers)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
@@ -1428,13 +1739,17 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     for c in counters().values():
         c.reset()
     with PhaseClock(torch) as one_clock:
-        res = serve(arch, requests=32, **kw)
+        res = serve(arch, requests=requests, **kw)
     counts = read_counts()
     steps = res["batches"] * (kw["gen_len"] - 1)
+    # each prefill graph's warm-up ran a prefill of its own; every batch's
+    # prefill is a replay
     launches = check_launches(
-        f"serve {arch}", cfg, counts, res["batches"], steps,
-        captures=res["decode_graphs"],
-        replays=steps - res["decode_graphs"])
+        f"serve {arch}", cfg, counts, res["batches"] + res["prefill_graphs"],
+        steps, captures=res["decode_graphs"],
+        replays=steps - res["decode_graphs"],
+        prefill_captures=res["prefill_graphs"],
+        prefill_replays=res["batches"])
     vec = res["probe"]
     print(f"[serve] {arch} full width, {res['n_layers']} of "
           f"{res['published_layers']} layers, bf16, prompt {prompt_len}, "
@@ -1447,19 +1762,20 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
           f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
           f"{res['sched_attempts']} admission attempts; scheduler HBM "
           f"{res['hbm_per_device'] / 2**30:.2f} GiB/device", flush=True)
-    print(f"[serve] {arch} probe per batch (prefill): hbm {vec.hbm_bytes} B "
-          f"({vec.hbm_bytes / 2**30:.3f} GiB), {vec.flops:.4e} flops, "
-          f"{vec.bytes_accessed:.4e} bytes accessed, est "
-          f"{vec.est_seconds * 1e3:.2f} ms, core demand "
-          f"{vec.core_demand:.3f}, bw demand {vec.bw_demand:.3f}; kept by "
-          f"each pool worker (its decoder: padded cache, buffers, one step; "
-          f"cuBLAS workspace): {res['kept_per_worker'].hbm_bytes} B, "
+    kept = res["kept_per_worker"]
+    print(f"[serve] {arch} probe per batch (a replayed prefill's first "
+          f"tokens; the weights as its arguments): hbm {vec.hbm_bytes} B "
+          f"({vec.hbm_bytes / 2**30:.3f} GiB); kept by each pool worker "
+          f"(its captured prefill's pool, the prefill's peak; its decoder: "
+          f"padded cache, buffers, one step; cuBLAS workspace): "
+          f"{kept.hbm_bytes} B, {kept.flops:.4e} flops a prefill and a "
+          f"decode step; {res['prefill_graphs']} prefill and "
           f"{res['decode_graphs']} decode graph(s) captured for "
           f"{res['batches']} batches", flush=True)
     for err in res["errors"]:
         print(f"[serve] error: {err}", flush=True)
     if res["crashed"] or res["completed"] < res["batches"] \
-            or res["batches"] != 8:
+            or res["batches"] != requests // 4:
         fail(f"serve {arch}: {res['completed']}/{res['batches']} completed, "
              f"{res['crashed']} crashed")
     check_tokens(f"serve {arch}", res["generated"], (4, kw["gen_len"]),
@@ -1491,15 +1807,22 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     if not wide:
         return launches
 
-    # the same 32 requests on four pool workers, each on its own stream:
-    # 4 probed reservations fit the card, so 4 batches share it at once
+    # the same requests on four pool workers, each on its own stream: 4
+    # probed reservations fit the card, so 4 batches share it at once
     del alone
     fresh_card(torch)
+    free = torch.cuda.mem_get_info()[0]
+    print(f"[serve] {arch} 4 workers, reckoned before serving: 4 x (probe "
+          f"{vec.hbm_bytes} B + kept {kept.hbm_bytes} B) = "
+          f"{4 * (vec.hbm_bytes + kept.hbm_bytes)} B against {free} B free",
+          flush=True)
     with PhaseClock(torch) as four_clock:
-        wide_res = serve(arch, requests=32, workers=4, **kw)
-    print(f"[serve] {arch} per-batch eager phases, host/stream/wall ms: "
+        wide_res = serve(arch, requests=requests, workers=4, **kw)
+    print(f"[serve] {arch} per-batch phases, host/stream/wall ms (count): "
           f"1 worker {one_clock.summary()}; 4 workers "
-          f"{four_clock.summary()}", flush=True)
+          f"{four_clock.summary()} (eager prefills on 4 workers, before "
+          f"they were captured: 382.0-988.0 ms of host time, PERF.md)",
+          flush=True)
     print(f"[serve] {arch} 4 pool workers: {wide_res['completed']}/"
           f"{wide_res['batches']} done, {wide_res['crashed']} crashed, "
           f"{wide_res['tokens_per_s']:.1f} tok/s against "
@@ -1960,15 +2283,77 @@ def train_probe(torch, cfg, dev):
                     input_specs(cfg, shape, dev))
 
 
-def phase_train(torch) -> dict:
-    """The training main path: gemma2-9b at every published width, depth
-    cut to ``TRAIN_LAYERS``, f32, batch 4 x 1024, ``remat_policy="full"``,
+# the depth a train phase runs: gemma2-9b's fixed cut, or for the
+# others the deepest whose one-step probe fits TRAIN_FIT of the memory free
+# on the card, at most this many layers
+TRAIN_DEPTH = {"gemma2-9b": TRAIN_LAYERS}
+TRAIN_MOST = {"falcon-mamba-7b": 16, "mixtral-8x7b": 8}
+TRAIN_FIT = 0.9
+# the kernels whose device time a train step's profile sums, by arch
+TRAIN_PROFILED = {
+    "gemma2-9b": (("flash forward", ("flash_fwd_kernel",)),
+                  ("RMSNorm backward", ("rmsnorm_bwd_kernel",
+                                        "rmsnorm_dscale_kernel"))),
+    "falcon-mamba-7b": (("scan forward", ("mamba_scan_kernel",)),
+                        ("scan backward", ("mamba_scan_bwd_kernel",)),
+                        ("RMSNorm backward", ("rmsnorm_bwd_kernel",
+                                              "rmsnorm_dscale_kernel"))),
+    "mixtral-8x7b": (("grouped matmul forward", ("gmm_f32_kernel",)),
+                     ("grouped matmul backward", ("gmm_bwd_gate_kernel",
+                                                  "gmm_bwd_dx_kernel",
+                                                  "gmm_bwd_dw_kernel")),
+                     ("flash forward", ("flash_fwd_kernel",)),
+                     ("flash backward", ("flash_bwd_delta_kernel",
+                                         "flash_bwd_dkdv_kernel",
+                                         "flash_bwd_dq_kernel")))}
+
+
+def train_depth(torch, arch: str, dev, free: int) -> int:
+    """The depth of ``arch``'s train phase (``TRAIN_DEPTH``, or from the
+    probe: at 1 and 2 layers, extrapolated to the deepest that fits
+    ``TRAIN_FIT`` of ``free``, at most ``TRAIN_MOST``, then checked); the
+    probe at that depth and two layers more printed against ``free``."""
+    def probe(n):
+        t = time.perf_counter()
+        vec = train_probe(torch, full_cfg(arch, n), dev)
+        return vec, time.perf_counter() - t
+    n = TRAIN_DEPTH.get(arch)
+    if n is None:
+        one, two = probe(1)[0].hbm_bytes, probe(2)[0].hbm_bytes
+        per_layer = two - one
+        n = int((TRAIN_FIT * free - (one - per_layer)) // per_layer)
+        n = max(1, min(n, TRAIN_MOST[arch]))
+        while n > 1 and probe(n)[0].hbm_bytes > TRAIN_FIT * free:
+            n -= 1
+        print(f"[train] depth of {arch}: one step probed at 1 and 2 layers, "
+              f"{one} and {two} B ({per_layer} B a layer); the deepest that "
+              f"fits {TRAIN_FIT:g} of {free} B free, at most "
+              f"{TRAIN_MOST[arch]}: {n} layers", flush=True)
+    for m in (n, n + 2):
+        vec, took = probe(m)
+        print(f"[train] depth: the probe of one {arch} step at {m} layers, "
+              f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}: hbm {vec.hbm_bytes} "
+              f"B ({vec.hbm_bytes / 1e9:.2f} GB) against {free} B free on "
+              f"the card: "
+              f"{'fits' if vec.hbm_bytes <= free else 'does not fit'} "
+              f"(traced in {took:.1f} s)", flush=True)
+        if m == n and vec.hbm_bytes > free:
+            fail(f"train {arch}: {n} layers do not fit the card")
+    return n
+
+
+def phase_train(torch, arch: str) -> dict:
+    """A training main path: ``arch`` at every published width, depth cut
+    by ``train_depth``, f32, batch 4 x 1024, ``remat_policy="full"``,
     through ``launch.train.train``: probe of one step -> MGB admission ->
-    executor on the card, 5 steps, each kernel's launches checked exactly.
-    First the depth: the probe at ``TRAIN_LAYERS`` and two more layers
-    against the memory free on the card. Then one step alone after
-    ``fresh_card``: the probe's hbm must be at least the observed peak
-    (fails below 1.0). Then a ``torch.profiler`` breakdown of one step."""
+    executor on the card, 5 steps, each kernel's launches checked exactly,
+    the probe's flops at least 2.5x the analytic forward. Then one step
+    alone after ``fresh_card``: the probe's hbm must be at least the
+    observed peak (fails below 1.0). Then a ``torch.profiler`` breakdown of
+    one step, with the device ms a step of the kernels of
+    ``TRAIN_PROFILED``."""
+    import dataclasses
+    import math
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.data.pipeline import to_device as batch_to
@@ -1978,36 +2363,28 @@ def phase_train(torch) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
     dev = torch.device("cuda", 0)
-    cfg = full_cfg("gemma2-9b", TRAIN_LAYERS)
     fresh_card(torch)
     free = torch.cuda.mem_get_info(dev)[0]
-    for n in (TRAIN_LAYERS, TRAIN_LAYERS + 2):
-        t = time.perf_counter()
-        vec = train_probe(torch, full_cfg("gemma2-9b", n), dev)
-        print(f"[train] depth: the probe of one gemma2-9b step at {n} "
-              f"layers, f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}: hbm "
-              f"{vec.hbm_bytes} B ({vec.hbm_bytes / 1e9:.2f} GB) against "
-              f"{free} B free on the card: "
-              f"{'fits' if vec.hbm_bytes <= free else 'does not fit'} "
-              f"(traced in {time.perf_counter() - t:.1f} s)", flush=True)
-        if n == TRAIN_LAYERS and vec.hbm_bytes > free:
-            fail(f"train: {TRAIN_LAYERS} layers do not fit the card")
+    n_layers = train_depth(torch, arch, dev, free)
+    cfg = full_cfg(arch, n_layers)
+    if cfg.remat_policy != "full":
+        cfg = dataclasses.replace(cfg, remat_policy="full")
     kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
-              n_layers=TRAIN_LAYERS, lr=TRAIN_LR, log_every=1)
+              n_layers=n_layers, lr=TRAIN_LR, log_every=1)
     for c in counters().values():
         c.reset()
-    res = train("gemma2-9b", steps=TRAIN_STEPS, **kw)
+    res = train(arch, steps=TRAIN_STEPS, **kw)
     counts = read_counts()
     want = expected_train_launches(cfg, TRAIN_STEPS)
     got = {k: counts[k] for k in want}
-    print(f"[launches] train gemma2-9b: counted {got}, expected {want}",
+    print(f"[launches] train {arch}: counted {got}, expected {want}",
           flush=True)
     if got != want:
-        fail("train gemma2-9b: launches differ from expected")
+        fail(f"train {arch}: launches differ from expected")
     vec = res["probe"]
     host = res["step_ms"][1:]
     dms = res["device_ms"][1:]
-    print(f"[train] gemma2-9b, every published width, reduced: "
+    print(f"[train] {arch}, every published width, reduced: "
           f"{'; '.join(res['reduced'])}; f32, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, remat full, one task through probe -> MGB -> "
           f"executor: {res['status']}, {res['steps']} steps, losses "
@@ -2020,37 +2397,37 @@ def phase_train(torch) -> dict:
           f"{vec.hbm_bytes} B, {vec.flops:.4e} flops, est "
           f"{vec.est_seconds * 1e3:.1f} ms, core {vec.core_demand:.3f}, bw "
           f"{vec.bw_demand:.3f}", flush=True)
-    import math
     if res["steps"] != TRAIN_STEPS or not all(
             math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
-        fail(f"train gemma2-9b: {res['steps']} steps, losses "
-             f"{res['losses']}")
+        fail(f"train {arch}: {res['steps']} steps, losses {res['losses']}")
     # the probe traced the backward and the recompute too (the autograd
     # engine runs a card's backward on its own thread)
     fwd = forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-    print(f"[train] probe flops {vec.flops:.4e} = {vec.flops / fwd:.2f}x the "
-          f"analytic forward ({fwd:.4e})", flush=True)
+    print(f"[train] {arch} probe flops {vec.flops:.4e} = "
+          f"{vec.flops / fwd:.2f}x the analytic forward ({fwd:.4e})",
+          flush=True)
     if vec.flops < 2.5 * fwd:
-        fail("train gemma2-9b: the probe did not trace the backward")
+        fail(f"train {arch}: the probe did not trace the backward")
     launches = dict(got)
 
     del res
     left = fresh_card(torch)
-    alone = train("gemma2-9b", steps=1, **kw)
+    alone = train(arch, steps=1, **kw)
     peak = torch.cuda.max_memory_allocated(dev)
     ratio = alone["probe"].hbm_bytes / peak
-    print(f"[train] one step alone: probe hbm {alone['probe'].hbm_bytes} B "
-          f"vs observed max_memory_allocated {peak} B ({left} B allocated "
-          f"before; probe/observed {ratio:.4f}); step "
-          f"{alone['step_ms'][0]:.1f} ms host, "
+    print(f"[train] {arch} one step alone: probe hbm "
+          f"{alone['probe'].hbm_bytes} B vs observed max_memory_allocated "
+          f"{peak} B ({left} B allocated before; probe/observed "
+          f"{ratio:.4f}); step {alone['step_ms'][0]:.1f} ms host, "
           f"{alone['device_ms'][0]:.1f} ms device", flush=True)
     if ratio < 1.0:
-        fail(f"train gemma2-9b: the probe ({alone['probe'].hbm_bytes} B) is "
+        fail(f"train {arch}: the probe ({alone['probe'].hbm_bytes} B) is "
              f"below the observed peak ({peak} B)")
     del alone
 
     fresh_card(torch)
-    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                            moment_dtype=cfg.optimizer_moment_dtype)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          torch.float32, dev)
     state = adamw.init_state(opt, params)
@@ -2059,14 +2436,11 @@ def phase_train(torch) -> dict:
                                           "train"), seed=0)
     batch = batch_to(pipe.batch_at(0), dev)
     step(params, state, batch)  # warm-up
-    label = (f"gemma2-9b train step, {TRAIN_LAYERS} layers, f32, batch "
+    label = (f"{arch} train step, {n_layers} layers, f32, batch "
              f"{TRAIN_BATCH} x {TRAIN_SEQ}")
     rows = device_breakdown(torch, label, lambda: step(params, state, batch),
                             top=12)
-    # the kernels this slice redesigned, summed over the step
-    for what, names in (("flash forward", ("flash_fwd_kernel",)),
-                        ("RMSNorm backward", ("rmsnorm_bwd_kernel",
-                                              "rmsnorm_dscale_kernel"))):
+    for what, names in TRAIN_PROFILED[arch]:
         mine = [(ms, n) for ms, n, name in rows
                 if any(k in name for k in names)]
         print(f"[profile] {label}: {what} {sum(m for m, _ in mine):.3f} ms "
@@ -2127,11 +2501,16 @@ def main() -> None:
     phase_continuous_reduced(torch, "mixtral-8x7b", 128)
     phase_train_reduced(torch, "gemma2-9b")
     phase_train_reduced(torch, "qwen1.5-32b")
+    phase_train_reduced(torch, "falcon-mamba-7b")
+    phase_train_reduced(torch, "mixtral-8x7b")
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
                "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
                                               1024, False),
                "mixtral-8x7b": phase_serve(torch, "mixtral-8x7b", 1024,
                                            False, MIXTRAL_LAYERS),
+               "nemotron-4-340b": phase_serve(torch, "nemotron-4-340b", 1024,
+                                              False, NEMOTRON_LAYERS,
+                                              requests=4),
                "gemma2-9b continuous": phase_continuous(
                    torch, "gemma2-9b", 1000),
                "falcon-mamba-7b continuous": phase_continuous(
@@ -2141,7 +2520,8 @@ def main() -> None:
     phase_decode(torch, "gemma2-9b", 1000, streams=4)
     phase_decode(torch, "falcon-mamba-7b", 1024)
     phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
-    by_path["gemma2-9b train"] = phase_train(torch)
+    for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b"):
+        by_path[f"{arch} train"] = phase_train(torch, arch)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

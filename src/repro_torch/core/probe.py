@@ -10,8 +10,11 @@ shapes and dtypes only, nothing is allocated on the card. During that trace
   * ``hbm_bytes`` = the bytes of the arguments + the peak of bytes allocated
     by the step and still live (outputs included, since they are live at
     the end) — the counterpart of XLA's argument + temp + output − alias sum
-    — + ``CUDA_UNSEEN_BYTES`` when the arguments live on a card: what the
-    libraries the step calls allocate there that no fake tensor shows;
+    — + ``CUDA_UNSEEN_BYTES`` for each thread that runs the step's ops when
+    the arguments live on a card: what the libraries the step calls
+    allocate there that no fake tensor shows (a step with a backward runs
+    it on the autograd engine's device thread, whose cuBLAS handle keeps a
+    workspace of its own);
   * ``flops`` comes from ``torch.utils.flop_counter.FlopCounterMode``. The
     port's hand kernels are custom ops with fake implementations, and flash
     attention registers a flop formula (``4·B·Hq·visible pairs·D``), so the
@@ -29,6 +32,7 @@ place, so a probe at a multi-GB footprint allocates nothing anywhere.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -48,8 +52,8 @@ from repro_torch.core.task import ResourceVector
 # 80GB HBM3, 700 W): the task's peak above the weights exceeded the traced
 # live peak by at most 34,341,372 B (falcon-mamba-7b, the first task on its
 # stream; 1,671,676 B for gemma2-9b and 508 B for mixtral-8x7b on a stream
-# that had its workspace). Charged to every probe of work on a card,
-# rounded up to 40 MiB.
+# that had its workspace). Charged to every probe of work on a card, once
+# for each thread that runs its ops, rounded up to 40 MiB.
 CUDA_UNSEEN_BYTES = 40 << 20
 
 # NVIDIA H100 SXM datasheet peaks (dense, 700 W): bf16 tensor-core rate,
@@ -73,10 +77,11 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 class _LiveBytes(TorchDispatchMode):
-    """Peak of live bytes allocated while tracing, and the bytes every
-    non-view op reads and writes. Storages are keyed by their StorageImpl
-    and released when the last tensor seen on them dies (views share one
-    entry); storages of the arguments are excluded (counted apart)."""
+    """Peak of live bytes allocated while tracing, the bytes every non-view
+    op reads and writes, and the threads that ran ops. Storages are keyed
+    by their StorageImpl and released when the last tensor seen on them
+    dies (views share one entry); storages of the arguments are excluded
+    (counted apart)."""
 
     def __init__(self, arg_keys: set):
         super().__init__()
@@ -85,6 +90,7 @@ class _LiveBytes(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.bytes_accessed = 0
+        self.threads = set()
 
     def _release(self, key: int) -> None:
         ref = self._refs[key]
@@ -107,6 +113,7 @@ class _LiveBytes(TorchDispatchMode):
         weakref.finalize(t, self._release, key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.threads.add(threading.get_ident())
         out = func(*args, **(kwargs or {}))
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         # views move no bytes, nor do metadata queries (``prim.device``,
@@ -190,7 +197,11 @@ def trace_counts(fn: Callable, *args, uncharged: Sequence[int] = ()
     with torch.no_grad(), fake, flop_mode, live:
         out = fn(*fargs)
         del out
-    unseen = CUDA_UNSEEN_BYTES if on_card else 0
+    # a cuBLAS workspace a thread: the caller's, and the autograd engine's
+    # device thread where the step has a backward (chip_smoke's train step
+    # alone: 69,075,960 B above the traced live peak for falcon-mamba-7b,
+    # NVIDIA H100 80GB HBM3)
+    unseen = CUDA_UNSEEN_BYTES * len(live.threads) if on_card else 0
     return {"hbm_bytes": arg_bytes + live.peak + unseen,
             "arg_bytes": arg_bytes, "peak_live_bytes": live.peak,
             "unseen_bytes": unseen,

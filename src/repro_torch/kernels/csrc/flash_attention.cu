@@ -24,8 +24,13 @@
 // (q tile of 128 rows, q head, batch), q tiles ordered so that the heaviest (the
 // bottom of the causal triangle) start first. Warpgroup 0 is the producer: it
 // gives up registers (setmaxnreg 24) and one thread issues TMA loads, Q once and
-// K, V tiles of BK keys (128 at D <= 128, 64 at D = 256) into a 2-stage ring with
-// full barriers per stage for K and for V and an empty barrier per stage.
+// K, V tiles of BK keys (128 at D <= 128, 64 at D = 192 and 256) into a 2-stage
+// ring with full barriers per stage for K and for V and an empty barrier per
+// stage. Tiles hold D in whole chunks of the swizzle span: D = 80 (160-byte
+// rows, not a whole number of 128-byte atoms) is staged as 128 columns, the TMA
+// boxes past the tensor's last dim filled with zeros (nothing is copied or
+// padded in device memory); Q K^T takes only D's five k16 slices, P V runs at
+// N = 128 and the columns past D are never stored; the scale stays 1/sqrt(80).
 // Warpgroups 1 and 2 take 240 registers each and own 64 q rows apiece. Per K tile:
 //   S = Q K^T  wgmma m64nBKk16 from shared memory, both operands K-major under
 //              the 128-byte swizzle (64-byte at D = 32);
@@ -41,7 +46,7 @@
 //              bit); O stays in registers (64 x D f32: 128 a thread at D = 256).
 // The softcap is a template parameter, so the uncapped kernel carries none of it.
 // Shared memory: Q 128 x D, K and V 2 x BK x D, all bf16 (192 KB at D = 256,
-// 160 KB at D = 128): one block an SM, its two consumer warpgroups keeping the
+// 144 KB at D = 192, 160 KB at D = 128 and at D = 80 staged as 128): one block an SM, its two consumer warpgroups keeping the
 // tensor cores busy in turn. Operands are described to TMA as 4-d (D, S, H, B)
 // with their own strides, so a ragged tile reads zeros past S inside its head
 // and the output's TMA store clips it. The epilogue divides by l, converts to
@@ -57,7 +62,8 @@
 // causal triangle) first. Q is staged once; K and V stream in tiles of 32 keys
 // into two buffers by 16-byte cp.async, the next tile's copy in flight while
 // this one is computed (208 KB of shared memory at D = 256: one block an SM;
-// 110 KB at D = 128: two). Per K tile, three steps between barriers:
+// 110 KB at D = 128: two; 156 KB at D = 192, 72 KB at D = 80). Per K tile, three
+// steps between barriers:
 //   S = Q K^T   each half of the block takes 32 rows, each thread a 4 x 4
 //               block over half of D (the partner lane has the other half;
 //               one shuffle adds them): 8 float4 shared loads feed 64 FMAs,
@@ -68,7 +74,8 @@
 //               S and the row's rescale factor to shared memory;
 //   O += P V    each thread 8 rows x D/32 dims (a warp 4 row groups x 8 dim
 //               groups, so P's and V's loads hit distinct banks): per 4 keys,
-//               8 float4 loads of P and 8 of V (D = 256) feed 256 FMAs.
+//               8 float4 loads of P and 8 of V (D = 256) feed 256 FMAs; at
+//               D = 80 single floats over 96 dims, the warps past D idle.
 // O stays in registers (64 a thread at D = 256) and is written as float4s
 // after O / l. Ragged Sq and Sk tails are zero-filled copies and masked; the kv
 // head of q head h is h / (Hq / Hkv). Rows must start on 16 bytes (the wrapper
@@ -236,9 +243,11 @@ template <int D>
 struct Fwd {
   static constexpr int LD = row_ld<D>();
   // O += P V: each thread 8 rows x VW * NM dims, a warp 4 row groups x 8
-  // dim groups
-  static constexpr int VW = D >= 128 ? 4 : D / 32;
-  static constexpr int NM = D / (32 * VW);
+  // dim groups: dims VW dg + 32 VW m, the widest vectors that tile D; where
+  // 32 VW does not divide D (D = 80: 96 dims covered), the dims past D are
+  // skipped by whole warps
+  static constexpr int VW = D % 128 == 0 ? 4 : D % 64 == 0 ? 2 : 1;
+  static constexpr int NM = (D + 32 * VW - 1) / (32 * VW);
   // Q; K and V, two buffers each; the score tile; each row's rescale
   // factor and sum
   static constexpr size_t SMEM = sizeof(float) * ((size_t)FQ * LD + 2 * (size_t)BB * LD +
@@ -384,6 +393,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* vrow = Vt + (c4 + cc) * D + VW * dg;
 #pragma unroll
         for (int m = 0; m < NM; ++m) {
+          if (VW * dg + 32 * VW * m >= D) continue;  // past D: whole warps
           float xv[VW];
           lds<VW>(xv, vrow + 32 * VW * m);
 #pragma unroll
@@ -414,6 +424,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
+      if (VW * dg + 32 * VW * m >= D) continue;
       float o4[VW];
 #pragma unroll
       for (int e = 0; e < VW; ++e) o4[e] = acc[r][m * VW + e] * inv;
@@ -452,14 +463,19 @@ template <int D>
 struct Tc {
   static constexpr int SPAN = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int CW = SPAN / 2;              // bf16 columns per chunk
-  static constexpr int NC = D / CW;                // chunks per row
-  static constexpr int BK = D >= 256 ? 64 : 128;   // keys per K/V tile
-  static constexpr int Q_BYTES = kTcRows * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;
+  // D in whole chunks: D = 80 is staged as 128 columns, the TMA boxes past
+  // D filled with zeros, which add nothing to Q K^T (its k16 slices stop at
+  // D) and give O columns that are never stored
+  static constexpr int DP = (D + CW - 1) / CW * CW;
+  static constexpr int NC = DP / CW;               // chunks per row
+  static constexpr int BK = D >= 192 ? 64 : 128;   // keys per K/V tile
+  static constexpr int Q_BYTES = kTcRows * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
   static constexpr int Q_CHUNK = kTcRows * SPAN;   // bytes of one Q chunk
   static constexpr int KV_CHUNK = BK * SPAN;
   // Q, K ring, V ring, 7 barriers, and slack to align the tiles to 1024 B
   static constexpr size_t SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 64 + 1024;
+  static_assert(SMEM <= 232448, "tensor-core forward tiles exceed shared memory");
 };
 
 struct TcArgs {
@@ -500,9 +516,10 @@ __device__ __forceinline__ void tc_consume(const TcArgs& a, const CUtensorMap* t
   const int hi_k = !has_rows ? 0 : a.causal ? min(a.Sk, r_last + 1) : a.Sk;
 
   const uint32_t q_full = bars;
-  float o[D / 2];
+  constexpr int DP = C::DP;
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   hopper::mbar_wait(q_full, 0);
@@ -582,7 +599,7 @@ __device__ __forceinline__ void tc_consume(const TcArgs& a, const CUtensorMap* t
         l[r] = l[r] * alpha[r] + sum;  // this thread's columns; the quad sums at the end
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DP / 8; ++j) {
         o[4 * j] *= alpha[0];
         o[4 * j + 1] *= alpha[0];
         o[4 * j + 2] *= alpha[1];
@@ -603,7 +620,7 @@ __device__ __forceinline__ void tc_consume(const TcArgs& a, const CUtensorMap* t
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = hopper::make_desc(vb + kk * 16 * C::SPAN, C::KV_CHUNK, 8 * C::SPAN,
                                               C::SPAN);
-        hopper::Wgmma<D>::rs_tb(o, p[kk], db, 1);
+        hopper::Wgmma<DP>::rs_tb(o, p[kk], db, 1);
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
@@ -761,7 +778,9 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v, void
   switch (D) {
     case 32: return launch_tc<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 64: return launch_tc<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 80: return launch_tc<80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 128: return launch_tc<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 192: return launch_tc<192>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 256: return launch_tc<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
@@ -773,7 +792,9 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, voi
   switch (D) {
     case 32: return launch_f32<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 64: return launch_f32<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 80: return launch_f32<80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 128: return launch_f32<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
+    case 192: return launch_f32<192>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     case 256: return launch_f32<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, qs, ks, vs, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
@@ -824,7 +845,10 @@ cudaError_t dispatch_f32(int D, const void* q, const void* k, const void* v, voi
 //   dQ: a block of three warpgroups owns 128 q rows, 64 per consumer
 //   warpgroup, which run in turn as the forward's do; Q and dO are loaded
 //   once, K and V stream through a two-stage ring in tiles of 64 keys (32 at
-//   D = 256, with wgmma m64n32: 64-key stages would not fit beside Q and dO).
+//   D = 256, with wgmma m64n32: 64-key stages would not fit beside Q and dO;
+//   at D = 192 64-key stages fit, 193 KB, and S, dP and dQ take 160 f32
+//   registers a thread, as dK/dV's at D = 256). D = 80 is staged as 128
+//   columns of TMA's zeros past D, as in the forward.
 //   Per KV tile: S = Q K^T and dP = dO V^T (one wgmma group), dS on the
 //   fragment, dQ += dS K (dQ alone is 128 registers a thread at D = 256).
 //   Shared memory at D = 256: dK/dV 210 KB (K and V 32 KB each, two stages of
@@ -891,12 +915,15 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restr
 template <int D>
 struct Bwd {
   static constexpr int LD = row_ld<D>();  // staged row stride, floats
-  // dK/dV accumulation: 8 key blocks x 16 dim blocks over 128 threads
-  static constexpr int VW = D >= 64 ? 4 : 2;
+  // dK/dV accumulation: 8 key blocks x 16 dim blocks over 128 threads,
+  // the widest vectors that tile D (D = 80: single floats, 5 a row)
+  static constexpr int VW = D % 64 == 0 ? 4 : D % 32 == 0 ? 2 : 1;
   static constexpr int NM = D / (16 * VW);
-  // dQ accumulation: 8 row blocks x 32 dim blocks over 256 threads
-  static constexpr int VWQ = D >= 128 ? 4 : D / 32;
-  static constexpr int NMQ = D / (32 * VWQ);
+  // dQ accumulation: 8 row blocks x 32 dim blocks over 256 threads; where
+  // 32 VWQ does not divide D (D = 80: 96 dims covered), whole warps skip the
+  // dims past D
+  static constexpr int VWQ = D % 128 == 0 ? 4 : D % 64 == 0 ? 2 : 1;
+  static constexpr int NMQ = (D + 32 * VWQ - 1) / (32 * VWQ);
   // K, V, Q and dO, two of either side's; P and dS; lse and delta, two stages
   static constexpr size_t SMEM =
       sizeof(float) * (6 * (size_t)BB * LD + 2 * (size_t)BB * kPS + 4 * BB);
@@ -1123,6 +1150,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float4 w = load4(dSs + j * kPS + 4 * qb);
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
+        if (VW * db + 32 * VW * m >= D) continue;  // past D: whole warps
         float x[VW];
         lds<VW>(x, Kt + j * LD + VW * db + 32 * VW * m);
 #pragma unroll
@@ -1141,6 +1169,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qr >= a.Sq) continue;
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
+      if (VW * db + 32 * VW * m >= D) continue;
       float o4[VW];
 #pragma unroll
       for (int e = 0; e < VW; ++e) o4[e] = acc[r][m * VW + e] * a.scale;
@@ -1157,8 +1186,12 @@ template <int D>
 struct TcB {
   static constexpr int SPAN = D >= 64 ? 128 : 64;  // swizzle span, bytes
   static constexpr int CW = SPAN / 2;              // bf16 columns per chunk
-  static constexpr int NC = D / CW;                // chunks per row
-  static constexpr int TILE = kBr * D * 2;         // bytes of a 64-row tile
+  // D in whole chunks, as the forward's Tc<D>::DP: columns past D are TMA's
+  // zeros, which add nothing to the products over D, and the accumulators'
+  // columns past D are never stored
+  static constexpr int DP = (D + CW - 1) / CW * CW;
+  static constexpr int NC = DP / CW;               // chunks per row
+  static constexpr int TILE = kBr * DP * 2;        // bytes of a 64-row tile
   static constexpr int CHUNK = kBr * SPAN;         // bytes of one of its chunks
   static constexpr int ROWS = 2 * kBr * 4;         // lse and delta of a q tile
   static constexpr int XCH = 32 * 128 * 4;         // P': 32 f32 a consumer thread
@@ -1171,7 +1204,7 @@ struct TcB {
   // and dO of 128 rows)
   static constexpr int NQ = 2;
   static constexpr int BKQ = D == 256 ? 32 : 64;
-  static constexpr int KTILE = BKQ * D * 2;
+  static constexpr int KTILE = BKQ * DP * 2;
   static constexpr int KCHUNK = BKQ * SPAN;
   static constexpr size_t SMEM_Q = 2 * NQ * TILE + 2 * kStages * KTILE + 64 + 1024;
   static_assert(SMEM_KV <= 232448 && SMEM_Q <= 232448, "backward tiles exceed shared memory");
@@ -1213,10 +1246,11 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int chunk = T
   return hopper::make_desc(tile + kk * 16 * C::SPAN, chunk, 8 * C::SPAN, C::SPAN);
 }
 
-// a 64 x D f32 accumulator (rows `row0` + 16 warp + g (+ 8)) into bf16 rows
-// [.., S) of a contiguous [rows, D] array, times `mul`
-template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[D / 2], int row0,
+// a 64 x D f32 accumulator (rows `row0` + 16 warp + g (+ 8); DP >= D columns,
+// those past D not stored) into bf16 rows [.., S) of a contiguous [rows, D]
+// array, times `mul`
+template <int D, int DP>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, const float (&acc)[DP / 2], int row0,
                                           int S, float mul) {
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -1241,9 +1275,10 @@ __device__ __forceinline__ void tc_dkdv_consume(const TcBwdArgs& a, uint32_t sK,
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int kpos[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  float acc[D / 2];
+  constexpr int DP = C::DP;
+  float acc[DP / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
 
   hopper::mbar_wait(bars, 0);  // K and V
   for (int i = 0; i < n; ++i) {
@@ -1291,7 +1326,7 @@ __device__ __forceinline__ void tc_dkdv_consume(const TcBwdArgs& a, uint32_t sK,
       // dV += P^T dO
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(dot, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<DP>::rs_tb(acc, frag[kk], mnmajor<D>(dot, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -1325,7 +1360,7 @@ __device__ __forceinline__ void tc_dkdv_consume(const TcBwdArgs& a, uint32_t sK,
       // dK += dS^T Q
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(qt, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) hopper::Wgmma<DP>::rs_tb(acc, frag[kk], mnmajor<D>(qt, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -1334,8 +1369,8 @@ __device__ __forceinline__ void tc_dkdv_consume(const TcBwdArgs& a, uint32_t sK,
     if (lane == 0) hopper::mbar_arrive(empty);
   }
   const long long kv_row = ((long long)b * a.m.Hkv + hk) * a.m.Sk;
-  if (wg == 1) store_acc<D>(a.dv + kv_row * D, acc, k0, a.m.Sk, 1.f);
-  else store_acc<D>(a.dk + kv_row * D, acc, k0, a.m.Sk, a.m.scale);
+  if (wg == 1) store_acc<D, DP>(a.dv + kv_row * D, acc, k0, a.m.Sk, 1.f);
+  else store_acc<D, DP>(a.dk + kv_row * D, acc, k0, a.m.Sk, a.m.scale);
 }
 
 template <int D, bool SOFTCAP>
@@ -1437,9 +1472,10 @@ __device__ __forceinline__ void tc_dq_consume(const TcBwdArgs& a, uint32_t sQ, u
   const int lo_k = a.m.window > 0 ? max(r0 - a.m.window + 1, 0) : 0;
   const int hi_k = !has_rows ? 0 : a.m.causal ? min(a.m.Sk, r_last + 1) : a.m.Sk;
   const uint32_t qt = sQ + cw * C::TILE, dot = sdO + cw * C::TILE;
-  float acc[D / 2];
+  constexpr int DP = C::DP;
+  float acc[DP / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
 
   hopper::mbar_wait(bars, 0);  // Q and dO
   for (int i = 0; i < ntiles; ++i) {
@@ -1488,7 +1524,7 @@ __device__ __forceinline__ void tc_dq_consume(const TcBwdArgs& a, uint32_t sQ, u
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        hopper::Wgmma<D>::rs_tb(acc, frag[kk], mnmajor<D>(kt, kk, C::KCHUNK), 1);
+        hopper::Wgmma<DP>::rs_tb(acc, frag[kk], mnmajor<D>(kt, kk, C::KCHUNK), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
@@ -1496,7 +1532,7 @@ __device__ __forceinline__ void tc_dq_consume(const TcBwdArgs& a, uint32_t sQ, u
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(empty);
   }
-  if (has_rows) store_acc<D>(a.dq + bh * a.m.Sq * D, acc, r0, a.m.Sq, a.m.scale);
+  if (has_rows) store_acc<D, DP>(a.dq + bh * a.m.Sq * D, acc, r0, a.m.Sq, a.m.scale);
 }
 
 template <int D, bool SOFTCAP>
@@ -1662,8 +1698,12 @@ cudaError_t dispatch_bwd(int D, bool bf16, const void* q, const void* k, const v
                          : launch_bwd_f32<32>(q, k, v, dout, dq, dk, dv, B, a, s);
     case 64: return bf16 ? launch_bwd_tc<64>(q, k, v, dout, dq, dk, dv, B, a, s)
                          : launch_bwd_f32<64>(q, k, v, dout, dq, dk, dv, B, a, s);
+    case 80: return bf16 ? launch_bwd_tc<80>(q, k, v, dout, dq, dk, dv, B, a, s)
+                         : launch_bwd_f32<80>(q, k, v, dout, dq, dk, dv, B, a, s);
     case 128: return bf16 ? launch_bwd_tc<128>(q, k, v, dout, dq, dk, dv, B, a, s)
                           : launch_bwd_f32<128>(q, k, v, dout, dq, dk, dv, B, a, s);
+    case 192: return bf16 ? launch_bwd_tc<192>(q, k, v, dout, dq, dk, dv, B, a, s)
+                          : launch_bwd_f32<192>(q, k, v, dout, dq, dk, dv, B, a, s);
     case 256: return bf16 ? launch_bwd_tc<256>(q, k, v, dout, dq, dk, dv, B, a, s)
                           : launch_bwd_f32<256>(q, k, v, dout, dq, dk, dv, B, a, s);
     default: return cudaErrorInvalidValue;
@@ -1677,7 +1717,7 @@ cudaError_t dispatch_bwd(int D, bool bf16, const void* q, const void* k, const v
 // element strides for batch, head and sequence; o: contiguous [B, Hq, Sq, D];
 // lse: null, or contiguous f32 [B, Hq, Sq] that receives each row's natural-log
 // log-sum-exp of its scaled (and capped) scores, which the backward reads.
-// D in {32, 64, 128, 256}; dtype codes: 0 = float32 (CUDA cores: pointers
+// D in {32, 64, 80, 128, 192, 256}; dtype codes: 0 = float32 (CUDA cores: pointers
 // 16-byte aligned and every stride a multiple of 4 elements, for the 16-byte
 // cp.async copies), 1 = bfloat16 (tensor cores: pointers 16-byte aligned and
 // every stride a multiple of 8 elements, as TMA needs). A row that sees no key
@@ -1731,7 +1771,8 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0 || Hq > 65535 || B > 65535 || Sk > 65535 * BB ||
       Sq > 65535 * BB ||
-      (D != 32 && D != 64 && D != 128 && D != 256) || (dtype != kF32 && dtype != kBF16))
+      (D != 32 && D != 64 && D != 80 && D != 128 && D != 192 && D != 256) ||
+      (dtype != kF32 && dtype != kBF16))
     return (int)cudaErrorInvalidValue;
   // the f32 tiles move as 16-byte copies; TMA and the bulk copies need 16 bytes
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |

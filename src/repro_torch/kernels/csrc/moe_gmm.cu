@@ -73,6 +73,33 @@
 //
 // Every kernel takes the activation as a template parameter (kPlain: one
 // weight, no activation), so a gated call is one launch on every route.
+//
+// The backward (repro_moe_gmm_bwd, repro_moe_gmm_gated_bwd), the port's own:
+// the Pallas kernel has none and the reference differentiates its dense
+// dispatch. For y = gmm(x, w) and its gradient dy, per group e:
+//   dx = dy w[e]^T (rows past the groups: 0),   dw[e] = x_e^T dy_e (an empty
+//   group: 0, exactly).
+// The gated variant h = act(a) * g, a = x wi[e], g = x wg[e], recomputes a
+// and g (gmm_bwd_gate_kernel: both products in one pass over x, then in its
+// epilogue da = dh g act'(a) and dg = dh act(a), written in f32), then
+// dx = da wi^T + dg wg^T in one product (gmm_bwd_dx_kernel) and dwi, dwg =
+// x^T da, x^T dg in one pass over x (gmm_bwd_dw_kernel). Recomputed, not
+// saved: saving a and g would hold two [T, F] f32 tensors (0.94 GB at
+// mixtral-8x7b's training shape) from a layer's forward to its backward, and
+// under remat the layer's forward runs again just before its backward anyway;
+// the recompute is two products of the six.
+// Bound on the card: operations. Each pass is a product of the forward's
+// size, 2 T D F flops: two for the plain backward, six gated, so at
+// mixtral-8x7b's f32 training shape (8192 rows, 4096 x 14336) the gated
+// backward is 5.8e12 flops, >= 86 ms at 67 TFLOP/s. A simple design first,
+// for both dtypes (f32 accumulation): the f32 route's tiles, 64 x 64 outputs a
+// block and 4 x 4 a thread over k slices of 16 staged in shared memory, bf16
+// inputs converted on the way in. dx reads w[e] transposed in place (its
+// slices are rows of w read along F), so no transposed copy of the weights is
+// made; dw gives one block each (expert, D tile, F tile), which walks that
+// expert's rows in order. Deterministic: every output element is summed by
+// one thread in a fixed order, no atomics. Tiles that straddle two groups
+// work as in the forward (block_tile).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -660,6 +687,290 @@ cudaError_t launch(const void* x, const void* w, const void* w2, const int* gs, 
   return launch_small<ACT>(x, w, w2, gs, out, T, D, F, E, vec, s);
 }
 
+// ---------------------------------------------------------------------------
+// the backward: CUDA cores, f32 accumulation, both dtypes
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void stf(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stf(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// The gated pair's gradients from its pre-activations a (wi) and g (wg) and
+// the output's gradient dh: d/da and d/dg of act(a) * g, act as `combine`.
+template <int ACT>
+__device__ __forceinline__ void gate_grads(float a, float g, float dh, float& da, float& dg) {
+  if (ACT == kSilu) {
+    const float sg = 1.f / (1.f + expf(-a));
+    dg = dh * a * sg;
+    da = dh * g * sg * (1.f + a * (1.f - sg));
+  } else {  // tanh gelu
+    const float k0 = 0.7978845608028654f, k1 = 0.044715f;
+    const float th = tanhf(k0 * (a + k1 * a * a * a));
+    dg = dh * 0.5f * a * (1.f + th);
+    da = dh * g * (0.5f * (1.f + th) + 0.5f * a * (1.f - th * th) * k0 * (1.f + 3.f * k1 * a * a));
+  }
+}
+
+// Expert e's rows: (first row, rows), the groups cut at T as block_tile does.
+__device__ int2 group_span(const int* __restrict__ gs, int E, int T, int e) {
+  __shared__ int sizes[kMaxExperts];
+  __shared__ int2 span;
+  load_sizes(sizes, gs, E);
+  if (threadIdx.x == 0) {
+    int off = 0;
+    for (int i = 0; i < e; ++i) off += min(sizes[i], T - off);
+    span = make_int2(off, min(sizes[e], T - off));
+  }
+  __syncthreads();
+  return span;
+}
+
+// da, dg [T, F] f32 of the gated pair: a = x wi[e], g = x wg[e] recomputed
+// as gmm_f32_kernel computes them, then gate_grads with dh [T, F]; rows past
+// the groups get zeros.
+template <int ACT, typename TI>
+__global__ void __launch_bounds__(kF32Threads)
+gmm_bwd_gate_kernel(const TI* __restrict__ x, const TI* __restrict__ wi,
+                    const TI* __restrict__ wg, const TI* __restrict__ dh,
+                    const int* __restrict__ gs, float* __restrict__ da,
+                    float* __restrict__ dg, int T, int D, int F, int E) {
+  __shared__ float As[kF32K][kF32Tile + 4];  // x slice, transposed: [k][row]
+  __shared__ float Bs[2][kF32K][kF32Tile + 4];
+  const int3 tile = block_tile<kF32Tile>(gs, E, T, blockIdx.x);
+  const int e = tile.x, row0 = tile.y, rows = tile.z;
+  if (rows <= 0) return;
+  const int tid = threadIdx.x, n0 = blockIdx.y * kF32Tile;
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[2][4][4] = {};
+  if (e < E) {
+    const TI* xb = x + (int64_t)row0 * D;
+    const TI* wb[2] = {wi + (int64_t)e * D * F, wg + (int64_t)e * D * F};
+    for (int k0 = 0; k0 < D; k0 += kF32K) {
+#pragma unroll
+      for (int i = 0; i < kF32Tile * kF32K / kF32Threads; ++i) {
+        const int idx = tid + i * kF32Threads;
+        const int m = idx / kF32K, k = idx % kF32K;
+        As[k][m] = m < rows && k0 + k < D ? ldf(xb + (int64_t)m * D + k0 + k) : 0.f;
+        const int kb = idx / kF32Tile, n = idx % kF32Tile;
+        const bool ok = k0 + kb < D && n0 + n < F;
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          Bs[b][kb][n] = ok ? ldf(wb[b] + (int64_t)(k0 + kb) * F + n0 + n) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kF32K; ++k) {
+        float av[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[k][ty * 4 + i];
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          float bv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[j] = Bs[b][k][tx * 4 + j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[b][i][j] = fmaf(av[i], bv[j], acc[b][i][j]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int lr = ty * 4 + i;
+    if (lr >= rows) continue;
+    const int64_t row = row0 + lr;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col >= F) continue;
+      float ga = 0.f, gg = 0.f;  // zeros past the groups
+      if (e < E) gate_grads<ACT>(acc[0][i][j], acc[1][i][j], ldf(dh + row * F + col), ga, gg);
+      da[row * F + col] = ga;
+      dg[row * F + col] = gg;
+    }
+  }
+}
+
+// dx [T, D] = sum over b < NB of dy_b [T, F] times w_b[e]^T ([E, D, F], read
+// along F: no transposed copy); rows past the groups get zeros.
+template <int NB, typename TY, typename TW>
+__global__ void __launch_bounds__(kF32Threads)
+gmm_bwd_dx_kernel(const TY* __restrict__ dy0, const TY* __restrict__ dy1,
+                  const TW* __restrict__ w0, const TW* __restrict__ w1,
+                  const int* __restrict__ gs, TW* __restrict__ dx, int T, int D, int F, int E) {
+  __shared__ float As[kF32K][kF32Tile + 4];  // dy slice, transposed: [k][row]
+  __shared__ float Bs[kF32K][kF32Tile + 4];  // w[e] slice: [k = f][n = d]
+  const int3 tile = block_tile<kF32Tile>(gs, E, T, blockIdx.x);
+  const int e = tile.x, row0 = tile.y, rows = tile.z;
+  if (rows <= 0) return;
+  const int tid = threadIdx.x, n0 = blockIdx.y * kF32Tile;
+  const int ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  if (e < E) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const TY* yb = (b == 0 ? dy0 : dy1) + (int64_t)row0 * F;
+      const TW* wb = (b == 0 ? w0 : w1) + (int64_t)e * D * F;
+      for (int k0 = 0; k0 < F; k0 += kF32K) {
+#pragma unroll
+        for (int i = 0; i < kF32Tile * kF32K / kF32Threads; ++i) {
+          const int idx = tid + i * kF32Threads;
+          const int m = idx / kF32K, k = idx % kF32K;  // 16 neighbouring f a row
+          As[k][m] = m < rows && k0 + k < F ? ldf(yb + (int64_t)m * F + k0 + k) : 0.f;
+          Bs[k][m] = n0 + m < D && k0 + k < F ? ldf(wb + (int64_t)(n0 + m) * F + k0 + k) : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < kF32K; ++k) {
+          float av[4], bv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) av[i] = As[k][ty * 4 + i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int lr = ty * 4 + i;
+    if (lr >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < D) stf(dx + (int64_t)(row0 + lr) * D + col, acc[i][j]);
+    }
+  }
+}
+
+// dw_b[e] [D, F] = x_e^T dy_b,e for b < NB over expert e's rows, walked in
+// order; one block an (expert, D tile, F tile); an empty group writes zeros.
+template <int NB, typename TY, typename TW>
+__global__ void __launch_bounds__(kF32Threads)
+gmm_bwd_dw_kernel(const TW* __restrict__ x, const TY* __restrict__ dy0,
+                  const TY* __restrict__ dy1, const int* __restrict__ gs,
+                  TW* __restrict__ dw0, TW* __restrict__ dw1, int T, int D, int F, int E) {
+  __shared__ float As[kF32K][kF32Tile + 4];      // x rows: [k = row][m = d]
+  __shared__ float Bs[NB][kF32K][kF32Tile + 4];  // dy rows: [k = row][n = f]
+  const int e = blockIdx.y;
+  const int2 span = group_span(gs, E, T, e);
+  const int nft = (F + kF32Tile - 1) / kF32Tile;
+  const int m0 = blockIdx.x / nft * kF32Tile, n0 = blockIdx.x % nft * kF32Tile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[NB][4][4] = {};
+  const TW* xb = x + (int64_t)span.x * D;
+  for (int r0 = 0; r0 < span.y; r0 += kF32K) {
+#pragma unroll
+    for (int i = 0; i < kF32Tile * kF32K / kF32Threads; ++i) {
+      const int idx = tid + i * kF32Threads;
+      const int k = idx / kF32Tile, c = idx % kF32Tile;  // 64 neighbouring columns a row
+      const bool in = r0 + k < span.y;
+      As[k][c] = in && m0 + c < D ? ldf(xb + (int64_t)(r0 + k) * D + m0 + c) : 0.f;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const TY* yb = (b == 0 ? dy0 : dy1) + (int64_t)span.x * F;
+        Bs[b][k][c] = in && n0 + c < F ? ldf(yb + (int64_t)(r0 + k) * F + n0 + c) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kF32K; ++k) {
+      float av[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[k][ty * 4 + i];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        float bv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[b][k][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[b][i][j] = fmaf(av[i], bv[j], acc[b][i][j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    TW* out = (b == 0 ? dw0 : dw1) + (int64_t)e * D * F;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = m0 + ty * 4 + i;
+      if (r >= D) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx * 4 + j;
+        if (col < F) stf(out + (int64_t)r * F + col, acc[b][i][j]);
+      }
+    }
+  }
+}
+
+// dx then dw for NB (dy, w) pairs whose dy are TY and w, x, dx, dw are TW
+template <int NB, typename TY, typename TW>
+cudaError_t launch_bwd_products(const TY* dy0, const TY* dy1, const TW* x, const TW* w0,
+                                const TW* w1, const int* gs, TW* dx, TW* dw0, TW* dw1, int T,
+                                int D, int F, int E, cudaStream_t s) {
+  const int64_t slots = row_slots(T, kF32Tile, E);
+  if (slots > 0 && D > 0) {
+    const dim3 grid((unsigned)slots, (D + kF32Tile - 1) / kF32Tile);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    gmm_bwd_dx_kernel<NB, TY, TW><<<grid, kF32Threads, 0, s>>>(dy0, dy1, w0, w1, gs, dx, T, D,
+                                                              F, E);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (D > 0 && F > 0) {
+    const int64_t tiles = (int64_t)((D + kF32Tile - 1) / kF32Tile) * ((F + kF32Tile - 1) / kF32Tile);
+    if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+    gmm_bwd_dw_kernel<NB, TY, TW><<<dim3((unsigned)tiles, E), kF32Threads, 0, s>>>(
+        x, dy0, dy1, gs, dw0, dw1, T, D, F, E);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+template <typename TW>
+cudaError_t launch_bwd(const void* dy, const void* x, const void* w, const int* gs, void* dx,
+                       void* dw, int T, int D, int F, int E, cudaStream_t s) {
+  const TW* y = static_cast<const TW*>(dy);
+  return launch_bwd_products<1, TW, TW>(y, y, static_cast<const TW*>(x),
+                                        static_cast<const TW*>(w), static_cast<const TW*>(w), gs,
+                                        static_cast<TW*>(dx), static_cast<TW*>(dw),
+                                        static_cast<TW*>(dw), T, D, F, E, s);
+}
+
+template <int ACT, typename TW>
+cudaError_t launch_gated_bwd(const void* dh, const void* x, const void* wi, const void* wg,
+                             const int* gs, float* scratch, void* dx, void* dwi, void* dwg,
+                             int T, int D, int F, int E, cudaStream_t s) {
+  float* da = scratch;
+  float* dg = scratch + (int64_t)T * F;
+  const int64_t slots = row_slots(T, kF32Tile, E);
+  if (slots > 0 && F > 0) {
+    const dim3 grid((unsigned)slots, (F + kF32Tile - 1) / kF32Tile);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    gmm_bwd_gate_kernel<ACT, TW><<<grid, kF32Threads, 0, s>>>(
+        static_cast<const TW*>(x), static_cast<const TW*>(wi), static_cast<const TW*>(wg),
+        static_cast<const TW*>(dh), gs, da, dg, T, D, F, E);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_bwd_products<2, float, TW>(
+      da, dg, static_cast<const TW*>(x), static_cast<const TW*>(wi), static_cast<const TW*>(wg),
+      gs, static_cast<TW*>(dx), static_cast<TW*>(dwi), static_cast<TW*>(dwg), T, D, F, E, s);
+}
+
 int check_dims(int T, int D, int F, int E) {
   if (T < 0 || D < 0 || F < 0 || E < 1 || E > kMaxExperts) return (int)cudaErrorInvalidValue;
   return 0;
@@ -693,5 +1004,44 @@ extern "C" int repro_moe_gmm_gated(const void* x, const void* wi, const void* wg
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (act == kSilu) return (int)launch<kSilu>(x, wi, wg, gs, out, T, D, F, E, dtype, route, s);
   if (act == kGelu) return (int)launch<kGelu>(x, wi, wg, gs, out, T, D, F, E, dtype, route, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of repro_moe_gmm: dy [T, F], x [T, D], w [E, D, F], contiguous,
+// of one dtype (0 float32, 1 bfloat16); group_sizes [E] int32 on the device.
+// Writes dx [T, D] (zeros past the groups) and dw [E, D, F] (zeros for an
+// empty group) in that dtype, accumulated in f32. Returns the first failing
+// launch's cudaError_t (0 on success); the kernels run asynchronously on
+// `stream`.
+extern "C" int repro_moe_gmm_bwd(const void* dy, const void* x, const void* w,
+                                 const void* group_sizes, void* dx, void* dw, int T, int D,
+                                 int F, int E, int dtype, void* stream) {
+  if (int err = check_dims(T, D, F, E)) return err;
+  const int* gs = static_cast<const int*>(group_sizes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_bwd<float>(dy, x, w, gs, dx, dw, T, D, F, E, s);
+  if (dtype == 1) return (int)launch_bwd<__nv_bfloat16>(dy, x, w, gs, dx, dw, T, D, F, E, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of repro_moe_gmm_gated: dh [T, F], x [T, D], wi, wg [E, D, F],
+// contiguous, of one dtype; act 1 silu, 2 tanh gelu; scratch: f32 [2, T, F]
+// (receives the pre-activations' gradients). Writes dx [T, D], dwi and dwg
+// [E, D, F] in that dtype. Otherwise as repro_moe_gmm_bwd.
+extern "C" int repro_moe_gmm_gated_bwd(const void* dh, const void* x, const void* wi,
+                                       const void* wg, const void* group_sizes, void* scratch,
+                                       void* dx, void* dwi, void* dwg, int T, int D, int F,
+                                       int E, int dtype, int act, void* stream) {
+  if (int err = check_dims(T, D, F, E)) return err;
+  const int* gs = static_cast<const int*>(group_sizes);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define GATED_BWD(ACT, TW) \
+  (int)launch_gated_bwd<ACT, TW>(dh, x, wi, wg, gs, sc, dx, dwi, dwg, T, D, F, E, s)
+  if (act == kSilu && dtype == 0) return GATED_BWD(kSilu, float);
+  if (act == kSilu && dtype == 1) return GATED_BWD(kSilu, __nv_bfloat16);
+  if (act == kGelu && dtype == 0) return GATED_BWD(kGelu, float);
+  if (act == kGelu && dtype == 1) return GATED_BWD(kGelu, __nv_bfloat16);
+#undef GATED_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -21,8 +21,9 @@
 // grid, ...; each thread owns the same VPT 16-byte units of every row (8 bf16
 // or 4 f32 each; single elements where d is not a multiple of a unit), chosen
 // so that about 16 elements a thread cover the row (d = 3584: 224 threads x 2
-// bf16 units or x 4 f32 units, no thread idle; rows past 8192 elements take
-// more units a thread, and those variants spill registers). A thread keeps (1 + scale) and
+// bf16 units or x 4 f32 units, no thread idle; rows past 8192 f32 or 16384
+// bf16 elements would take 8 units a thread, which spills registers, and take
+// the wide path below instead). A thread keeps (1 + scale) and
 // its dscale partials for its columns in registers for the whole run, and a
 // row's x and dy in registers from the load to the dx store, so device memory
 // sees one read of each; the next row's x and dy load while this row is
@@ -31,6 +32,15 @@
 // partials as one row of an f32 [grid, d] buffer, and rmsnorm_dscale_kernel
 // sums that buffer down its columns (8 warps a 32-column strip, then the 8
 // partial sums) in a fixed order: no atomics, dscale the same bits every run.
+// Rows too wide for that (past 8192 f32 or 16384 bf16 elements in 16-byte units,
+// 4096 single elements: nemotron-4-340b's d = 18432 in f32 would need 576
+// threads of 8 units, in bf16 288 threads of 8 units that spill) take
+// rmsnorm_bwd_wide_kernel: 512 threads walk a row's units twice,
+// once for the two row sums and once for dx (the second read of x and dy,
+// 147 KB at d = 18432 in f32, comes mostly from L2), and the block's dscale
+// partials stay in shared memory (d floats, up to 49152), each column owned by
+// one thread, so every sum still runs in a fixed order and dscale keeps the
+// same bits every run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,6 +50,8 @@ namespace {
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 constexpr int kBwdMaxThreads = 512;  // threads of a backward block at most
+constexpr int kWideThreads = 512;    // threads of a wide-row backward block
+constexpr int kWideMaxD = 49152;     // widest row of the wide path (192 KB of partials)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -246,6 +258,93 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale, const T
   }
 }
 
+// The backward's row pass for wide rows (see the header): each thread takes
+// units u = threadIdx.x + j * blockDim.x of every row, twice a row; the
+// block's dscale partials live in shared memory, column u * PER + e owned by
+// the thread of unit u; at the end they become the block's row of partials.
+template <typename T, typename S, bool kVec>
+__global__ void __launch_bounds__(kWideThreads)
+rmsnorm_bwd_wide_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ partial, long long rows, int d, float eps) {
+  constexpr int PER = kVec ? 16 / sizeof(T) : 1;  // elements a unit
+  extern __shared__ float ds_s[];                  // [d]: this block's dscale partials
+  __shared__ float2 red[2][32];                    // the row sums, alternate rows
+  const int units = kVec ? d / PER : d;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int u = threadIdx.x; u < units; u += nt)
+#pragma unroll
+    for (int e = 0; e < PER; ++e) ds_s[u * PER + e] = 0.f;
+  // unit u of a row, as PER elements of x and of dy
+  auto load = [&](const T* xr, const T* gr, int u, uint4& xv, uint4& gv) {
+    if (kVec) {
+      xv = reinterpret_cast<const uint4*>(xr)[u];
+      gv = reinterpret_cast<const uint4*>(gr)[u];
+    } else {
+      *reinterpret_cast<T*>(&xv) = xr[u];
+      *reinterpret_cast<T*>(&gv) = gr[u];
+    }
+  };
+  int it = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x, ++it) {
+    const T* xr = x + row * d;
+    const T* gr = dy + row * d;
+    float ss = 0.f, gx = 0.f;
+    for (int u = threadIdx.x; u < units; u += nt) {
+      uint4 xv, gv;
+      load(xr, gr, u, xv, gv);
+      const T* xe = reinterpret_cast<const T*>(&xv);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const float xf = to_f32(xe[e]);
+        ss = fmaf(xf, xf, ss);
+        gx = fmaf(to_f32(ge[e]) * (1.f + to_f32(scale[u * PER + e])), xf, gx);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      gx += __shfl_xor_sync(0xffffffffu, gx, o);
+    }
+    // stage `it & 1` was last read two rows ago, before the previous barrier
+    float2* stage = red[it & 1];
+    if (lane == 0) stage[warp] = make_float2(ss, gx);
+    __syncthreads();
+    float2 sums = make_float2(0.f, 0.f);
+    for (int i = 0; i < nw; ++i) {  // the same order in every thread
+      sums.x += stage[i].x;
+      sums.y += stage[i].y;
+    }
+    const float inv = rsqrtf(sums.x / (float)d + eps);
+    const float c = sums.y / (float)d * inv * inv * inv;
+    T* dxr = dx + row * d;
+    for (int u = threadIdx.x; u < units; u += nt) {
+      uint4 xv, gv, oraw;
+      load(xr, gr, u, xv, gv);
+      const T* xe = reinterpret_cast<const T*>(&xv);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+      T* oe = reinterpret_cast<T*>(&oraw);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) {
+        const float xf = to_f32(xe[e]), gf = to_f32(ge[e]);
+        const float w = 1.f + to_f32(scale[u * PER + e]);
+        oe[e] = from_f32<T>(inv * gf * w - xf * c);
+        ds_s[u * PER + e] = fmaf(gf, xf * inv, ds_s[u * PER + e]);
+      }
+      if (kVec)
+        reinterpret_cast<uint4*>(dxr)[u] = oraw;
+      else
+        dxr[u] = oe[0];
+    }
+  }
+  float* part = partial + (long long)blockIdx.x * d;
+  for (int u = threadIdx.x; u < units; u += nt)
+#pragma unroll
+    for (int e = 0; e < PER; ++e) part[u * PER + e] = ds_s[u * PER + e];
+}
+
 // dscale[col] = sum over the nblk rows of partial, in a fixed order: warp ty
 // of a 32-column strip sums rows ty, ty + 8, ..., then warp 0 the 8 sums
 template <typename S>
@@ -295,6 +394,35 @@ cudaError_t launch_bwd_vpt(const void* x, const void* scale, const void* dy, voi
   return cudaGetLastError();
 }
 
+template <typename T, typename S, bool kVec>
+cudaError_t launch_bwd_wide(const void* x, const void* scale, const void* dy, void* dx,
+                            void* dscale, float* partial, long long rows, int d, float eps,
+                            int max_blocks, cudaStream_t stream) {
+  const auto kernel = rmsnorm_bwd_wide_kernel<T, S, kVec>;
+  const size_t smem = (size_t)d * sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads, smem);
+  if (err != cudaSuccess) return err;
+  // every block resident at once: the grid is one wave
+  const long long resident = (long long)(per_sm > 1 ? per_sm : 1) * sms;
+  const long long cap = max_blocks < resident ? max_blocks : resident;
+  const long long nblk = rows < cap ? rows : cap;
+  kernel<<<(unsigned)nblk, kWideThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const S*>(scale), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, rows, d, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<S><<<(unsigned)((d + 31) / 32), 256, 0, stream>>>(
+      partial, static_cast<S*>(dscale), (int)nblk, d);
+  return cudaGetLastError();
+}
+
 // The units a thread takes: about 16 elements (2 bf16 or 4 f32 units, 8
 // single elements), fewer for short rows so that at least 64 threads share
 // a row, more where the row would need more than kBwdMaxThreads; 0 if even 8
@@ -314,7 +442,15 @@ cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* d
   const bool vec = d % V == 0 && (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx) % 16) == 0;
   const int units = vec ? d / V : d;
   const int vpt = bwd_units_per_thread(units, vec ? V : 1);
-  if (vpt == 0) return cudaErrorInvalidValue;
+  // too wide for the registers (no variant fits, or the 8-vector one,
+  // which spills): the wide path
+  if (vpt == 0 || (vec && vpt == 8)) {
+    if (d > kWideMaxD) return cudaErrorInvalidValue;
+    return vec ? launch_bwd_wide<T, S, true>(x, scale, dy, dx, dscale, partial, rows, d, eps,
+                                             max_blocks, stream)
+               : launch_bwd_wide<T, S, false>(x, scale, dy, dx, dscale, partial, rows, d, eps,
+                                              max_blocks, stream);
+  }
   const int threads = ((units + vpt - 1) / vpt + 31) / 32 * 32;
 #define RMSNORM_BWD_CASE(VEC, N)                                                              \
   case N:                                                                                     \
@@ -323,7 +459,6 @@ cudaError_t launch_bwd(const void* x, const void* scale, const void* dy, void* d
   if (vec) {
     switch (vpt) {
       RMSNORM_BWD_CASE(true, 1) RMSNORM_BWD_CASE(true, 2) RMSNORM_BWD_CASE(true, 4)
-      RMSNORM_BWD_CASE(true, 8)
     }
   } else {
     switch (vpt) {
@@ -359,9 +494,10 @@ extern "C" int repro_rmsnorm(const void* x, const void* scale, void* out, long l
 // The backward: x, dy, dx: [rows, d] contiguous of x's dtype; scale, dscale: [d]
 // of scale's dtype; partial: f32 [max_blocks, d] scratch (the row pass runs at
 // most max_blocks blocks, one row of partials each). dtype codes as the
-// forward. Rows of up to 32768 bf16 or 16384 f32 elements in 16-byte units
+// forward. Rows of up to 16384 bf16 or 8192 f32 elements in 16-byte units
 // (d a multiple of a unit, pointers on 16 bytes), else up to 4096 single
-// elements; wider ones return cudaErrorInvalidValue. Returns the first
+// elements, keep a row in registers; wider ones, up to 49152 elements, take
+// the wide path; wider still return cudaErrorInvalidValue. Returns the first
 // failing launch's cudaError_t (0 on success); the two kernels run
 // asynchronously on `stream`.
 extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale, const void* dy, void* dx,

@@ -52,7 +52,9 @@ from repro_torch.kernels import build
 LAUNCHES = build.LaunchCounter()
 BWD_LAUNCHES = build.LaunchCounter()
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+# the head dims both routes are built for (zamba2-2.7b's 80 is staged as
+# 128 columns on the tensor cores; nemotron-4-340b's 192 takes 64-key tiles)
+HEAD_DIMS = (32, 64, 80, 128, 192, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

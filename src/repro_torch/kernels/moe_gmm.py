@@ -25,10 +25,29 @@ Registered as the custom ops ``repro_torch::moe_gmm`` and
 flop formulas ``2·T·D·F`` and ``4·T·D·F``: T is the static row count, so
 the probe charges the worst case, every row computed. ``LAUNCHES`` counts
 every launch of either op's kernel; ``GATED_LAUNCHES`` the gated op's alone.
+
+Both ops are differentiable (``torch.library.register_autograd``; the group
+sizes take no gradient). ``moe_gmm`` saves x and w, and its backward is the
+op ``repro_torch::moe_gmm_bwd``, ``(dx, dw)``: ``dx = dy w[e]^T`` per row
+(zeros past the groups) and ``dw[e] = x_e^T dy_e`` (zeros for an empty
+group). ``moe_gmm_gated`` saves x, wi and wg, and its backward,
+``repro_torch::moe_gmm_gated_bwd``, ``(dx, dwi, dwg, dpre)``, recomputes the
+two pre-activations instead of saving them (``csrc/moe_gmm.cu`` says why);
+``dpre`` (f32 ``[2, T, F]``) holds their gradients, which the backward's
+products read: it is an output so that a probe's trace charges it (0.94e9
+B at mixtral-8x7b's training shape), and the autograd formula drops it. On a
+CUDA tensor each launches the backward kernels of ``csrc/moe_gmm.cu`` (the
+CUDA cores, f32 accumulation, deterministic: no atomics, no transposed copy
+of w), on a CPU tensor ``moe_gmm_bwd_plain`` / ``moe_gmm_gated_bwd_plain``,
+the chain rule of the plain forwards in f32. Flop formulas ``4·T·D·F`` and
+``12·T·D·F``. ``BWD_LAUNCHES`` counts every backward op's launch (its
+kernels run in one call), ``GATED_BWD_LAUNCHES`` the gated op's alone.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +57,8 @@ from repro_torch.kernels import build
 
 LAUNCHES = build.LaunchCounter()
 GATED_LAUNCHES = build.LaunchCounter()
+BWD_LAUNCHES = build.LaunchCounter()
+GATED_BWD_LAUNCHES = build.LaunchCounter()
 MAX_EXPERTS = 256
 ACTS = {"silu_gated": 1, "gelu_gated": 2}
 ROUTES = {"small": 0, "wgmma": 1, "f32": 0}
@@ -45,8 +66,14 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _GATED_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_GATED_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _P]
 # every C entry point of csrc/moe_gmm.cu with its ctypes signature
-ENTRY_POINTS = {"repro_moe_gmm": _ARGTYPES, "repro_moe_gmm_gated": _GATED_ARGTYPES}
+ENTRY_POINTS = {"repro_moe_gmm": _ARGTYPES,
+                "repro_moe_gmm_gated": _GATED_ARGTYPES,
+                "repro_moe_gmm_bwd": _BWD_ARGTYPES,
+                "repro_moe_gmm_gated_bwd": _GATED_BWD_ARGTYPES}
 
 
 def gmm_route(dtype: torch.dtype, t: int, d: int, f: int, e: int,
@@ -62,6 +89,18 @@ def gmm_route(dtype: torch.dtype, t: int, d: int, f: int, e: int,
     return "wgmma"
 
 
+def _expert_of(t: int, group_sizes: torch.Tensor, device) -> torch.Tensor:
+    """[T, 1]: each row's expert, E for rows past the groups."""
+    bounds = torch.cumsum(group_sizes.clamp(min=0), 0)
+    rows = torch.arange(t, device=device, dtype=bounds.dtype)
+    return torch.searchsorted(bounds, rows, right=True)[:, None]
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """Arithmetic type of the plain backward: f32, or f64 for f64 inputs."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor,
                   group_sizes: torch.Tensor) -> torch.Tensor:
     """x [T, D], w [E, D, F], group_sizes [E] -> [T, F] in x's dtype. One
@@ -71,9 +110,7 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor,
     inside a CUDA graph (the reference's ``w[expert_of]`` gather would make
     a [T, D, F] copy of the weights)."""
     t, f = x.shape[0], w.shape[2]
-    bounds = torch.cumsum(group_sizes.clamp(min=0), 0)
-    rows = torch.arange(t, device=x.device, dtype=bounds.dtype)
-    expert_of = torch.searchsorted(bounds, rows, right=True)[:, None]
+    expert_of = _expert_of(t, group_sizes, x.device)
     out = torch.zeros((t, f), dtype=x.dtype, device=x.device)
     for e in range(w.shape[0]):
         out = torch.where(expert_of == e, x @ w[e], out)
@@ -90,11 +127,61 @@ def gated_act(h: torch.Tensor, act: str) -> torch.Tensor:
 def moe_gmm_gated_plain(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                         group_sizes: torch.Tensor, act: str) -> torch.Tensor:
     """``act(moe_gmm_plain(x, wi)) * moe_gmm_plain(x, wg)``, both products,
-    the activation and the product in f32, cast to x's dtype once."""
-    xf = x.float()
-    h = gated_act(moe_gmm_plain(xf, wi.float(), group_sizes), act) \
-        * moe_gmm_plain(xf, wg.float(), group_sizes)
+    the activation and the product in f32 (f64 for f64 inputs), cast to x's
+    dtype once."""
+    acc = _acc(x.dtype)
+    xf = x.to(acc)
+    h = gated_act(moe_gmm_plain(xf, wi.to(acc), group_sizes), act) \
+        * moe_gmm_plain(xf, wg.to(acc), group_sizes)
     return h.to(x.dtype)
+
+
+def moe_gmm_bwd_plain(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      group_sizes: torch.Tensor):
+    """(dx [T, D] in x's dtype, dw [E, D, F] in w's) of ``moe_gmm_plain``
+    for the output gradient dy [T, F]: its chain rule in f32 (f64 for f64
+    inputs), rounded once. Expert e's rows: dx = dy w[e]^T, dw[e] = x_e^T
+    dy_e; rows past the groups give dx = 0, an empty group dw[e] = 0."""
+    acc = _acc(x.dtype)
+    expert_of = _expert_of(x.shape[0], group_sizes, x.device)
+    xf, yf = x.to(acc), dy.to(acc)
+    dx = torch.zeros(x.shape, dtype=acc, device=x.device)
+    dw = torch.empty(w.shape, dtype=acc, device=x.device)
+    for e in range(w.shape[0]):
+        ye = torch.where(expert_of == e, yf, yf.new_zeros(()))
+        dx = dx + ye @ w[e].to(acc).T
+        dw[e] = xf.T @ ye
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _gated_act_grad(a: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(a) / da for ``gated_act``."""
+    if act == "silu_gated":
+        sg = torch.sigmoid(a)
+        return sg * (1 + a * (1 - sg))
+    k0, k1 = math.sqrt(2 / math.pi), 0.044715
+    th = torch.tanh(k0 * (a + k1 * a ** 3))
+    return 0.5 * (1 + th) + 0.5 * a * (1 - th * th) * k0 * (1 + 3 * k1 * a * a)
+
+
+def moe_gmm_gated_bwd_plain(dh: torch.Tensor, x: torch.Tensor,
+                            wi: torch.Tensor, wg: torch.Tensor,
+                            group_sizes: torch.Tensor, act: str):
+    """(dx, dwi, dwg, dpre) of ``moe_gmm_gated_plain`` for the output
+    gradient dh [T, F]: the pre-activations a = x wi[e], g = x wg[e]
+    recomputed, da = dh g act'(a), dg = dh act(a) (zeros past the groups;
+    ``dpre`` is [da, dg]), then the plain backward of each product, summed
+    into dx; in f32 (f64 for f64 inputs), rounded once."""
+    acc = _acc(x.dtype)
+    xf, hf = x.to(acc), dh.to(acc)
+    a = moe_gmm_plain(xf, wi.to(acc), group_sizes)
+    g = moe_gmm_plain(xf, wg.to(acc), group_sizes)
+    da = hf * g * _gated_act_grad(a, act)
+    dg = hf * gated_act(a, act)
+    dx_i, dwi = moe_gmm_bwd_plain(da, xf, wi.to(acc), group_sizes)
+    dx_g, dwg = moe_gmm_bwd_plain(dg, xf, wg.to(acc), group_sizes)
+    return ((dx_i + dx_g).to(x.dtype), dwi.to(wi.dtype), dwg.to(wg.dtype),
+            torch.stack([da, dg]))
 
 
 def _check(x: torch.Tensor, ws, group_sizes: torch.Tensor) -> None:
@@ -158,6 +245,50 @@ def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
     return out
 
 
+def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                group_sizes: torch.Tensor, wg=None, act=None):
+    """One call of the backward kernels: (dx, dw) of the plain product, or
+    with ``wg`` and ``act`` (dx, dwi, dwg, dpre) of the gated one, ``dy``
+    being the output's gradient."""
+    ws = (w,) if wg is None else (w, wg)
+    _check(x, ws, group_sizes)
+    t, d = x.shape
+    e, _, f = w.shape
+    extra = ()
+    if dy.shape != (t, f) or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"moe_gmm backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}, want ({t}, {f}) "
+                         f"{x.dtype} on {x.device}")
+    dy = dy.contiguous()
+    dx = torch.empty((t, d), dtype=x.dtype, device=x.device)
+    dws = [torch.empty(w.shape, dtype=x.dtype, device=x.device) for _ in ws]
+    sizes = group_sizes.to(torch.int32).contiguous()  # stays on the card
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        dims = (t, d, f, e, _DTYPES[x.dtype])
+        if wg is None:
+            fn = build.load("moe_gmm", "repro_moe_gmm_bwd", _BWD_ARGTYPES)
+            rc = fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(),
+                    sizes.data_ptr(), dx.data_ptr(), dws[0].data_ptr(),
+                    *dims, stream)
+        else:
+            # the pre-activations' gradients, f32 [2, T, F]
+            dpre = torch.empty((2, t, f), dtype=torch.float32,
+                               device=x.device)
+            extra = (dpre,)
+            fn = build.load("moe_gmm", "repro_moe_gmm_gated_bwd",
+                            _GATED_BWD_ARGTYPES)
+            rc = fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(),
+                    wg.data_ptr(), sizes.data_ptr(), dpre.data_ptr(),
+                    dx.data_ptr(), dws[0].data_ptr(), dws[1].data_ptr(),
+                    *dims, ACTS[act], stream)
+    build.check(rc, "moe_gmm backward")
+    BWD_LAUNCHES.add()
+    if wg is not None:
+        GATED_BWD_LAUNCHES.add()
+    return (dx, *dws, *extra)
+
+
 def _device_check(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {x.device}")
@@ -202,6 +333,77 @@ def _(x, wi, wg, group_sizes, act):
 @register_flop_formula(torch.ops.repro_torch.moe_gmm_gated, get_raw=True)
 def _gated_flops(x, wi, wg, group_sizes, *args, **kwargs):
     return 4 * x.shape[0] * x.shape[1] * wi.shape[2]
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_bwd", mutates_args=())
+def _gmm_bwd_op(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                group_sizes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return moe_gmm_bwd_plain(dy, x, w, group_sizes)
+    _device_check(x, "moe_gmm_bwd")
+    return _launch_bwd(dy, x, w, group_sizes)
+
+
+@_gmm_bwd_op.register_fake
+def _(dy, x, w, group_sizes):
+    return torch.empty_like(x), torch.empty_like(w)
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm_bwd, get_raw=True)
+def _gmm_bwd_flops(dy, x, w, group_sizes, *args, **kwargs):
+    return 4 * x.shape[0] * x.shape[1] * w.shape[2]
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_gated_bwd", mutates_args=())
+def _gated_bwd_op(dh: torch.Tensor, x: torch.Tensor, wi: torch.Tensor,
+                  wg: torch.Tensor, group_sizes: torch.Tensor, act: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    if act not in ACTS:
+        raise ValueError(f"moe_gmm_gated_bwd: unknown act {act!r}")
+    if x.device.type == "cpu":
+        return moe_gmm_gated_bwd_plain(dh, x, wi, wg, group_sizes, act)
+    _device_check(x, "moe_gmm_gated_bwd")
+    return _launch_bwd(dh, x, wi, group_sizes, wg=wg, act=act)
+
+
+@_gated_bwd_op.register_fake
+def _(dh, x, wi, wg, group_sizes, act):
+    return (torch.empty_like(x), torch.empty_like(wi), torch.empty_like(wg),
+            x.new_empty((2, x.shape[0], wi.shape[2]), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.moe_gmm_gated_bwd, get_raw=True)
+def _gated_bwd_flops(dh, x, wi, wg, group_sizes, *args, **kwargs):
+    return 12 * x.shape[0] * x.shape[1] * wi.shape[2]
+
+
+def _gmm_setup(ctx, inputs, output):
+    x, w, group_sizes = inputs
+    ctx.save_for_backward(x, w, group_sizes)
+
+
+def _gmm_backward(ctx, dy):
+    x, w, group_sizes = ctx.saved_tensors
+    dx, dw = torch.ops.repro_torch.moe_gmm_bwd(dy, x, w, group_sizes)
+    return dx, dw, None
+
+
+def _gated_setup(ctx, inputs, output):
+    x, wi, wg, group_sizes, act = inputs
+    ctx.save_for_backward(x, wi, wg, group_sizes)
+    ctx.act = act
+
+
+def _gated_backward(ctx, dh):
+    x, wi, wg, group_sizes = ctx.saved_tensors
+    dx, dwi, dwg, _ = torch.ops.repro_torch.moe_gmm_gated_bwd(
+        dh, x, wi, wg, group_sizes, ctx.act)
+    return dx, dwi, dwg, None, None
+
+
+_gmm_op.register_autograd(_gmm_backward, setup_context=_gmm_setup)
+_gated_op.register_autograd(_gated_backward, setup_context=_gated_setup)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,

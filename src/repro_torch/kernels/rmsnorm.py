@@ -14,8 +14,10 @@ saves x and scale, and its backward is the op ``repro_torch::rmsnorm_bwd``,
 ``(dx, dscale)``, which launches the backward kernels of ``csrc/rmsnorm.cu``
 on a CUDA tensor (a persistent row pass for dx, each thread holding its
 columns' scale and dscale partials in registers, one row of partials a
-block; then a reduction pass down the columns: no atomics, the same dscale
-every run) and runs ``rmsnorm_bwd_plain`` on a CPU tensor.
+block, or for rows too wide for the registers, such as nemotron-4-340b's
+18432 in f32, partials in shared memory; then a reduction pass down the
+columns: no atomics, the same dscale every run) and runs
+``rmsnorm_bwd_plain`` on a CPU tensor.
 ``BWD_LAUNCHES`` counts the backward's launches.
 """
 from __future__ import annotations

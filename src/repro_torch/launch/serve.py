@@ -4,7 +4,8 @@
 Port of ``src/repro/launch/serve.py`` (no preemption or tracing yet).
 Every request batch is ONE task whose resource vector comes from probing
 what the task allocates (``static_task``: the prefill and its first
-tokens; ``repro_torch.core.probe``); each batch is submitted through
+tokens, or on the card ``replayed_task``; ``repro_torch.core.probe``);
+each batch is submitted through
 ``Cluster`` with a per-request deadline (EDF within its priority class);
 blocked batches park in the MGB scheduler's admission queue and completions
 wake the next one. Rows of the last batch beyond ``requests`` are shape
@@ -36,11 +37,19 @@ Differences from the reference:
     the worker's stream and replayed for every later step of every
     batch), where the reference runs a jitted ``lax.scan`` over the
     prefill's cache. A batch's prefill cache is copied into them;
+  * on the card each pool worker also captures its prefill once per
+    prompt shape (``serve.decode.PrefillGraph``) and replays it for every
+    batch, where the reference runs a jitted prefill: its launches leave
+    the interpreter, whose lock otherwise serialises the pool's eager
+    prefills. The graph's pool holds the prefill's peak for the worker's
+    life, so what a batch allocates (``replayed_task``) shrinks by that
+    much and what the worker keeps (``kept_by_worker``) grows by it. On the
+    CPU the prefill runs eagerly;
   * on a card the scheduler manages the memory free when serving starts,
     less what each pool worker keeps between tasks (``pool_reserve``: its
-    stream's cuBLAS workspace and, when serving statically, its decoder,
-    probed by ``decode_state``), where the reference sizes it by the
-    device.
+    stream's cuBLAS workspace and, when serving statically, its decoder
+    and captured prefill, probed by ``kept_by_worker``), where the
+    reference sizes it by the device.
 
 Preemption and tracing come in later slices.
 
@@ -74,13 +83,16 @@ import torch
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.cluster import Cluster, JobStatus
 from repro_torch.core.executor import ExecJob
-from repro_torch.core.probe import CUDA_UNSEEN_BYTES, probe_fn
+from repro_torch.core.probe import (
+    CUDA_UNSEEN_BYTES, TensorSpec, probe_fn, trace_counts,
+)
 from repro_torch.core.scheduler import MGBAlg3Scheduler
 from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
 from repro_torch.models.model import FAMILIES, init_params
 from repro_torch.serve.decode import (
-    GreedyDecoder, decode_buffers, make_prefill_step,
+    GreedyDecoder, PrefillGraph, capture_stream, decode_buffers,
+    make_prefill_step,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -119,8 +131,9 @@ def pool_reserve(devices, workers: int,
     worker keeps ``kept`` bytes for as long as the pool lives. Its stream
     keeps the cuBLAS workspace that its first task made (the probe's
     ``CUDA_UNSEEN_BYTES`` covers it while that task runs), the default;
-    a static server's worker also keeps its decoder (``decode_state``,
-    whose probe includes the workspace)."""
+    a static server's worker also keeps its decoder and, on the card, its
+    captured prefill's pool (``kept_by_worker``, whose probe includes the
+    workspace once)."""
     return workers * kept if devices[0].type == "cuda" else 0
 
 
@@ -138,6 +151,14 @@ def static_task(params, batch: dict, cfg):
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
+def replayed_task(params, batch: dict, logits: torch.Tensor):
+    """What one static serving task allocates when its worker replays a
+    captured prefill (``PrefillGraph``), for its probe: its first tokens.
+    The prefill's temporaries and outputs (``logits`` among them) live in
+    the graph's pool, which the worker keeps (``kept_by_worker``)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def decode_state(params, first: torch.Tensor, cfg, max_seq: int):
     """What a static server's pool worker keeps between its tasks, for its
     probe: a ``GreedyDecoder``'s buffers for ``first.shape[0]`` rows and
@@ -149,6 +170,24 @@ def decode_state(params, first: torch.Tensor, cfg, max_seq: int):
     dec = GreedyDecoder(cfg, params, cache)
     dec.step()
     return dec.tokens
+
+
+def kept_by_worker(params, batch: dict, cfg, first: torch.Tensor,
+                   max_seq: int):
+    """The probe of what a static server's pool worker keeps on the card:
+    its decoder (``decode_state``: buffers, one step, the cuBLAS workspace
+    of the worker's stream) and beside it the captured prefill's pool,
+    which holds the prefill's live peak whatever the decoder holds, and
+    the graph's static copy of the batch: the prefill traced alone, its
+    weights uncharged and its unseen bytes (the same workspace) left
+    out."""
+    pool = trace_counts(static_task, params, batch, cfg, uncharged=(0,))
+    dec = probe_fn(decode_state, params, first, cfg, max_seq,
+                   uncharged=(0,))
+    return dataclasses.replace(
+        dec, hbm_bytes=dec.hbm_bytes + pool["arg_bytes"]
+        + pool["peak_live_bytes"], flops=dec.flops + pool["flops"],
+        bytes_accessed=dec.bytes_accessed + pool["bytes_accessed"])
 
 
 def serve(arch: str, *, requests: int = 16, batch: int = 4,
@@ -194,16 +233,23 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     # shapes, so they share the resource vector; and what a pool worker
     # keeps between them. Fake tensors only: nothing is allocated.
     first = devices[0]
-    vec = probe_fn(static_task, params[first],
-                   {k: v.to(first) for k, v in batches[0].items()}, cfg)
-    kept = probe_fn(decode_state, params[first],
-                    torch.zeros(batch, dtype=torch.int32, device=first),
-                    cfg, max_seq, uncharged=(0,))
+    batch0 = {k: v.to(first) for k, v in batches[0].items()}
+    tokens0 = torch.zeros(batch, dtype=torch.int32, device=first)
+    if first.type == "cuda":  # prefills replayed from graphs
+        vec = probe_fn(replayed_task, params[first], batch0,
+                       TensorSpec((batch, cfg.vocab), torch.float32, first),
+                       uncharged=(2,))
+        kept = kept_by_worker(params[first], batch0, cfg, tokens0, max_seq)
+    else:
+        vec = probe_fn(static_task, params[first], batch0, cfg)
+        kept = probe_fn(decode_state, params[first], tokens0, cfg, max_seq,
+                        uncharged=(0,))
     sched = MGBAlg3Scheduler(
         num_devices,
         hbm_per_device=hbm - pool_reserve(devices, workers, kept.hbm_bytes))
-    # (pool thread, device) -> the decoder that thread keeps for it
-    decoders = {}
+    # (pool thread, device) -> the decoder that thread keeps for it; on
+    # the card (pool thread, device, prompt shape) -> its captured prefill
+    decoders, prefills = {}, {}
 
     cluster = Cluster(sched, workers=workers, devices=devices,
                       shed_late=shed_late)
@@ -216,7 +262,15 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         def runner(dev, i=i):
             p = params[dev]
             b = {k: v.to(dev) for k, v in batches[i].items()}
-            logits, cache = prefill(p, b)
+            if dev.type == "cuda":
+                key = (threading.get_ident(), dev, tuple(b["tokens"].shape))
+                graph = prefills.get(key)
+                if graph is None:
+                    graph = prefills[key] = PrefillGraph(
+                        prefill, p, b, capture_stream(dev))
+                logits, cache = graph(b)
+            else:
+                logits, cache = prefill(p, b)
             if not bool(torch.isfinite(logits).all()):
                 raise FloatingPointError(f"req{i}: non-finite prefill logits")
             first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -247,7 +301,9 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     cluster.shutdown()
     wall = time.time() - t0
     graphs = sum(d.graph is not None for d in decoders.values())
+    prefill_graphs = len(prefills)
     decoders.clear()  # their buffers and graph pools go with them
+    prefills.clear()
     done = [i for i, h in enumerate(handles) if h.status is JobStatus.DONE]
     toks = sum(rows[i] for i in done) * gen_len
     lat = [r.t_end - r.t_start
@@ -277,6 +333,7 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             "sched_attempts": stats["sched_attempts"],
             "placements": sched.placements,
             "probe": vec, "kept_per_worker": kept, "decode_graphs": graphs,
+            "prefill_graphs": prefill_graphs,
             "hbm_per_device": sched.devices[0].total_hbm,
             "generated": generated}
 

@@ -25,11 +25,13 @@ their backward kernels (``repro_torch.kernels``), and under
 ``torch.utils.checkpoint`` whose backward recomputes the layer (the
 reference's ``_remat``, ``:309``), so only the layers' inputs are saved.
 The loss recomputes each 512-position chunk's f32 logits in the backward
-instead of saving them. Training runs the dense, vlm and audio families;
-the moe and ssm families' kernels have no backward yet and raise.
+instead of saving them. Training runs every family the port serves: the
+Mamba-1 layer's scan and the MoE layer's grouped matmuls have backward
+kernels too, and the loss adds the MoE aux loss (``aux_weight``, 0.01).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -44,7 +46,7 @@ from repro_torch.models import ssm as SSM
 Params = Dict[str, Any]
 FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
 # families whose every kernel has a backward
-TRAIN_FAMILIES = ("dense", "vlm", "audio")
+TRAIN_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
 XENT_CHUNK = 512
 ATTN_IMPLS = ("flash_kernel", "flash_plain", "naive")
 
@@ -60,11 +62,28 @@ def check_supported(cfg: ArchConfig) -> None:
 # Initialization
 # ---------------------------------------------------------------------------
 
+# f32 elements of one random draw for a weight kept in a narrower dtype: a
+# larger one is drawn in slices of its first dim, so the f32 draw beside it
+# stays 0.5e9 B (nemotron-4-340b's 256000 x 18432 embedding in one draw
+# would hold 18.9e9 B of f32 beside its 9.4e9 B of bf16)
+INIT_DRAW = 1 << 27
+
+
 def _init(gen: torch.Generator, shape, dtype, device, scale=None):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return w.mul_(scale).to(dtype)
+    row = math.prod(shape[1:])
+    if dtype == torch.float32 or len(shape) < 2 or shape[0] * row <= INIT_DRAW:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return w.mul_(scale).to(dtype)
+    w = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, INIT_DRAW // row)
+    for i in range(0, shape[0], rows):
+        part = torch.randn((min(rows, shape[0] - i),) + tuple(shape[1:]),
+                           generator=gen, dtype=torch.float32, device=device)
+        w[i:i + rows] = part.mul_(scale)
+    return w
 
 
 def _attn_params(gen, cfg: ArchConfig, dtype, device) -> Params:
@@ -277,6 +296,17 @@ def _attn_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, i: int,
     return x + m, aux_l
 
 
+def _ssm_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig,
+               return_state: bool):
+    """One Mamba-1 layer: x + mamba(norm(x)), and with ``return_state``
+    its decode state (prefill), else None."""
+    out = SSM.mamba1_apply(lp["mamba"], L.rms_norm(x, lp["norm"]), cfg.ssm,
+                           return_state=return_state)
+    if return_state:
+        return x + out[0], out[1]
+    return x + out, None
+
+
 def _remat(fn, policy: str):
     """The reference's ``_remat`` (``model.py:309``): ``"nothing"`` saves
     every activation; ``"full"`` checkpoints the layer (non-reentrant: the
@@ -340,6 +370,8 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     bsz, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache: Optional[Dict[str, torch.Tensor]] = None
+    # under autograd each layer is rematerialised per the config
+    grad = torch.is_grad_enabled() and x.requires_grad
     if cfg.family == "ssm":
         if collect_cache:
             conv, ssm = ssm_state_shapes(cfg, bsz)
@@ -347,23 +379,21 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                                          device=x.device),
                      "ssm": torch.empty(ssm, dtype=torch.float32,
                                         device=x.device)}
+        body = _remat(_ssm_layer, cfg.remat_policy) if grad else _ssm_layer
         for i, lp in enumerate(params["layers"]):
-            y, st = SSM.mamba1_apply(lp["mamba"], L.rms_norm(x, lp["norm"]),
-                                     cfg.ssm, return_state=True)
+            x, st = body(lp, x, cfg, cache is not None)
             if cache is not None:
                 cache["conv"][i].copy_(st["conv"])
                 cache["ssm"][i].copy_(st["ssm"])
             del st
-            x = x + y
     else:
         positions = torch.arange(s, device=x.device)
         if collect_cache:
             shape = kv_shape(cfg, bsz, s)
             cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                      "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-        # under autograd each layer is rematerialised per the config
-        body = _remat(_attn_layer, cfg.remat_policy) \
-            if torch.is_grad_enabled() and x.requires_grad else _attn_layer
+        body = _remat(_attn_layer, cfg.remat_policy) if grad \
+            else _attn_layer
         for i, lp in enumerate(params["layers"]):
             x, aux_l = body(lp, x, cfg, i, positions, attn_impl, cache)
             if aux_l is not None:

@@ -8,7 +8,9 @@ Port of ``src/repro/serve/decode.py`` for the dense, moe and ssm families.
 (``StepGraph``) and replayed, the port's counterpart of the reference's
 compiled loop, so a step costs no host time per kernel. A
 ``GreedyDecoder`` keeps its buffers and its graph between batches of one
-shape, so a static server's pool worker captures once.
+shape, so a static server's pool worker captures once. A static server's
+prefill is captured the same way (``PrefillGraph``), once per pool worker
+and prompt shape, and replayed for every batch.
 
 Ring-cache hand-off: pure sliding-window archs (mixtral) decode over a ring
 of ``window`` slots, position p at slot ``p % window``. After a prefill of S
@@ -122,6 +124,9 @@ def resident_ring(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
 # replays; a caller that counts launches adds replays x launches per step.
 CAPTURES = LaunchCounter()
 REPLAYS = LaunchCounter()
+# the same for captured prefills (``PrefillGraph``)
+PREFILL_CAPTURES = LaunchCounter()
+PREFILL_REPLAYS = LaunchCounter()
 
 
 def capture_stream(device: torch.device) -> "torch.cuda.Stream":
@@ -159,8 +164,11 @@ class StepGraph:
 
     _TURNS = threading.Lock()
 
-    def __init__(self, step: Callable[[], None], stream: "torch.cuda.Stream"):
+    def __init__(self, step: Callable[[], None], stream: "torch.cuda.Stream",
+                 counters: Tuple[LaunchCounter, LaunchCounter] = (CAPTURES,
+                                                                  REPLAYS)):
         self.stream = stream
+        self._captures, self._replays = counters
         with self._TURNS, torch.cuda.stream(stream):
             step()
             t = time.perf_counter()
@@ -176,12 +184,57 @@ class StepGraph:
                 raise
             self.graph.capture_end()
         self.capture_s = time.perf_counter() - t
-        CAPTURES.add()
+        self._captures.add()
 
     def replay(self) -> None:
         with torch.cuda.stream(self.stream):
             self.graph.replay()
-        REPLAYS.add()
+        self._replays.add()
+
+
+class PrefillGraph:
+    """A static server's prefill captured once in a CUDA graph (a
+    ``StepGraph`` on ``stream``) and replayed for every later batch of the
+    same shape: the host issues one graph launch where the eager prefill
+    issued each of its kernels through the interpreter, so pool threads no
+    longer queue on the interpreter lock for their prefills (ROADMAP C12).
+
+    ``inputs`` holds a static copy of the batch's tensors; ``__call__``
+    copies a batch into it, replays, and returns the static outputs
+    ``(last-token logits, cache)``, valid until the next call: the caller
+    copies what it keeps (``GreedyDecoder.load``). The graph's private
+    memory pool holds the prefill's temporaries and outputs for as long as
+    the graph lives, so it is the worker's, charged where the worker's
+    decoder is (``launch.serve.prefill_state``). The kernels' TMA
+    descriptors are made on the host during the capture and point into
+    that pool, where every replay finds the same tensors. The warm-up's
+    outputs are dropped before the capture begins, so its cache and the
+    pool's are never held at once."""
+
+    def __init__(self, prefill: Callable, params, batch: Dict[str, torch.Tensor],
+                 stream: "torch.cuda.Stream"):
+        with torch.cuda.stream(stream):
+            self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.outputs = None
+
+        def run() -> None:
+            out = prefill(params, self.inputs)
+            if torch.cuda.is_current_stream_capturing():
+                self.outputs = out  # the warm-up's go when this returns
+
+        self.graph = StepGraph(run, stream, (PREFILL_CAPTURES,
+                                             PREFILL_REPLAYS))
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        stream = self.graph.stream
+        caller = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            for k, v in batch.items():
+                self.inputs[k].copy_(v)
+        self.graph.replay()
+        caller.wait_stream(stream)
+        return self.outputs
 
 
 def decode_buffers(cfg: ArchConfig, rows: int, max_seq: int,

@@ -8,8 +8,8 @@ pure function for ``jax.jit``, the port's step runs eagerly and updates the
 parameters and the optimizer state in place (``optim.adamw``); it returns
 them all the same. Gradients come from ``torch.autograd.grad`` over the
 parameters, which require grad only while the step runs. On the card every
-gradient through a hand kernel is a hand kernel too (flash attention's and
-RMSNorm's backward ops). ``abstract_train_state`` gives ``TensorSpec``s in
+gradient through a hand kernel is a hand kernel too (the backward ops of
+flash attention, RMSNorm, the Mamba scan and the grouped matmul). ``abstract_train_state`` gives ``TensorSpec``s in
 place of ``jax.eval_shape``'s ShapeDtypeStructs: nothing is allocated.
 """
 from __future__ import annotations
@@ -47,8 +47,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port trains the {', '.join(TRAIN_FAMILIES)} "
-            f"families so far (family {cfg.family!r}: its kernels have no "
-            f"backward yet, ROADMAP B)")
+            f"families so far (family {cfg.family!r} is not ported yet, "
+            f"ROADMAP A)")
 
     def compute_grads(params, batch):
         n = num_microbatches or 1

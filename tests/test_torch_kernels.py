@@ -687,3 +687,110 @@ def test_backward_kernels_match_plain_on_card():
                                    rtol=tol, atol=tol * 100)
         assert torch.equal(got[1], torch.ops.repro_torch.rmsnorm_bwd(
             x, sc, dy, 1e-5)[1])
+
+
+# ---------------------------------------------------------------------------
+# head dims 80 (zamba2-2.7b) and 192 (nemotron-4-340b); wide RMSNorm rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [80, 192])
+@pytest.mark.parametrize("cap,win", [(0.0, 0), (50.0, 40)])
+def test_flash_new_head_dims_match_reference(d, cap, win):
+    """The head dims the kernels now take, through the wrapper on the CPU
+    (its plain versions): the forward against ``ref.flash_attention_ref``
+    and the op's backward against ``jax.vjp`` of the reference's custom
+    VJP (``layers.py:242``), f32, 1e-5 of the largest magnitude; GQA 4 / 2,
+    ragged S = 100."""
+    case = (1, 4, 2, 100, d, cap, win)
+    q, k, v, do = _bwd_inputs(case, seed=3)
+    ref = np.asarray(R.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=win,
+        logit_softcap=cap), np.float32)
+    _, want = _jax_flash_vjp(q, k, v, do, cap, win)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = FA.flash_attention(*leaves, window=win, logit_softcap=cap)
+    _close(out.detach().numpy(), ref)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for g, w in zip(grads, want):
+        _close(g.numpy(), w)
+
+
+def test_rmsnorm_bwd_matches_jax_vjp_at_nemotron_width():
+    """RMSNorm's plain backward and the op's CPU backward at nemotron-4-
+    340b's d_model (18432, past the register path of the card's kernel)
+    against ``jax.vjp`` of ``layers.rms_norm``, f32, 1e-5 relative; the
+    forward against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((6, 18432), dtype=np.float32)
+    sc = rng.standard_normal(18432, dtype=np.float32) * 0.1
+    dy = rng.standard_normal((6, 18432), dtype=np.float32)
+    out, vjp = jax.vjp(JL.rms_norm, jnp.asarray(x), jnp.asarray(sc))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    tx, tsc, tdy = (torch.from_numpy(a) for a in (x, sc, dy))
+    np.testing.assert_allclose(RN.rmsnorm_plain(tx, tsc).numpy(),
+                               np.asarray(ops.rmsnorm(jnp.asarray(x),
+                                                      jnp.asarray(sc),
+                                                      interpret=True)),
+                               rtol=2e-5, atol=2e-5)
+    for g, w in zip(RN.rmsnorm_bwd_plain(tx, tsc, tdy), want):
+        _close(g.numpy(), w)
+    leaves = [tx.clone().requires_grad_(True),
+              tsc.clone().requires_grad_(True)]
+    for g, w in zip(torch.autograd.grad(RN.rmsnorm(*leaves), leaves, tdy),
+                    want):
+        _close(g.numpy(), w)
+
+
+@pytest.mark.gpu
+def test_new_head_dims_and_wide_rows_on_card():
+    """Flash at D = 80 and 192 on both routes (forward with lse and
+    backward) against the plain versions, the backward the same bits on
+    two calls; RMSNorm forward and backward at d = 18432 in both dtypes
+    (f32's backward on the wide path) and at 40000, dscale the same bits
+    on two calls (bf16 atol = rtol = 2e-2, f32 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for (b, hq, hkv, sq, sk, d, cap, win) in [
+                (1, 4, 4, 300, 300, 80, 0.0, 0),
+                (2, 4, 2, 200, 333, 80, 50.0, 64),
+                (1, 8, 2, 300, 300, 192, 0.0, 0),
+                (2, 2, 1, 129, 65, 192, 20.0, 17)]:
+            q, do = (torch.randn(b, hq, sq, d, generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, hkv, sk, d, generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+            kw = dict(causal=True, window=win, logit_softcap=cap)
+            o, lse = torch.ops.repro_torch.flash_attention_lse(
+                q, k, v, True, win, cap)
+            want_o, want_lse = FA.flash_attention_lse_plain(q, k, v, **kw)
+            torch.testing.assert_close(o.float(), want_o.float(), rtol=tol,
+                                       atol=tol)
+            seen = torch.isfinite(want_lse)
+            torch.testing.assert_close(lse[seen], want_lse[seen], rtol=tol,
+                                       atol=tol)
+            got = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o, lse, do, True, win, cap)
+            again = torch.ops.repro_torch.flash_attention_bwd(
+                q, k, v, o, lse, do, True, win, cap)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+            for g, w, g2 in zip(got, want, again):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+                assert torch.equal(g, g2)
+        for shape in [(512, 18432), (9, 40000)]:
+            x, dy = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            sc = (torch.randn(shape[-1:], generator=gen, device=dev) * 0.1) \
+                .to(dtype)
+            torch.testing.assert_close(RN.rmsnorm(x, sc).float(),
+                                       RN.rmsnorm_plain(x, sc).float(),
+                                       rtol=tol, atol=tol)
+            got = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            again = torch.ops.repro_torch.rmsnorm_bwd(x, sc, dy, 1e-5)
+            for g, w in zip(got, RN.rmsnorm_bwd_plain(x, sc, dy)):
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol)
+            assert torch.equal(got[1], again[1])

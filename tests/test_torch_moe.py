@@ -595,3 +595,184 @@ def test_cuda_gated_gmm_and_wgmma_route_match_plain_on_card():
                     torch.testing.assert_close(out.float(), want.float(),
                                                atol=tol, rtol=tol)
                     assert (out[sum(groups):] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the grouped matmul's backward
+# ---------------------------------------------------------------------------
+
+# (t, groups): empty groups, one-row groups, groups that straddle any row
+# tile, and rows past the groups (the layer's dropped slots)
+GMM_BWD_CASES = [(256, (5, 130, 1, 120)), (77, (0, 0, 77, 0)),
+                 (8, (1, 1, 1, 1, 1, 1, 1, 1)), (70, (3, 0, 40, 9)),
+                 (200, (64, 0, 1, 100))]
+
+
+def _jax_gmm_vjp(x, ws, groups, act, dy):
+    """``jax.vjp`` of the reference's ``moe_gmm_ref`` (plain) or of its
+    gated composition ``act(moe_gmm_ref(x, wi)) * moe_gmm_ref(x, wg)``
+    (``jax.nn.silu``, or ``jax.nn.gelu``: tanh by default, as the
+    reference's MoE layer). Rows past the groups go to an extra zero
+    expert, so they give zeros as the port's dropped slots do (the
+    reference's gather would clamp them onto the last expert)."""
+    t = x.shape[0]
+    gs = jnp.asarray(list(groups) + [t - sum(groups)], jnp.int32)
+
+    def gmm(xx, w):
+        return R.moe_gmm_ref(xx, jnp.concatenate([w, jnp.zeros_like(w[:1])]),
+                             gs)
+
+    if act is None:
+        fn = gmm
+    else:
+        actfn = jax.nn.silu if act == "silu_gated" else jax.nn.gelu
+
+        def fn(xx, wi, wg):
+            return actfn(gmm(xx, wi)) * gmm(xx, wg)
+    _, vjp = jax.vjp(fn, x, *ws)
+    return [np.asarray(g, np.float32) for g in vjp(dy)]
+
+
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [None, "silu_gated", "gelu_gated"])
+def test_gmm_bwd_plain_matches_jax_vjp(act, dtype, case):
+    """The plain backward (``moe_gmm_bwd_plain``, ``moe_gmm_gated_bwd_plain``)
+    and the ops' CPU backward through ``register_autograd`` against
+    ``jax.vjp`` of the reference: dx, dw (dwi, dwg) within 1e-5 of each
+    one's largest magnitude in f32 (sums in another order); in bf16 the
+    port computes in f32 from the bf16 values and rounds each gradient
+    once, so it is held within 2e-2 to the reference's vjp of the same
+    bf16 values taken in f32 (the reference's own bf16 arithmetic rounds
+    every intermediate, and on a cancelling element of dw that alone moves
+    it by 10%). dx is 0 past the groups and an empty group's dw is 0."""
+    t, groups = case
+    rng = np.random.default_rng(11)
+    n_w = 1 if act is None else 2
+    x = rng.standard_normal((t, 48), dtype=np.float32)
+    ws = [rng.standard_normal((len(groups), 48, 40), dtype=np.float32) / 7
+          for _ in range(n_w)]
+    dy = rng.standard_normal((t, 40), dtype=np.float32)
+    jdt = getattr(jnp, dtype)
+    jx, jdy, *jws = (jnp.asarray(a, jdt) for a in (x, dy, *ws))
+    want = _jax_gmm_vjp(jx.astype(jnp.float32),
+                        [w.astype(jnp.float32) for w in jws], groups, act,
+                        jdy.astype(jnp.float32))
+    tx, tdy, *tws = (convert.to_torch(np.asarray(a)) for a in (jx, jdy, *jws))
+    gs = torch.tensor(groups, dtype=torch.int32)
+    if act is None:
+        plain = MG.moe_gmm_bwd_plain(tdy, tx, tws[0], gs)
+    else:
+        plain = MG.moe_gmm_gated_bwd_plain(tdy, tx, *tws, gs, act)[:3]
+    leaves = [t_.clone().requires_grad_(True) for t_ in (tx, *tws)]
+    before = MG.BWD_LAUNCHES.value
+    out = MG.moe_gmm(leaves[0], leaves[1], gs) if act is None else \
+        MG.moe_gmm_gated(*leaves, gs, act)
+    grads = torch.autograd.grad(out, leaves, tdy)
+    assert MG.BWD_LAUNCHES.value == before  # CPU tensors: the plain version
+    rel = 2e-2 if dtype == "bfloat16" else 1e-5
+    for got in (plain, grads):
+        for g, w in zip(got, want):
+            assert g.dtype == tx.dtype
+            np.testing.assert_allclose(
+                convert.to_numpy(g).astype(np.float32), w, rtol=rel,
+                atol=rel * max(float(np.abs(w).max()), 1.0))
+        assert (convert.to_numpy(got[0])[sum(groups):] == 0).all()
+        for e, size in enumerate(groups):
+            if size == 0:
+                assert all((convert.to_numpy(g[e]) == 0).all()
+                           for g in got[1:])
+
+
+def test_gmm_bwd_fake_shapes_and_flops():
+    """The backward ops' fakes keep shapes and dtypes (the gated one's
+    dpre, its pre-activations' f32 gradients, charged to a probe) and
+    count two products (plain) or six (gated: the pair recomputed)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    x, w, dy = torch.zeros(40, 8), torch.zeros(3, 8, 6), torch.zeros(40, 6)
+    gs = torch.tensor([10, 0, 20], dtype=torch.int32)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dx, dw = torch.ops.repro_torch.moe_gmm_bwd(dy, x, w, gs)
+        dx2, dwi, dwg, dpre = torch.ops.repro_torch.moe_gmm_gated_bwd(
+            dy, x, w, w, gs, "silu_gated")
+    assert dx.shape == dx2.shape == x.shape
+    assert dw.shape == dwi.shape == dwg.shape == w.shape
+    assert dpre.shape == (2, 40, 6) and dpre.dtype == torch.float32
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.moe_gmm_bwd(dy, x, w, gs)
+    assert fc.get_total_flops() == 4 * 40 * 8 * 6
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.moe_gmm_gated_bwd(dy, x, w, w, gs, "gelu_gated")
+    assert fc.get_total_flops() == 12 * 40 * 8 * 6
+
+
+@pytest.mark.parametrize("act", ["silu_gated", "squared_relu"])
+def test_moe_apply_gradients_reach_the_router_as_jax(act):
+    """Autograd through the port's MoE layer (grouped matmuls with their
+    backward ops, the dispatch's gathers, the combine weights and the aux
+    loss) against ``jax.vjp`` of the reference's dense dispatch, f32: the
+    gradients of x, the router and every expert weight of ``out + 0.01
+    aux`` within 1e-4 of each one's largest magnitude, the router's
+    nonzero."""
+    cfg, p, x, tp, tx, tcfg = _moe_layer(act)
+    dy = np.random.default_rng(9).standard_normal(x.shape, dtype=np.float32)
+
+    def loss(xx, pp):
+        out, aux = JMOE.moe_apply(pp, xx, cfg.moe, act)
+        return jnp.sum(out * dy) + 0.01 * aux
+    want_x, want_p = jax.grad(loss, argnums=(0, 1))(x, p)
+    names = sorted(tp)
+    leaves = [tx.clone().requires_grad_(True)] + [
+        tp[k].clone().requires_grad_(True) for k in names]
+    out, aux = TMOE.moe_apply(dict(zip(names, leaves[1:])), leaves[0], tcfg,
+                              act)
+    grads = torch.autograd.grad(
+        (out * torch.from_numpy(dy)).sum() + 0.01 * aux, leaves)
+    for name, g, w in zip(["x"] + names, grads,
+                          [want_x] + [want_p[k] for k in names]):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()),
+                                   err_msg=name)
+    assert float(grads[1 + names.index("router")].abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_cuda_gmm_bwd_matches_plain_on_card():
+    """The backward kernels (plain and gated, f32 and bf16) against the
+    plain backward (bf16 atol = rtol = 2e-2, f32 1e-4), the same bits on
+    two calls, dx zero past the groups, one counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for t, d, f, groups in [(1024, 512, 1024, (300, 0, 1, 129, 200, 77)),
+                            (200, 72, 136, (0, 64, 1, 100)),
+                            (4, 64, 64, (1, 1, 1, 1)), (0, 64, 64, (0, 0))]:
+        gs = torch.tensor(groups, dtype=torch.int32, device=dev)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x, dy = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                     for s in ((t, d), (t, f)))
+            ws = [(torch.randn(len(groups), d, f, generator=gen, device=dev)
+                   / d ** 0.5).to(dtype) for _ in range(2)]
+            for act in (None, "silu_gated", "gelu_gated"):
+                before = MG.BWD_LAUNCHES.value
+                if act is None:
+                    def call():
+                        return torch.ops.repro_torch.moe_gmm_bwd(
+                            dy, x, ws[0], gs)
+                    want = MG.moe_gmm_bwd_plain(dy, x, ws[0], gs)
+                else:
+                    def call():
+                        return torch.ops.repro_torch.moe_gmm_gated_bwd(
+                            dy, x, *ws, gs, act)[:3]
+                    want = MG.moe_gmm_gated_bwd_plain(dy, x, *ws, gs,
+                                                      act)[:3]
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                assert MG.BWD_LAUNCHES.value == before + 2
+                for g, w, g2 in zip(got, want, again):
+                    torch.testing.assert_close(g.float(), w.float(),
+                                               rtol=tol, atol=tol)
+                    assert torch.equal(g, g2)
+                assert not bool(got[0][sum(groups):].ne(0).any())

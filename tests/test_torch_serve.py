@@ -143,6 +143,87 @@ def test_a_kept_decode_graph_gives_per_batch_graphs_tokens_on_card():
     assert SD.CAPTURES.value - captures == 1 + 3
 
 
+def _specs(cfg, device, dtype=torch.bfloat16):
+    """``TensorSpec``s of a configuration's weights on ``device``."""
+    from repro_torch.core.probe import TensorSpec
+    meta = init_params(cfg, None, dtype, torch.device("meta"))
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype, device),
+                    meta)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "falcon-mamba-7b",
+                                  "mixtral-8x7b"])
+def test_captured_prefill_is_charged_to_its_worker_once(arch):
+    """With the prefill captured (on a card), its peak moves from the
+    batch's vector into what the worker keeps, charged once: the worker
+    keeps the prefill's pool (``static_task``'s live peak) and the graph's
+    copy of the tokens beside its decoder, the unseen bytes once; a batch
+    is charged its weights, its tokens and its first tokens. Together they
+    charge what the eager path did, plus only the graph's static copy of
+    the tokens and the first tokens. Probed on ``TensorSpec``s (fake
+    tensors): nothing allocated, no card needed."""
+    from repro_torch.core.probe import TensorSpec, probe_fn, trace_counts
+    cfg = get_arch(arch).reduced()
+    dev = torch.device("cpu")
+    params = _specs(cfg, dev)
+    batch = {"tokens": TensorSpec((2, 12), torch.int64, dev)}
+    first = TensorSpec((2,), torch.int32, dev)
+    eager = probe_fn(LS.static_task, params, batch, cfg)
+    replay = probe_fn(LS.replayed_task, params, batch,
+                      TensorSpec((2, cfg.vocab), torch.float32, dev),
+                      uncharged=(2,))
+    pool = trace_counts(LS.static_task, params, batch, cfg, uncharged=(0,))
+    dec = probe_fn(LS.decode_state, params, first, cfg, 18, uncharged=(0,))
+    kept = LS.kept_by_worker(params, batch, cfg, first, 18)
+    # the first tokens: argmax's int64 and their int32 copy
+    first_tokens = trace_counts(
+        LS.replayed_task, params, batch,
+        TensorSpec((2, cfg.vocab), torch.float32, dev),
+        uncharged=(0, 1, 2))["hbm_bytes"]
+    tokens = 2 * 12 * 8
+    assert first_tokens == 2 * 8 + 2 * 4
+    assert pool["arg_bytes"] == tokens
+    assert kept.hbm_bytes == dec.hbm_bytes + tokens + pool["peak_live_bytes"]
+    assert eager.hbm_bytes - replay.hbm_bytes \
+        == pool["peak_live_bytes"] - first_tokens
+    extra = (replay.hbm_bytes + kept.hbm_bytes) \
+        - (eager.hbm_bytes + dec.hbm_bytes)
+    assert extra == tokens + first_tokens
+
+
+@pytest.mark.gpu
+def test_a_replayed_prefill_equals_the_eager_prefill_on_card():
+    """Reduced gemma2 (softcaps, window 64, int8 KV) and mixtral (grouped
+    matmuls, a ring cache) in bf16 on the card: a ``PrefillGraph``
+    captured at one batch and replayed for two others gives each the
+    eager prefill's logits and cache bit for bit, one capture and one
+    replay a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the prefill is captured in a CUDA "
+                    "graph")
+    dev = torch.device("cuda", 0)
+    for arch in ("gemma2-9b", "mixtral-8x7b"):
+        cfg, params = _model(arch, torch.bfloat16, dev)
+        prefill = make_prefill_step(cfg)
+        batches = [{"tokens": torch.from_numpy(np.random.default_rng(i)
+                    .integers(0, cfg.vocab, (2, 100), dtype=np.int64))
+                    .to(dev)} for i in range(3)]
+        captures = SD.PREFILL_CAPTURES.value
+        graph = SD.PrefillGraph(prefill, params, batches[0],
+                                SD.capture_stream(dev))
+        assert SD.PREFILL_CAPTURES.value == captures + 1
+        for b in batches[1:] + batches[:1]:
+            replays = SD.PREFILL_REPLAYS.value
+            logits, cache = graph(b)
+            want_logits, want_cache = prefill(params, b)
+            torch.cuda.synchronize()
+            assert SD.PREFILL_REPLAYS.value == replays + 1
+            assert torch.equal(logits, want_logits)
+            assert set(cache) == set(want_cache)
+            for k in cache:
+                assert torch.equal(cache[k], want_cache[k]), (arch, k)
+
+
 def test_serve_without_a_card_needs_cpu_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

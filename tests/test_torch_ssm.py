@@ -361,3 +361,127 @@ def test_cuda_scan_matches_plain_on_card():
         torch.testing.assert_close(h_last, want_last, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError):
         SC.mamba_scan(a[:, ::2], b[:, ::2])
+
+
+# ---------------------------------------------------------------------------
+# the scan's backward
+# ---------------------------------------------------------------------------
+
+# S a multiple of the chunk handed to the reference's _scan_chunked (16)
+SCAN_BWD_SHAPES = [(1, 64, 128, 16), (2, 32, 96, 4), (2, 16, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+def test_scan_bwd_plain_matches_jax_vjp(shape):
+    """The plain reverse scan (``mamba_scan_bwd_plain``, fed the forward's
+    h_all) and the op's CPU backward through ``register_autograd``, given
+    gradients of both h_all and h_last, against ``jax.vjp`` of the
+    reference's ``_scan_chunked`` from a zero state: f32, within 1e-5 of
+    the reference's largest magnitude (sums in another order)."""
+    a, b = _scan_inputs(shape, seed=2)
+    rng = np.random.default_rng(4)
+    dh = rng.standard_normal(shape, dtype=np.float32)
+    dl = rng.standard_normal((shape[0],) + shape[2:], dtype=np.float32)
+    h0 = jnp.zeros((shape[0],) + shape[2:], jnp.float32)
+    _, vjp = jax.vjp(lambda x, y: JSSM._scan_chunked(x, y, h0, 16),
+                     jnp.asarray(a), jnp.asarray(b))
+    want = [np.asarray(g) for g in vjp((jnp.asarray(dh), jnp.asarray(dl)))]
+    ta, tb, tdh, tdl = (torch.from_numpy(t) for t in (a, b, dh, dl))
+    h_all, _ = SC.mamba_scan_plain(ta, tb)
+    before = SC.BWD_LAUNCHES.value
+    plain = SC.mamba_scan_bwd_plain(ta, h_all, tdh, tdl)
+    leaves = [ta.clone().requires_grad_(True), tb.clone().requires_grad_(True)]
+    grads = torch.autograd.grad(SC.mamba_scan(*leaves), leaves, (tdh, tdl))
+    assert SC.BWD_LAUNCHES.value == before  # CPU tensors: the plain version
+    for got in (plain, grads):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                       atol=1e-5 * float(np.abs(w).max()))
+    assert (plain[0][:, 0] == 0).all()  # h_{-1} = 0
+
+
+def test_scan_bwd_equals_autograd_of_the_plain_scan_and_gradchecks():
+    """The plain backward is autograd through ``mamba_scan_plain``, the
+    same arithmetic to the bit in f32; the op's backward passes
+    ``gradcheck`` in f64, also when only h_all is used (dh_last None)."""
+    a, b = (torch.from_numpy(t) for t in _scan_inputs((2, 9, 3, 4), seed=6))
+    dh, dl = torch.randn(2, 9, 3, 4), torch.randn(2, 3, 4)
+    leaves = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    ref = torch.autograd.grad(SC.mamba_scan_plain(*leaves), leaves, (dh, dl))
+    h_all, _ = SC.mamba_scan_plain(a, b)
+    for g, w in zip(SC.mamba_scan_bwd_plain(a, h_all, dh, dl), ref):
+        assert torch.equal(g, w)
+    a64, b64 = (t.double().requires_grad_(True) for t in (a, b))
+    assert torch.autograd.gradcheck(SC.mamba_scan, (a64, b64))
+    assert torch.autograd.gradcheck(lambda x, y: SC.mamba_scan(x, y)[0],
+                                    (a64, b64))
+
+
+def test_scan_bwd_fake_shapes_and_flops():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    with FakeTensorMode():
+        a = torch.empty(2, 5, 3, 4)
+        da, db = torch.ops.repro_torch.mamba_scan_bwd(a, a, a, a[:, 0])
+        assert da.shape == db.shape == a.shape
+    a = torch.zeros(2, 5, 3, 4)
+    with FlopCounterMode(display=False) as fc:
+        torch.ops.repro_torch.mamba_scan_bwd(a, a, a, a[:, 0])
+    assert fc.get_total_flops() == 3 * a.numel()
+
+
+@pytest.mark.parametrize("policy", ["nothing", "full"])
+def test_mamba1_apply_gradients_match_jax_vjp(policy):
+    """Autograd through the port's Mamba-1 block (the scan's backward op,
+    ``a`` made by an in-place exp and the names ``del``eted after the scan)
+    against ``jax.vjp`` of the reference's block, f32: gradients of x and
+    of every parameter within 1e-4 of each one's largest magnitude; under
+    ``full`` the block is a checkpoint recomputed in the backward."""
+    from repro_torch.models.model import _remat
+    cfg, p, tp = _block("float32")
+    x, tx = _x((B, S, cfg.d_model), "float32")
+    dy = np.random.default_rng(8).standard_normal((B, S, cfg.d_model),
+                                                  dtype=np.float32)
+    _, vjp = jax.vjp(lambda xx, pp: JSSM.mamba1_apply(
+        pp, xx, cfg.ssm, chunk=cfg.ssm.chunk), x, p)
+    want_x, want_p = vjp(jnp.asarray(dy))
+    names = sorted(tp)
+    leaves = [tx.clone().requires_grad_(True)] + [
+        tp[k].clone().requires_grad_(True) for k in names]
+    tcfg = port_arch(ARCH).reduced()
+    block = _remat(lambda xx, *ps: TSSM.mamba1_apply(
+        dict(zip(names, ps)), xx, tcfg.ssm), policy)
+    grads = torch.autograd.grad(block(*leaves), leaves, torch.from_numpy(dy))
+    for g, w in zip(grads, [want_x] + [want_p[k] for k in names]):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+
+
+@pytest.mark.gpu
+def test_cuda_scan_bwd_matches_plain_on_card():
+    """The reverse-scan kernel against the plain backward and autograd
+    through the plain scan (f32, 1e-4), the same bits on two calls, one
+    launch a call; edge cases and a falcon-mamba-7b training slice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a")
+    for shape in [(1, 1, 8, 4), (1, 7, 5, 3), (3, 33, 17, 64),
+                  (2, 256, 8192, 16)]:
+        a, b = (torch.from_numpy(t).cuda() for t in _scan_inputs(shape))
+        dh = torch.randn(shape, device="cuda")
+        dl = torch.randn(shape[:1] + shape[2:], device="cuda")
+        h_all, _ = SC.mamba_scan(a, b)
+        before = SC.BWD_LAUNCHES.value
+        got = torch.ops.repro_torch.mamba_scan_bwd(a, h_all, dh, dl)
+        again = torch.ops.repro_torch.mamba_scan_bwd(a, h_all, dh, dl)
+        torch.cuda.synchronize()
+        assert SC.BWD_LAUNCHES.value == before + 2
+        want = SC.mamba_scan_bwd_plain(a, h_all, dh, dl)
+        leaves = [a.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)]
+        ref = torch.autograd.grad(SC.mamba_scan_plain(*leaves), leaves,
+                                  (dh, dl))
+        for g, w, r, g2 in zip(got, want, ref, again):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+            assert torch.equal(g, g2)

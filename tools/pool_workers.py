@@ -3,19 +3,22 @@ where each batch's time goes.
 
     python3 tools/pool_workers.py [--arch gemma2-9b] [--prompt-len 1000]
 
-Each pool worker runs its batch's prefill eagerly, then the decode over
-the decoder it keeps (``serve.decode.GreedyDecoder.generate``: at the
-worker's first batch an eager warm-up step and a graph capture, then graph
-replays; at its later batches replays only). The eager parts are Python
-launching kernels one by one, and threads take turns on the interpreter
-lock. This serves the same 32 requests (8 batches of 4, 32 tokens each,
+Each pool worker replays its batch's prefill from the graph it captured
+at its first batch (``serve.decode.PrefillGraph``), then decodes over the
+decoder it keeps (``serve.decode.GreedyDecoder.generate``: at the worker's
+first batch an eager warm-up step and a graph capture, then graph replays;
+at its later batches replays only). The eager parts (the warm-ups) are
+Python launching kernels one by one, and threads take turns on the
+interpreter lock. This serves the same 32 requests (8 batches of 4, 32 tokens each,
 full width, bf16) with 1 and with 4 workers on one card, and prints for
 each run:
 
 * tokens/s, TTFT and TPOT, with the card's name and power limit;
-* for each phase of a batch (``prefill``; ``decode``, the whole of
-  ``generate``; inside it ``warm-up``, ``capture`` and, inside the
-  capture, ``capture_end``, the graph's instantiation) the mean per span
+* for each phase of a batch (``prefill``, a replay with its input copy,
+  and at a worker's first batch the prefill graph's warm-up and capture;
+  ``decode``, the whole of ``generate``; inside either ``warm-up``,
+  ``capture`` and, inside the capture, ``capture_end``, the graph's
+  instantiation) the mean per span
   of ``host`` (until the Python call returns), ``stream`` (between CUDA
   events on the worker's stream, not read inside a capture) and ``wall``
   (until the stream is synchronised), and the phase's count;
@@ -189,9 +192,11 @@ def main() -> None:
                 return fn(*a, **k)
         return run
 
-    def step_graph_init(self, step, stream):
+    def step_graph_init(self, step, stream,
+                        counters=(SD.CAPTURES, SD.REPLAYS)):
         # serve.decode.StepGraph.__init__, its parts timed apart
         self.stream = stream
+        self._captures, self._replays = counters
         with SD.StepGraph._TURNS, torch.cuda.stream(stream):
             with rec.phase("warm-up"):
                 step()
@@ -203,10 +208,10 @@ def main() -> None:
                 with rec.phase("capture_end", on_stream=False):
                     self.graph.capture_end()
         self.capture_s = time.perf_counter() - t
-        SD.CAPTURES.add()
+        self._captures.add()
 
-    S.make_prefill_step = (lambda make: lambda cfg: phased(
-        "prefill", make(cfg)))(S.make_prefill_step)
+    SD.PrefillGraph.__init__ = phased("prefill", SD.PrefillGraph.__init__)
+    SD.PrefillGraph.__call__ = phased("prefill", SD.PrefillGraph.__call__)
     SD.GreedyDecoder.generate = phased("decode", SD.GreedyDecoder.generate)
     SD.StepGraph.__init__ = step_graph_init
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

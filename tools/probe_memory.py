@@ -4,8 +4,10 @@ allocates on the card.
     python3 tools/probe_memory.py [--arch gemma2-9b]
 
 For each served model at full width in bf16 (mixtral-8x7b cut to 24 of 32
-layers), one batch of 4 prompts runs alone, as the static serve path runs
-it: prefill, the cache padded for decode, 31 eager decode steps. The
+layers), one batch of 4 prompts runs alone, eagerly: prefill, the cache
+padded for decode, 31 decode steps (the static serve path captures the
+prefill and the step once and replays them; a graph's pool holds the peak
+measured here for the prefill). The
 caching allocator's history is recorded (``torch.cuda.memory.
 _record_memory_history``) and the script prints, beside the probe's
 fake-tensor trace of the same work:
