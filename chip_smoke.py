@@ -33,27 +33,33 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    selective scan has no library call; the grouped matmul's is
    ``torch._grouped_mm``. The grouped matmul has three routes (bf16 wgmma
    fed by TMA for many rows an expert, bf16 small tiles for a few, f32 on
-   the CUDA cores) and a gated variant (act(x wi) * (x wg) in one launch),
-   each route and act forced at every edge case it takes. The backward
-   kernels (flash attention's, RMSNorm's) are held against their plain
-   versions and against autograd through the forwards' plain versions,
-   in f32 and bf16, at gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
+   the CUDA cores, register-blocked) and a gated variant (act(x wi) * (x
+   wg) in one launch), each route and act forced at every edge case it
+   takes; the f32 route is timed at mixtral-8x7b's training shape, beside
+   ``torch.bmm`` over equal groups as a yardstick of cuBLAS's f32 rate.
+   The backward kernels (flash attention's, RMSNorm's) are held against
+   their plain versions and against autograd through the forwards' plain
+   versions, in f32 and bf16, at gemma2-9b's training shape (B 4, Hq 16, Hkv 8, S
    1024, D 256, softcap 50, window 4096 and 0), D 128 with a window of
    256, ragged tails and rows; RMSNorm's dscale must be the same bits run
    to run. Flash's forward and backward also run, on both routes at every
    head dim, at (B 2, Hq 2, Hkv 1, Sq 129, Sk 65) with a window of 17,
    whose last 48 rows see no key: o 0 and lse +inf there, exactly, and no
-   gradient (ROADMAP C10). Yardsticks: SDPA's and ``F.rms_norm``'s forward + backward
-   through autograd where they compute the same function (none for
-   gemma2's softcap). Flash also runs, both routes, forward and backward,
+   gradient (ROADMAP C10). Yardsticks: SDPA's (its backend printed; in f32
+   too at D 80 and 192) and ``F.rms_norm``'s forward + backward through
+   autograd where they compute the same function (none for gemma2's
+   softcap). Flash also runs, both routes, forward and backward,
    at zamba2-2.7b's heads (32 of 80, no GQA) and nemotron-4-340b's (96 / 8
    of 192), and RMSNorm at nemotron's rows (d 18432: in f32 its backward
    takes the wide path). The backward kernels of the Mamba scan (at
    falcon-mamba-7b's training shape, timed) and of the grouped matmul
-   (plain and gated, f32 and bf16, at the forward's edge cases and at
-   mixtral-8x7b's training shape, timed; ``torch._grouped_mm``'s backward
-   the yardstick in bf16) are held against their plain versions and
-   autograd through the plain forwards, the same bits on two calls.
+   (plain and gated, f32 and bf16, each route forced: bf16 on the tensor
+   cores and on the CUDA cores; at the forward's edge cases, groups of 0,
+   1, 63, 64, 65 and 127 rows and every row in one expert, and at
+   mixtral-8x7b's training shape, timed with each kernel's device time;
+   ``torch._grouped_mm``'s backward the yardstick in bf16) are held against
+   their plain versions and autograd through the plain forwards, the same
+   bits on two calls.
 5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
    paths on the card (hand kernels) against the same weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
@@ -164,7 +170,8 @@ PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
                 "rmsnorm_bwd_kernel", "rmsnorm_bwd_wide_kernel",
                 "rmsnorm_dscale_kernel", "mamba_scan_bwd_kernel",
                 "gmm_bwd_gate_kernel", "gmm_bwd_dx_kernel",
-                "gmm_bwd_dw_kernel")
+                "gmm_bwd_dw_kernel", "gmm_bwd_gate_tma_kernel",
+                "gmm_bwd_dx_tma_kernel", "gmm_bwd_dw_tma_kernel")
 # mixtral-8x7b's 32 layers are 93.4e9 B in bf16, more than one 80 GB card;
 # 24 (70.2e9 B) leave room for the activations and the 1.6e9 B ring cache
 MIXTRAL_LAYERS = 24
@@ -406,6 +413,26 @@ def phase_kernels(torch):
     return table
 
 
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backend SDPA picks for causal GQA attention on these operands:
+    PyTorch's own choice where it tells it, else the kernels one call
+    runs on the card."""
+    import torch.nn.functional as F
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, enable_gqa=True)).name
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           enable_gqa=True)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        return "kernels " + ", ".join(n[:40] for n in names[:2])
+
+
 def flex_library(torch, q, k, v, cap: float, win: int):
     """gemma2's yardstick, never used by the port: one
     ``torch.nn.attention.flex_attention`` call with the softcap as a
@@ -542,10 +569,10 @@ def phase_flash(torch, randn, table) -> None:
         bound = max(t_bytes, t_ops) * 1e3
         by = "bytes" if t_bytes > t_ops else "operations"
         lib_ms, lib = None, None
-        if dtype == bf16 and cap == 0.0 and (win == 0 or win >= sk):
-            lib = "SDPA"
+        if cap == 0.0 and (win == 0 or win >= sk):
+            lib = f"SDPA ({sdpa_backend(torch, q, k, v)})"
             lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 20)
+                q, k, v, is_causal=True, enable_gqa=True), iters)
         elif dtype == bf16 and b == 4 and win == 4096:
             lib = "flex_attention"
             call, lib_err = flex_library(torch, q, k, v, cap, win)
@@ -881,12 +908,61 @@ def phase_gmm(torch, randn, table) -> None:
                         "warp-specialised",
                         "bfloat16 few rows": "gmm_small_kernel: wmma, two "
                         "slices in flight through registers",
-                        "float32": "gmm_f32_kernel: CUDA cores"},
+                        "float32": "gmm_f32_kernel: CUDA cores, "
+                        "register-blocked 128 x 128 tiles, 8 x 8 a thread, "
+                        "cp.async into two buffers"},
                 max_abs_err_all_cases={f"{r}{' gated' if g else ''}": v
                                        for (r, g), v in worst.items()})
         else:
             table[name][label.replace(" ", "_") + "_case"] = entry
         del x, ws, gs, out, lib
+
+    # the f32 route at mixtral-8x7b's training shape, the train path's
+    # forward: wi's product and the gated pair over the prefill's uneven
+    # groups, then wi's over equal groups beside torch.bmm of [E, T/E, D] x
+    # [E, D, F], a yardstick of cuBLAS's f32 rate on the same work (the
+    # port never calls it)
+    t, d, f = 8192, 4096, 14336
+    for label, sizes, act in [("train", prefill, None),
+                              ("train", prefill, "silu_gated"),
+                              ("train, equal groups", [t // 8] * 8, None)]:
+        n_w = 1 if act is None else 2
+        x, ws, gs = inputs(t, d, f, sizes, f32, n_w)
+        what = (f"moe_gmm{'' if act is None else ' ' + act} {label} ({t}, "
+                f"{d}, {f}) f32 route f32")
+
+        def call():
+            return MG.moe_gmm(x, ws[0], gs) if act is None else \
+                MG.moe_gmm_gated(x, ws[0], ws[1], gs, act)
+        out = call()
+        torch.cuda.synchronize()
+        err = check(out, x, ws, gs, sizes, act, what)
+        del out
+        ms = time_ms(torch, call, 3)
+        plain_ms = time_ms(torch, lambda: plain(x, ws, gs, act), 1)
+        n, used = sum(sizes), sum(1 for z in sizes if z)
+        nbytes = 4 * (n * d + n_w * used * d * f + t * f)
+        flops = 2 * n_w * n * d * f
+        t_bytes, t_ops = nbytes / H100_HBM_BW, flops / H100_F32_FLOPS
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes > t_ops else "operations"
+        bmm_ms = None
+        if len(set(sizes)) == 1:
+            xb = x.view(len(sizes), t // len(sizes), d)
+            bmm_ms = time_ms(torch, lambda: torch.bmm(xb, ws[0]), 3)
+        print(f"[kernels] {what} groups {sizes}: max_abs_err {err:.3e}, "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              + (f"torch.bmm (yardstick) {bmm_ms:.4f} ms, " if bmm_ms else "")
+              + f"bound {bound:.4f} ms ({by}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s = "
+              f"{100 * bound / ms:.1f}% of the bound", flush=True)
+        name = "moe_gmm" if act is None else "moe_gmm_gated"
+        key = "f32_train_equal_groups_case" if bmm_ms else "f32_train_case"
+        table[name][key] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            library_ms=None, bmm_yardstick_ms=bmm_ms, max_abs_err=err,
+            kernel_route="f32")
+        del x, ws, gs
 
 
 # the flash backward's cases, (b, hq, hkv, sq, sk, d, softcap, window) and
@@ -1114,13 +1190,16 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
     against autograd through the plain forwards, each the same bits on two
     calls. The scan at edge cases (S = 1, E*N off 4) and at falcon-mamba-
     7b's training shape [4, 1024, 8192, 16], timed (no library call
-    computes it). The grouped matmul at the forward's edge cases (tiles
-    straddling experts, groups of 1, an empty expert, rows past the groups:
-    dx exactly 0 there) and at mixtral-8x7b's training shape (8192 (token,
-    slot) rows over 8 experts, 4096 x 14336) in f32, the main path's dtype,
-    timed beside the plain version, and in bf16 beside the backward of
-    ``torch._grouped_mm`` (which refuses f32 operands), timed alone as
-    ``time_grad_ms`` does."""
+    computes it). The grouped matmul on every route its operands allow,
+    forced (bf16: the tensor cores and the CUDA cores), at the forward's
+    edge cases (tiles straddling experts, groups of 0, 1, 63, 64, 65 and
+    127 rows, every row in one expert, rows past the groups: dx exactly 0
+    there, an empty expert's dw exactly 0) and at mixtral-8x7b's training
+    shape (8192 (token, slot) rows over 8 experts, 4096 x 14336) in f32,
+    the main path's dtype, timed beside the plain version, and in bf16
+    beside the backward of ``torch._grouped_mm`` (which refuses f32
+    operands), timed alone as ``time_grad_ms`` does; each kernel's device
+    time from the profiler."""
     from repro_torch.kernels import mamba_scan as SC
     from repro_torch.kernels import moe_gmm as MG
     dev = torch.device("cuda", 0)
@@ -1185,7 +1264,12 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
         return x, ws, gs, randn((t, f), dtype, dy_scale)
 
-    def kernel(act, dy, x, ws, gs):
+    def kernel(act, dy, x, ws, gs, route=None):
+        """(dx, dw), or gated (dx, dwi, dwg, dpre); ``route`` forced, or
+        through the op on the route it picks."""
+        if route is not None:
+            gate = {} if act is None else dict(wg=ws[1], act=act)
+            return MG._launch_bwd(dy, x, ws[0], gs, route=route, **gate)
         if act is None:
             return torch.ops.repro_torch.moe_gmm_bwd(dy, x, ws[0], gs)
         return torch.ops.repro_torch.moe_gmm_gated_bwd(dy, x, ws[0], ws[1],
@@ -1197,52 +1281,104 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
         return MG.moe_gmm_gated_bwd_plain(dy, x, ws[0], ws[1], gs, act)
 
     def autograd(act, dy, x, ws, gs):
-        # through the plain forward, in f32
+        """Autograd through the plain forward in f32: the gradients of x and
+        the weights, and for the gated pair those of its pre-activations
+        and a function giving the gradients of x and the weights from any
+        pre-activation gradients (the products' chain rule alone)."""
         leaves = [t.detach().float().requires_grad_(True)
                   for t in (x, *ws[:1 if act is None else 2])]
-        out = MG.moe_gmm_plain(leaves[0], leaves[1], gs) if act is None \
-            else MG.moe_gmm_gated_plain(*leaves, gs, act)
-        return torch.autograd.grad(out, leaves, dy.float())
+        if act is None:
+            out = MG.moe_gmm_plain(leaves[0], leaves[1], gs)
+            return torch.autograd.grad(out, leaves, dy.float()), None, None
+        a, g = (MG.moe_gmm_plain(leaves[0], w, gs) for w in leaves[1:])
+        out = MG.gated_act(a, act) * g
+        grads = torch.autograd.grad(out, [a, g, *leaves], dy.float(),
+                                    retain_graph=True)
+
+        def products(dpre):
+            return torch.autograd.grad((a, g), leaves, tuple(dpre.float()),
+                                       retain_graph=True)
+        return grads[2:], torch.stack(grads[:2]), products
 
     def names(act):
         return ("dx", "dw") if act is None else ("dx", "dwi", "dwg")
 
+    def held(act, dtype, got, want, ref, what):
+        """The kernels' gradients against the plain backward's and
+        autograd's: (max error vs plain, vs autograd). The gated pair's
+        dpre is held against both too; in bf16 the kernels round it (as the
+        plain version does), and an element whose f32 value lies at a
+        rounding boundary may round one bf16 unit apart in the two, which dw
+        carries times x: so there the products are held against the plain
+        products and the autograd of the products on the kernels' own dpre,
+        the same inputs."""
+        ns = names(act)
+        want_g, ref_g = want, ref[0]
+        errs, ags = [0.0], [0.0]
+        if act is not None and got[3].numel():
+            dpre = got[3]
+            errs.append(compare(torch, dpre, want[3], dtype, f"{what} dpre"))
+            ags.append(compare(torch, dpre, ref[1], dtype,
+                               f"{what} dpre vs autograd"))
+            if dtype == bf16:
+                want_g = MG.moe_gmm_gated_bwd_products_plain(
+                    dpre, x, ws[0], ws[1], gs)
+                ref_g = ref[2](dpre)
+        errs += [compare(torch, g, w, dtype, f"{what} {n}")
+                 for n, g, w in zip(ns, got, want_g) if g.numel()]
+        ags += [compare(torch, g, w, dtype, f"{what} {n} vs autograd")
+                for n, g, w in zip(ns, got, ref_g) if g.numel()]
+        return max(errs), max(ags)
+
+    # groups of 0, 1, 63, 64, 65 and 127 rows (dw's last 64-row slice holds
+    # the next expert's rows, or runs past T), every row in one expert, and
+    # rows past the groups
     for label, t, d, f, sizes in [
             ("mid", 1024, 512, 1024, [300, 0, 1, 129, 200, 77, 250, 60]),
             ("straddling, many tiles", 2048, 1024, 1024,
              [300, 700, 129, 500, 400]),
             ("ragged, empty expert, rows past", 200, 72, 136,
              [0, 64, 1, 100]),
+            ("groups of 0, 1, 63, 64, 65, 127, rows past", 400, 136, 200,
+             [63, 0, 64, 1, 65, 127]),
+            ("all rows in one", 300, 128, 256, [0, 300, 0]),
             ("groups of 1", 4, 64, 64, [1, 1, 1, 1]),
             ("T below 64", 40, 128, 264, [17, 0, 20]),
             ("widths off 8", 77, 50, 70, [13, 0, 33, 31]),
             ("no rows", 0, 64, 64, [0, 0])]:
         for dtype in (f32, bf16):
             x, ws, gs, dy = operands(t, d, f, sizes, dtype)
+            routes = ["f32"] if dtype == f32 else ["cuda_cores"] + (
+                ["wgmma"] if MG.gmm_bwd_route(bf16, t, d, f, True)
+                == "wgmma" else [])
             for act in GMM_ACTS:
-                got = kernel(act, dy, x, ws, gs)
-                again = kernel(act, dy, x, ws, gs)
-                torch.cuda.synchronize()
+                want = plain(act, dy, x, ws, gs)
+                ref = autograd(act, dy, x, ws, gs)
                 what = (f"moe_gmm backward {act or 'plain'} {label} ({t}, "
                         f"{d}, {f}) groups {sizes} {str(dtype)[6:]}")
-                if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
-                    fail(f"{what}: the gradients differ between two calls")
-                if bool(got[0][sum(sizes):].ne(0).any()):
-                    fail(f"{what}: dx is not zero past the groups")
-                ns = names(act)
-                err = max([compare(torch, g, w, dtype, f"{what} {n}")
-                           for n, g, w in zip(ns, got,
-                                              plain(act, dy, x, ws, gs))
-                           if g.numel()] + [0.0])
-                ag = max([compare(torch, g, w, dtype, f"{what} {n} vs "
-                                  f"autograd")
-                          for n, g, w in zip(ns, got,
-                                             autograd(act, dy, x, ws, gs))
-                          if g.numel()] + [0.0])
-                print(f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
-                      f"backward, {ag:.3e} vs autograd through the plain "
-                      f"forward; the same bits twice", flush=True)
-                del got, again
+                err, ag = 0.0, 0.0
+                for route in routes + [None]:
+                    on = f"{what} route {route or 'of the op'}"
+                    got = kernel(act, dy, x, ws, gs, route)
+                    again = kernel(act, dy, x, ws, gs, route)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, g2) for g, g2 in zip(got, again)):
+                        fail(f"{on}: the gradients differ between two calls")
+                    if bool(got[0][sum(sizes):].ne(0).any()):
+                        fail(f"{on}: dx is not zero past the groups")
+                    for e, z in enumerate(sizes):
+                        if z == 0 and any(bool(g[e].ne(0).any())
+                                          for g in got[1:len(names(act))]):
+                            fail(f"{on}: dw of empty expert {e} is not zero")
+                    e1, e2 = held(act, dtype, got, want, ref, on)
+                    err, ag = max(err, e1), max(ag, e2)
+                    del got, again
+                print(f"[kernels] {what}: routes {routes} and the op's "
+                      f"({MG.gmm_bwd_route(dtype, t, d, f, True)}), "
+                      f"max_abs_err {err:.3e} vs the plain backward, "
+                      f"{ag:.3e} vs autograd through the plain forward; the "
+                      f"same bits twice", flush=True)
+                del want, ref
             del x, ws, gs, dy
 
     # mixtral-8x7b's training shape: 4 x 1024 tokens top-2, a few slots
@@ -1262,12 +1398,24 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
             torch.cuda.synchronize()
             what = (f"moe_gmm backward {act or 'plain'} mixtral-8x7b "
                     f"training ({t}, {d}, {f}) {str(dtype)[6:]}")
+            want = plain(act, dy, x, ws, gs)
             ns = names(act)
-            err = max(compare(torch, g, w, dtype, f"{what} {nm}")
-                      for nm, g, w in zip(ns, got, plain(act, dy, x, ws, gs)))
-            del got
+            if act is not None and dtype == bf16:  # as held() says
+                err = max(compare(torch, got[3], want[3], dtype,
+                                  f"{what} dpre"), *(
+                    compare(torch, g, w, dtype, f"{what} {nm}")
+                    for nm, g, w in zip(ns, got, MG
+                                        .moe_gmm_gated_bwd_products_plain(
+                                            got[3], x, ws[0], ws[1], gs))))
+            else:
+                err = max(compare(torch, g, w, dtype, f"{what} {nm}")
+                          for nm, g, w in zip(ns, got, want))
+            del got, want
             ms = time_ms(torch, lambda: kernel(act, dy, x, ws, gs), 2)
             plain_ms = time_ms(torch, lambda: plain(act, dy, x, ws, gs), 1)
+            # each of its kernels' device time
+            device_breakdown(torch, what, lambda: kernel(act, dy, x, ws, gs),
+                             top=3)
             e = x.element_size()
             # x, dy and the used experts' weights read; dx and every dw
             # written; the dx and dw products of the rows in the groups and
@@ -1316,10 +1464,16 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
                     replaces="src/repro/models/moe.py:80",
                     backward_of="src/repro/kernels/moe_gmm.py:54",
                     **entry, kernels=(
-                        "gmm_bwd_dx_kernel + gmm_bwd_dw_kernel" if act is None
-                        else "gmm_bwd_gate_kernel (recomputes the gated "
-                             "pair) + gmm_bwd_dx_kernel + gmm_bwd_dw_kernel")
-                    + ": CUDA cores, 64 x 64 tiles, f32 accumulation")
+                        "f32 and bf16 off TMA's conditions: "
+                        + ("" if act is None else "gmm_bwd_gate_kernel "
+                           "(recomputes the gated pair) + ")
+                        + "gmm_bwd_dx_kernel + gmm_bwd_dw_kernel: CUDA "
+                        "cores, register-blocked 128 x 128 tiles, 8 x 8 a "
+                        "thread, cp.async into two buffers; bf16: "
+                        + ("" if act is None else "gmm_bwd_gate_tma_kernel + ")
+                        + "gmm_bwd_dx_tma_kernel + gmm_bwd_dw_tma_kernel: "
+                        "wgmma fed by TMA, dw's ragged slice zeroed in "
+                        "shared memory"))
             else:
                 table[name]["bf16_case"] = entry
         del x, ws, gs, dy
@@ -2440,11 +2594,14 @@ def phase_train(torch, arch: str) -> dict:
              f"{TRAIN_BATCH} x {TRAIN_SEQ}")
     rows = device_breakdown(torch, label, lambda: step(params, state, batch),
                             top=12)
+    busy = sum(r[0] for r in rows)
     for what, names in TRAIN_PROFILED[arch]:
         mine = [(ms, n) for ms, n, name in rows
                 if any(k in name for k in names)]
-        print(f"[profile] {label}: {what} {sum(m for m, _ in mine):.3f} ms "
-              f"a step over {sum(n for _, n in mine)} launches", flush=True)
+        ms = sum(m for m, _ in mine)
+        print(f"[profile] {label}: {what} {ms:.3f} ms a step over "
+              f"{sum(n for _, n in mine)} launches, {100 * ms / busy:.1f}% "
+              f"of the step's device busy time", flush=True)
     del params, state, batch
     return launches
 

@@ -45,6 +45,15 @@ place of the reference's ``make_serve_step`` over ``abstract_cache``), and
 detect is derived from predict. Parameters are bf16 and the moments f32,
 as the reference's ``abstract_train_state`` makes them; predict and train
 take the analytic flops of ``launch/flops.py``, as the reference does.
+train's bytes differ by design (ROADMAP C13): the reference compiles its
+step with ``flash_jnp``, whose 512-key block is the whole key range at S =
+512, so XLA's program materialises the score matrices (7.70e9 B a step by
+its cost analysis); the port probes the step it runs, through the fused
+flash op that reads q, k, v and writes o and lse (2.72e9 B). The port's
+materialising paths count more than XLA (``flash_plain`` 1.65e10, ``naive``
+1.29e10: eager PyTorch counts each elementwise pass over the scores, XLA
+fuses them), so the reference lies between the two kinds of count;
+``tests/test_torch_nn_workloads.py`` holds that.
 """
 from __future__ import annotations
 

@@ -115,17 +115,8 @@ struct Strides {  // element strides of one [B, H, S, D] operand (D stride is 1)
   long long b, h, s;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using hopper::cp_async16;
+using hopper::cp_async_commit;
 
 // rows [r0, r0 + R) of a [S, D] f32 operand whose rows are `stride` elements
 // apart (each starting on 16 bytes) into shared memory (row stride LDS),
@@ -317,7 +308,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
 
   for (int i = 0; i < n; ++i) {
-    cp_async_wait_all();
+    hopper::cp_async_wait<0>();
     __syncthreads();  // tile i landed; every reader of tile i - 1 is done
     if (i + 1 < n) stage(i + 1);
     cp_async_commit();
@@ -1028,7 +1019,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
 
   for (int i = 0; i < n; ++i) {
-    cp_async_wait_all();
+    hopper::cp_async_wait<0>();
     __syncthreads();  // tile i landed; every reader of tile i - 1 is done
     if (i + 1 < n) stage(i + 1);
     cp_async_commit();
@@ -1130,7 +1121,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NM * VW; ++c) acc[r][c] = 0.f;
 
   for (int i = 0; i < n; ++i) {
-    cp_async_wait_all();
+    hopper::cp_async_wait<0>();
     __syncthreads();
     if (i + 1 < n) stage(i + 1);
     cp_async_commit();

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// mbarriers, TMA tile copies, wgmma products and their shared-memory
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile copies, cp.async copies, wgmma products and their shared-memory
 // descriptors, register hand-over between warpgroups, and the host-side
 // encoding of TMA descriptors. Written against the PTX ISA (8.0+); every
 // function is a thin wrapper over one instruction or a short fixed sequence.
@@ -86,6 +86,28 @@ __device__ __forceinline__ void named_barrier(uint32_t id, uint32_t count) {
 // hand-over whose consumer waits with named_barrier (the count covers both).
 __device__ __forceinline__ void named_barrier_arrive(uint32_t id, uint32_t count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// cp.async: `bytes` (4 or 16) of global memory at `src` into shared memory at
+// `dst`, or zeros where `valid` is false (src is then not read, but must be a
+// mapped address). 16-byte copies bypass L1. Not waited for: commit the
+// group, then wait until at most N groups are in flight.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Register hand-over between warpgroups: every warp of a warpgroup executes
@@ -369,9 +391,10 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A and B in shared memory (descriptors),
-// A K-major and B MN-major (the transpose-B bit set).
-__device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A and B in shared memory (descriptors);
+// TA / TB = 1: that operand is MN-major (its transpose bit set), 0: K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
@@ -384,7 +407,7 @@ __device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t a, ui
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -401,7 +424,7 @@ __device__ __forceinline__ void wgmma_ss_n256_tb(float (&d)[128], uint64_t a, ui
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 template <int N> struct Wgmma;
@@ -422,7 +445,8 @@ template <> struct Wgmma<192> {
 };
 template <> struct Wgmma<256> {
   static __device__ __forceinline__ void rs_tb(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n256_tb(d, a, b, acc); }
-  static __device__ __forceinline__ void ss_tb(float (&d)[128], uint64_t a, uint64_t b, int acc) { wgmma_ss_n256_tb(d, a, b, acc); }
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int acc) { wgmma_ss_n256<TA, TB>(d, a, b, acc); }
 };
 
 // ---------------------------------------------------------------------------

@@ -33,15 +33,20 @@ op ``repro_torch::moe_gmm_bwd``, ``(dx, dw)``: ``dx = dy w[e]^T`` per row
 group). ``moe_gmm_gated`` saves x, wi and wg, and its backward,
 ``repro_torch::moe_gmm_gated_bwd``, ``(dx, dwi, dwg, dpre)``, recomputes the
 two pre-activations instead of saving them (``csrc/moe_gmm.cu`` says why);
-``dpre`` (f32 ``[2, T, F]``) holds their gradients, which the backward's
-products read: it is an output so that a probe's trace charges it (0.94e9
-B at mixtral-8x7b's training shape), and the autograd formula drops it. On a
-CUDA tensor each launches the backward kernels of ``csrc/moe_gmm.cu`` (the
-CUDA cores, f32 accumulation, deterministic: no atomics, no transposed copy
-of w), on a CPU tensor ``moe_gmm_bwd_plain`` / ``moe_gmm_gated_bwd_plain``,
-the chain rule of the plain forwards in f32. Flop formulas ``4·T·D·F`` and
-``12·T·D·F``. ``BWD_LAUNCHES`` counts every backward op's launch (its
-kernels run in one call), ``GATED_BWD_LAUNCHES`` the gated op's alone.
+``dpre`` (``[2, T, F]``, f32 for f32 inputs and bf16 for bf16 ones:
+``dpre_dtype``) holds their gradients, which the backward's products read:
+it is an output so that a probe's trace charges it (0.94e9 B at
+mixtral-8x7b's f32 training shape), and the autograd formula drops it. On a
+CUDA tensor each launches the backward kernels of ``csrc/moe_gmm.cu`` on the
+route ``gmm_bwd_route`` picks (f32 accumulation, deterministic: no atomics,
+no transposed copy of w): ``"f32"`` and ``"cuda_cores"`` (bf16 widths off 8,
+unaligned pointers or no rows) on the CUDA cores, ``"wgmma"`` (bf16
+otherwise) on the tensor cores; on a CPU tensor ``moe_gmm_bwd_plain`` /
+``moe_gmm_gated_bwd_plain``, the chain rule of the plain forwards in f32,
+with dpre rounded to bf16 for bf16 inputs as the card rounds it. Flop
+formulas ``4·T·D·F`` and ``12·T·D·F``. ``BWD_LAUNCHES`` counts every
+backward op's launch (its kernels run in one call), ``GATED_BWD_LAUNCHES``
+the gated op's alone.
 """
 from __future__ import annotations
 
@@ -62,13 +67,14 @@ GATED_BWD_LAUNCHES = build.LaunchCounter()
 MAX_EXPERTS = 256
 ACTS = {"silu_gated": 1, "gelu_gated": 2}
 ROUTES = {"small": 0, "wgmma": 1, "f32": 0}
+BWD_ROUTES = {"f32": 0, "cuda_cores": 0, "wgmma": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _GATED_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _GATED_BWD_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, _P]
+                       _I, _I, _I, _P]
 # every C entry point of csrc/moe_gmm.cu with its ctypes signature
 ENTRY_POINTS = {"repro_moe_gmm": _ARGTYPES,
                 "repro_moe_gmm_gated": _GATED_ARGTYPES,
@@ -87,6 +93,27 @@ def gmm_route(dtype: torch.dtype, t: int, d: int, f: int, e: int,
     if d % 8 or f % 8 or d == 0 or not aligned or t <= 16 * e:
         return "small"
     return "wgmma"
+
+
+def gmm_bwd_route(dtype: torch.dtype, t: int, d: int, f: int,
+                  aligned: bool) -> str:
+    """The backward's kernels for these operands: ``"f32"`` for float32;
+    for bfloat16 ``"wgmma"`` where TMA can take them (d and f multiples of
+    8 and above 0, at least one row, every pointer 16-byte aligned:
+    ``aligned``), else ``"cuda_cores"``."""
+    if dtype == torch.float32:
+        return "f32"
+    if d % 8 or f % 8 or not (d and f and t) or not aligned:
+        return "cuda_cores"
+    return "wgmma"
+
+
+def dpre_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The gated backward's dpre for inputs of ``dtype``: bf16 stays bf16
+    (the tensor cores take bf16 operands, and the reference's bf16 autodiff
+    holds these gradients in bf16 too); others keep their arithmetic
+    type."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else _acc(dtype)
 
 
 def _expert_of(t: int, group_sizes: torch.Tensor, device) -> torch.Tensor:
@@ -170,18 +197,37 @@ def moe_gmm_gated_bwd_plain(dh: torch.Tensor, x: torch.Tensor,
     """(dx, dwi, dwg, dpre) of ``moe_gmm_gated_plain`` for the output
     gradient dh [T, F]: the pre-activations a = x wi[e], g = x wg[e]
     recomputed, da = dh g act'(a), dg = dh act(a) (zeros past the groups;
-    ``dpre`` is [da, dg]), then the plain backward of each product, summed
-    into dx; in f32 (f64 for f64 inputs), rounded once."""
+    ``dpre`` is [da, dg] in ``dpre_dtype``: rounded to bf16 for bf16 inputs,
+    as the card's kernels round them before their products), then the plain
+    backward of each product, summed into dx; in f32 (f64 for f64 inputs),
+    rounded once."""
     acc = _acc(x.dtype)
     xf, hf = x.to(acc), dh.to(acc)
     a = moe_gmm_plain(xf, wi.to(acc), group_sizes)
     g = moe_gmm_plain(xf, wg.to(acc), group_sizes)
-    da = hf * g * _gated_act_grad(a, act)
-    dg = hf * gated_act(a, act)
+    dpre = torch.stack([hf * g * _gated_act_grad(a, act),
+                        hf * gated_act(a, act)]).to(dpre_dtype(x.dtype))
+    return (*moe_gmm_gated_bwd_products_plain(dpre, x, wi, wg, group_sizes),
+            dpre)
+
+
+def moe_gmm_gated_bwd_products_plain(dpre: torch.Tensor, x: torch.Tensor,
+                                     wi: torch.Tensor, wg: torch.Tensor,
+                                     group_sizes: torch.Tensor):
+    """(dx, dwi, dwg) of the gated pair from its pre-activations' gradients
+    ``dpre`` = [da, dg] [2, T, F], the second half of
+    ``moe_gmm_gated_bwd_plain``: the plain backward of each product, summed
+    into dx, in f32 (f64 for f64 inputs), rounded once. Given the kernels'
+    own dpre, it is their products' plain version on the same inputs: where
+    da or dg is rounded to bf16, two right implementations may round an
+    element near a rounding boundary apart by one bf16 unit, which dw then
+    carries times x."""
+    acc = _acc(x.dtype)
+    xf = x.to(acc)
+    da, dg = dpre.to(acc)
     dx_i, dwi = moe_gmm_bwd_plain(da, xf, wi.to(acc), group_sizes)
     dx_g, dwg = moe_gmm_bwd_plain(dg, xf, wg.to(acc), group_sizes)
-    return ((dx_i + dx_g).to(x.dtype), dwi.to(wi.dtype), dwg.to(wg.dtype),
-            torch.stack([da, dg]))
+    return (dx_i + dx_g).to(x.dtype), dwi.to(wi.dtype), dwg.to(wg.dtype)
 
 
 def _check(x: torch.Tensor, ws, group_sizes: torch.Tensor) -> None:
@@ -246,8 +292,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
 
 
 def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                group_sizes: torch.Tensor, wg=None, act=None):
-    """One call of the backward kernels: (dx, dw) of the plain product, or
+                group_sizes: torch.Tensor, wg=None, act=None, route=None):
+    """One call of the backward kernels on the route ``route`` names (by
+    default ``gmm_bwd_route``'s choice): (dx, dw) of the plain product, or
     with ``wg`` and ``act`` (dx, dwi, dwg, dpre) of the gated one, ``dy``
     being the output's gradient."""
     ws = (w,) if wg is None else (w, wg)
@@ -262,27 +309,36 @@ def _launch_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     dy = dy.contiguous()
     dx = torch.empty((t, d), dtype=x.dtype, device=x.device)
     dws = [torch.empty(w.shape, dtype=x.dtype, device=x.device) for _ in ws]
+    if wg is not None:
+        # the pre-activations' gradients, [2, T, F]
+        extra = (torch.empty((2, t, f), dtype=dpre_dtype(x.dtype),
+                             device=x.device),)
+    if route is None:
+        aligned = all(v.data_ptr() % 16 == 0
+                      for v in (dy, x, *ws, dx, *dws, *extra))
+        route = gmm_bwd_route(x.dtype, t, d, f, aligned)
+    if route not in BWD_ROUTES \
+            or (route == "f32") != (x.dtype == torch.float32):
+        raise ValueError(f"moe_gmm backward: no route {route!r} for "
+                         f"{x.dtype}")
     sizes = group_sizes.to(torch.int32).contiguous()  # stays on the card
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        dims = (t, d, f, e, _DTYPES[x.dtype])
+        dims = (t, d, f, e, _DTYPES[x.dtype], BWD_ROUTES[route])
         if wg is None:
             fn = build.load("moe_gmm", "repro_moe_gmm_bwd", _BWD_ARGTYPES)
             rc = fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(),
                     sizes.data_ptr(), dx.data_ptr(), dws[0].data_ptr(),
                     *dims, stream)
         else:
-            # the pre-activations' gradients, f32 [2, T, F]
-            dpre = torch.empty((2, t, f), dtype=torch.float32,
-                               device=x.device)
-            extra = (dpre,)
+            dpre, = extra
             fn = build.load("moe_gmm", "repro_moe_gmm_gated_bwd",
                             _GATED_BWD_ARGTYPES)
             rc = fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(),
                     wg.data_ptr(), sizes.data_ptr(), dpre.data_ptr(),
                     dx.data_ptr(), dws[0].data_ptr(), dws[1].data_ptr(),
                     *dims, ACTS[act], stream)
-    build.check(rc, "moe_gmm backward")
+    build.check(rc, f"moe_gmm backward ({route} route)")
     BWD_LAUNCHES.add()
     if wg is not None:
         GATED_BWD_LAUNCHES.add()
@@ -370,7 +426,8 @@ def _gated_bwd_op(dh: torch.Tensor, x: torch.Tensor, wi: torch.Tensor,
 @_gated_bwd_op.register_fake
 def _(dh, x, wi, wg, group_sizes, act):
     return (torch.empty_like(x), torch.empty_like(wi), torch.empty_like(wg),
-            x.new_empty((2, x.shape[0], wi.shape[2]), dtype=torch.float32))
+            x.new_empty((2, x.shape[0], wi.shape[2]),
+                        dtype=dpre_dtype(x.dtype)))
 
 
 @register_flop_formula(torch.ops.repro_torch.moe_gmm_gated_bwd, get_raw=True)

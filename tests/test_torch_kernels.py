@@ -247,6 +247,34 @@ def test_ctypes_argtypes_match_gated_gmm_signature():
             f"parameter {i} is {kind} in C but {argtype} in _GATED_ARGTYPES"
 
 
+@pytest.mark.parametrize("symbol,argtypes", [
+    ("repro_moe_gmm_bwd", "_BWD_ARGTYPES"),
+    ("repro_moe_gmm_gated_bwd", "_GATED_BWD_ARGTYPES")])
+def test_ctypes_argtypes_match_gmm_bwd_signatures(symbol, argtypes):
+    """The grouped matmul's backward entry points against their ctypes
+    signatures, parameter by parameter, now that each takes the route (the
+    CUDA cores or the tensor cores) after the dtype: every pointer (the
+    gated one's bf16 or f32 scratch among them) a ``c_void_p``, every int a
+    ``c_int``, and the route where the wrapper passes it."""
+    from repro_torch.kernels import moe_gmm as MG
+    source = (build.CSRC / "moe_gmm.cu").read_text()
+    kinds = _c_params(source, symbol)
+    types = getattr(MG, argtypes)
+    assert MG.ENTRY_POINTS[symbol] is types
+    assert len(kinds) == len(types)
+    for i, (kind, argtype) in enumerate(zip(kinds, types)):
+        assert argtype is _CTYPE_OF[kind], \
+            f"parameter {i} is {kind} in C but {argtype} in {argtypes}"
+    m = re.search(r'extern\s+"C"\s+int\s+' + symbol + r'\s*\(([^)]*)\)',
+                  source)
+    names = [p.replace("*", " ").split()[-1] for p in m.group(1).split(",")]
+    assert names[names.index("dtype") + 1] == "route"
+    assert names[-1] == "stream"
+    if symbol == "repro_moe_gmm_gated_bwd":
+        assert names[names.index("route") + 1] == "act"
+        assert names.index("scratch") == 5
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels themselves (run on the card only)
 # ---------------------------------------------------------------------------

@@ -706,6 +706,119 @@ def test_gmm_bwd_fake_shapes_and_flops():
     assert fc.get_total_flops() == 12 * 40 * 8 * 6
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_bwd_fake_scratch_is_the_routes_dtype(dtype):
+    """The gated backward's fake returns dpre in the dtype each route
+    allocates (``dpre_dtype``): f32 for f32 inputs, bf16 for bf16 ones on
+    either bf16 route, the tensor cores' and the CUDA cores' (widths off 8,
+    no rows), so a probe charges what the card allocates; the plain version
+    (the CPU path) returns the same dtype."""
+    assert MG.dpre_dtype(dtype) == dtype
+    gs = torch.tensor([10, 0, 20], dtype=torch.int32)
+    for t, d, f in [(40, 8, 16), (40, 6, 10), (0, 8, 16)]:
+        routes = {MG.gmm_bwd_route(dtype, t, d, f, True)}
+        x, w, dy = (torch.zeros(s, dtype=dtype)
+                    for s in ((t, d), (3, d, f), (t, f)))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            dpre = torch.ops.repro_torch.moe_gmm_gated_bwd(
+                dy, x, w, w, gs, "silu_gated")[3]
+        assert dpre.dtype == dtype and dpre.shape == (2, t, f), routes
+        plain = MG.moe_gmm_gated_bwd_plain(dy, x, w, w, gs, "silu_gated")[3]
+        assert plain.dtype == dtype and plain.shape == (2, t, f)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gmm_bwd_route_by_dtype_shape_and_alignment(aligned):
+    """The backward's route: f32 on the CUDA cores always; bf16 on the
+    tensor cores where TMA takes the operands (widths multiples of 8 above
+    0, at least one row, 16-byte aligned pointers), else on the CUDA
+    cores. ``ROUTES``/``BWD_ROUTES`` give the C side's route numbers."""
+    bf16 = torch.bfloat16
+    assert MG.gmm_bwd_route(torch.float32, 8192, 4096, 14336,
+                            aligned) == "f32"
+    want = "wgmma" if aligned else "cuda_cores"
+    assert MG.gmm_bwd_route(bf16, 8192, 4096, 14336, aligned) == want
+    assert MG.gmm_bwd_route(bf16, 1, 8, 8, aligned) == want
+    for t, d, f in [(77, 50, 70), (200, 72, 132), (0, 64, 64), (5, 0, 8),
+                    (5, 8, 0)]:
+        assert MG.gmm_bwd_route(bf16, t, d, f, aligned) == "cuda_cores"
+    assert MG.BWD_ROUTES == {"f32": 0, "cuda_cores": 0, "wgmma": 1}
+
+
+# (dtype, t, d, f, e, aligned) -> the forward's route, as before the
+# backward got its own routes: float32 always "f32"; bf16 "wgmma" where TMA
+# takes the operands and more than 16 rows an expert on average
+@pytest.mark.parametrize("args,route", [
+    ((torch.float32, 8192, 4096, 14336, 8, True), "f32"),
+    ((torch.float32, 7, 5, 3, 2, False), "f32"),
+    ((torch.bfloat16, 8192, 4096, 14336, 8, True), "wgmma"),
+    ((torch.bfloat16, 8, 4096, 14336, 8, True), "small"),
+    ((torch.bfloat16, 129, 64, 64, 8, True), "wgmma"),
+    ((torch.bfloat16, 128, 64, 64, 8, True), "small"),
+    ((torch.bfloat16, 8192, 4096, 14336, 8, False), "small"),
+    ((torch.bfloat16, 8192, 4092, 14336, 8, True), "small"),
+    ((torch.bfloat16, 8192, 0, 14336, 8, True), "small")])
+def test_gmm_forward_route_is_unchanged_for_every_dtype(args, route):
+    assert MG.gmm_route(*args) == route
+
+
+def _round_grad(t):
+    """Identity whose gradient is rounded to bf16 on its way back."""
+    class RoundGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a):
+            return a.view_as(a)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.to(torch.bfloat16).to(g.dtype)
+    return RoundGrad.apply(t)
+
+
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+@pytest.mark.parametrize("act", ["silu_gated", "gelu_gated"])
+def test_gmm_gated_bwd_bf16_roundings_within_card_tolerance(act, case):
+    """The bf16 gated backward rounds da and dg to bf16 before its products
+    (the tensor cores take bf16 operands), and the plain version emulates
+    it: its dx, dwi, dwg are within the card checks' bf16 tolerance (2e-2,
+    of each gradient's largest magnitude, as the other bf16 checks against
+    the reference) of ``jax.vjp`` of the reference's composition in bf16,
+    whose autodiff holds these gradients in bf16 too. The emulation equals
+    autograd through the plain f32 forward with the pre-activations'
+    gradients rounded to bf16, and the rounding moves the result: the
+    check is not vacuous."""
+    t, groups = case
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((t, 48), dtype=np.float32)
+    ws = [rng.standard_normal((len(groups), 48, 40), dtype=np.float32) / 7
+          for _ in range(2)]
+    dy = rng.standard_normal((t, 40), dtype=np.float32)
+    jx, jdy, *jws = (jnp.asarray(a, jnp.bfloat16) for a in (x, dy, *ws))
+    want = _jax_gmm_vjp(jx, jws, groups, act, jdy)
+    tx, tdy, *tws = (convert.to_torch(np.asarray(a)) for a in (jx, jdy, *jws))
+    gs = torch.tensor(groups, dtype=torch.int32)
+    got = MG.moe_gmm_gated_bwd_plain(tdy, tx, *tws, gs, act)
+    assert got[3].dtype == torch.bfloat16
+    for g, w in zip(got[:3], want):
+        np.testing.assert_allclose(
+            convert.to_numpy(g).astype(np.float32), w, rtol=2e-2,
+            atol=2e-2 * max(float(np.abs(w).max()), 1.0))
+    # the same roundings through autograd of the plain forward in f32
+    leaves = [v.float().requires_grad_(True) for v in (tx, *tws)]
+    a = _round_grad(MG.moe_gmm_plain(leaves[0], leaves[1], gs))
+    g = _round_grad(MG.moe_gmm_plain(leaves[0], leaves[2], gs))
+    ref = torch.autograd.grad(MG.gated_act(a, act) * g, leaves, tdy.float())
+    unrounded = MG.moe_gmm_gated_bwd_plain(tdy.float(), *(v.float() for v in
+                                                          (tx, *tws)),
+                                           gs, act)
+    moved = 0.0
+    for gb, r, u in zip(got[:3], ref, unrounded[:3]):
+        torch.testing.assert_close(gb, r.to(torch.bfloat16), rtol=1e-2,
+                                   atol=1e-2 * float(r.abs().max()))
+        moved = max(moved, float((r - u).abs().max()))
+    assert moved > 0.0
+
+
 @pytest.mark.parametrize("act", ["silu_gated", "squared_relu"])
 def test_moe_apply_gradients_reach_the_router_as_jax(act):
     """Autograd through the port's MoE layer (grouped matmuls with their
@@ -739,9 +852,15 @@ def test_moe_apply_gradients_reach_the_router_as_jax(act):
 
 @pytest.mark.gpu
 def test_cuda_gmm_bwd_matches_plain_on_card():
-    """The backward kernels (plain and gated, f32 and bf16) against the
-    plain backward (bf16 atol = rtol = 2e-2, f32 1e-4), the same bits on
-    two calls, dx zero past the groups, one counted launch a call."""
+    """The backward kernels (plain and gated, f32 and bf16, on the route
+    the op picks and on each route forced) against the plain backward
+    (bf16 atol = rtol = 2e-2, f32 1e-4), the same bits on two calls, dx
+    zero past the groups, one counted launch a call. The gated pair's
+    dpre is held against the plain version's; in bf16 both round it, and
+    an element at a rounding boundary may round one bf16 unit apart, which
+    dw carries times x, so there dx, dwi and dwg are held against the plain
+    products of the kernels' own dpre
+    (``moe_gmm_gated_bwd_products_plain``): the same inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
     dev = torch.device("cuda", 0)
@@ -755,24 +874,43 @@ def test_cuda_gmm_bwd_matches_plain_on_card():
                      for s in ((t, d), (t, f)))
             ws = [(torch.randn(len(groups), d, f, generator=gen, device=dev)
                    / d ** 0.5).to(dtype) for _ in range(2)]
-            for act in (None, "silu_gated", "gelu_gated"):
+            # the op's pick, then each route forced
+            routes = [None] + (["f32"] if dtype == torch.float32 else sorted(
+                {"cuda_cores", MG.gmm_bwd_route(dtype, t, d, f, True)}))
+            for act, route in [(a, r) for a in (None, "silu_gated",
+                                                 "gelu_gated")
+                               for r in routes]:
                 before = MG.BWD_LAUNCHES.value
                 if act is None:
                     def call():
+                        if route:
+                            return MG._launch_bwd(dy, x, ws[0], gs,
+                                                  route=route)
                         return torch.ops.repro_torch.moe_gmm_bwd(
                             dy, x, ws[0], gs)
                     want = MG.moe_gmm_bwd_plain(dy, x, ws[0], gs)
                 else:
                     def call():
+                        if route:
+                            return MG._launch_bwd(dy, x, ws[0], gs,
+                                                  wg=ws[1], act=act,
+                                                  route=route)
                         return torch.ops.repro_torch.moe_gmm_gated_bwd(
-                            dy, x, *ws, gs, act)[:3]
-                    want = MG.moe_gmm_gated_bwd_plain(dy, x, *ws, gs,
-                                                      act)[:3]
+                            dy, x, *ws, gs, act)
+                    want = MG.moe_gmm_gated_bwd_plain(dy, x, *ws, gs, act)
                 got, again = call(), call()
                 torch.cuda.synchronize()
                 assert MG.BWD_LAUNCHES.value == before + 2
+                if act is not None:
+                    torch.testing.assert_close(got[3].float(),
+                                               want[3].float(), rtol=tol,
+                                               atol=tol)
+                    if dtype == torch.bfloat16:
+                        want = MG.moe_gmm_gated_bwd_products_plain(
+                            got[3], x, *ws, gs)
                 for g, w, g2 in zip(got, want, again):
                     torch.testing.assert_close(g.float(), w.float(),
                                                rtol=tol, atol=tol)
                     assert torch.equal(g, g2)
+                assert torch.equal(got[-1], again[-1])
                 assert not bool(got[0][sum(groups):].ne(0).any())
