@@ -12,7 +12,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    printed with the card's name and power limit (fails where a footprint
    misses its target by more than 25%); then ``repro_torch.bench``'s Fig. 5
    and Table II on vectors probed on the card, with their PASS/MISS band
-   lines (printed, not enforced, as the reference does). Then the four NN
+   lines (printed, not enforced, as the reference does), and
+   ``repro_torch.bench.preempt``'s (preemptive EDF against FIFO, EDF and
+   shedding on the overload trace, on the virtual clock). Then the four NN
    jobs of §V-E probed on the card from the port's prefill, train and
    decode steps, beside the same probes on the CPU and the reference's
    vectors, and Fig. 6 on the card's vectors with its band lines.
@@ -73,7 +75,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    mixtral-8x7b (the grouped matmul's backward, the aux loss) trained 3
    steps of 2 x 128 on the card and on the CPU from one seed: losses, grad
    norms, parameters and moments within the CPU parity tests' tolerances
-   (10x where absolute).
+   (10x where absolute); and reduced gemma2-9b with bf16 parameters, a
+   batch of 4 in 2 microbatches and every layer under ``remat_policy=
+   "dots"``, 3 steps, within the CPU bf16 parity test's tolerances
+   (``BF16_TOL``, 10x where absolute).
 7. serve, one main path per model, each through probe -> MGB admission ->
    executor with the launch counters zeroed just before and read just
    after, every kernel's count checked exactly. Each pool worker keeps one
@@ -143,6 +148,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``torch.profiler`` breakdown of one step, with the ms a step of the
    kernels each path leans on (the scan's and the grouped matmul's
    backward among them).
+11. preempt (``phase_preempt``): one card, 2 pool workers, probe ->
+   ``PreemptiveAlg3Scheduler`` -> executor. A falcon-mamba-7b training
+   task at every published width (f32, batch 4 x 1024, remat full,
+   priority 0, 6 steps; its depth the least whose probe and the urgent
+   batch's exceed the scheduler's memory, each fitting alone) is evicted
+   after step 2 by one static mixtral-8x7b batch (24 layers, bf16, 4 x 1024
+   prompts, 32 tokens, priority 5, a deadline) that makes its weights in
+   the task. The training task checkpoints step 2 and returns; the batch
+   begins after it has left (the executor's fence), then the training task
+   restores step 2 from its checkpoint's host copy, resumes and writes
+   the checkpoint to the disk beside its steps. Fails unless one eviction, of the training
+   task, the batch admitted after it, nothing crashed, the batch's tokens
+   equal the batch served alone, the resumed run equals an uninterrupted
+   one within the f32 train tolerances (bits expected; the differences
+   printed), the card holds at most the pool's reserve at the batch's
+   BEGIN, probe/observed >= 1.0 for the batch and the resumed attempt, and
+   the launches are exactly the formula's. Prints the eviction latency,
+   the checkpoint's bytes, copy, write and restore times, and the batch's
+   TTFT against waiting out the training task.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -1560,6 +1584,7 @@ def phase_paper(torch, gpu: str, dev=None) -> None:
     vectors their mixes draw, probed on the card, with their band lines
     (printed, not enforced, as the reference does)."""
     from repro_torch.bench import fig5_throughput, table2_crashes
+    from repro_torch.bench import preempt as bench_preempt
     from repro_torch.core import workloads as W
     dev = dev or torch.device("cuda", 0)
     for fam in sorted(W.EFFICIENCY):
@@ -1577,6 +1602,9 @@ def phase_paper(torch, gpu: str, dev=None) -> None:
     table2_crashes.run(device=dev)
     print(f"[paper] Fig. 5 and Table II on the card's probes in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    # preemptive EDF against waiting and shedding on the overload trace
+    # (synthetic vectors, the virtual clock: nothing runs on the card)
+    bench_preempt.run()
 
 
 def twin_inputs(torch, family: str, gen):
@@ -2364,17 +2392,30 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 5
 TRAIN_LR = 1e-3
 
 
-def phase_train_reduced(torch, arch: str, seq: int = 128,
-                        steps: int = 3) -> None:
+# bf16 training's tolerances, card vs CPU: the CPU parity test's
+# (``tests/test_torch_train.py::BF16_TOL``, bf16 parameters, 2 microbatches,
+# "dots", against the jitted JAX step), 10x where absolute (the loss), as
+# the f32 ones are
+BF16_TOL = {"loss": 1e-1, "grad_norm": 1e-3, "moments": 5e-2, "far": 1e-2}
+
+
+def phase_train_reduced(torch, arch: str, seq: int = 128, steps: int = 3,
+                        param_dtype=None, micro=None, remat=None,
+                        batch: int = 2) -> None:
     """A reduced model trained ``steps`` steps on the card (hand kernels
     and their backward kernels) and on the CPU (plain versions) from one
-    seed, on the same ``TokenPipeline`` batches, in f32. Held to the CPU
-    parity tests' tolerances (``tests/test_torch_train.py``) widened 10x
-    for the card's summation order where they are absolute: losses within
-    1e-3, grad norms within 1e-3 relative, moments within 1e-3 of their
-    largest magnitude; parameters as there, relative to lr (every element
-    within lr, all but 1e-3 of them within 1e-2 lr: an element whose
-    gradient is a rounding error's size may move up to ~lr either way)."""
+    seed, on the same ``TokenPipeline`` batches. In f32 (the default) it is
+    held to the CPU parity tests' tolerances (``tests/test_torch_train.py``)
+    widened 10x for the card's summation order where they are absolute:
+    losses within 1e-3, grad norms within 1e-3 relative, moments within
+    1e-3 of their largest magnitude; parameters as there, relative to lr
+    (every element within lr, all but 1e-3 of them within 1e-2 lr: an
+    element whose gradient is a rounding error's size may move up to ~lr
+    either way). With bf16 parameters (``param_dtype``, optionally
+    ``micro`` microbatches and a ``remat`` policy) it is held to
+    ``BF16_TOL``: every parameter within 2 x steps x lr + 2^-7 |w| of the
+    CPU's, all but 1% within lr + 2^-8 |w| (one bf16 rounding apart)."""
+    import dataclasses
     from torch.utils._pytree import tree_leaves, tree_map
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import get_arch
@@ -2384,14 +2425,19 @@ def phase_train_reduced(torch, arch: str, seq: int = 128,
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
     cfg = get_arch(arch).reduced()
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat)
+    dtype = param_dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
-    start = init_params(cfg, torch.Generator().manual_seed(0))
+    start = init_params(cfg, torch.Generator().manual_seed(0), dtype)
     runs = {}
     for dev in (torch.device("cpu"), torch.device("cuda", 0)):
         params = tree_map(lambda t: t.clone().to(dev), start)
         state = adamw.init_state(opt, params)
-        step = make_train_step(cfg, opt)
-        pipe = TokenPipeline(cfg, ShapeConfig("t", seq, 2, "train"), seed=0)
+        step = make_train_step(cfg, opt, num_microbatches=micro)
+        pipe = TokenPipeline(cfg, ShapeConfig("t", seq, batch, "train"),
+                             seed=0)
         metrics = []
         for i in range(steps):
             params, state, m = step(params, state,
@@ -2403,22 +2449,37 @@ def phase_train_reduced(torch, arch: str, seq: int = 128,
     (cpu_m, cpu_p, cpu_s), (gpu_m, gpu_p, gpu_s) = runs["cpu"], runs["cuda"]
     d_loss = max(abs(a[0] - b[0]) for a, b in zip(cpu_m, gpu_m))
     d_gn = max(abs(a[1] - b[1]) / b[1] for a, b in zip(cpu_m, gpu_m))
-    errs = torch.cat([(a - b).abs().flatten()
-                      for a, b in zip(tree_leaves(gpu_p), tree_leaves(cpu_p))])
-    far = int((errs > 1e-2 * TRAIN_LR).sum())
+    g = torch.cat([x.float().flatten() for x in tree_leaves(gpu_p)])
+    w = torch.cat([x.float().flatten() for x in tree_leaves(cpu_p)])
+    errs = (g - w).abs()
+    if bf16:
+        far = int((errs > TRAIN_LR + 2 ** -8 * w.abs()).sum())
+        over = int((errs > 2 * steps * TRAIN_LR + 2 ** -7 * w.abs()).sum())
+    else:
+        far = int((errs > 1e-2 * TRAIN_LR).sum())
+        over = int((errs > TRAIN_LR).sum())
     d_mom = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for key in ("mu", "nu") for a, b in
                 zip(tree_leaves(gpu_s[key]), tree_leaves(cpu_s[key])))
-    print(f"[train-reduced] {cfg.name}, {steps} steps of 2 x {seq}, card vs "
-          f"CPU: losses {[round(m[0], 6) for m in gpu_m]} / "
+    what = (f"{cfg.name}, {steps} steps of {batch} x {seq}"
+            + (f", {str(dtype).split('.')[-1]} parameters" if bf16 else "")
+            + (f", {micro} microbatches" if micro else "")
+            + (f", remat {cfg.remat_policy}" if remat else ""))
+    print(f"[train-reduced] {what}, card vs CPU: losses "
+          f"{[round(m[0], 6) for m in gpu_m]} / "
           f"{[round(m[0], 6) for m in cpu_m]} (max diff {d_loss:.3e}), grad "
           f"norm max rel diff {d_gn:.3e}, parameters max diff "
           f"{float(errs.max()) / TRAIN_LR:.3e} lr with {far} of "
-          f"{errs.numel()} beyond 1e-2 lr, moments max rel diff "
-          f"{d_mom:.3e}", flush=True)
-    if d_loss > 1e-3 or d_gn > 1e-3 or float(errs.max()) > TRAIN_LR \
-            or far > 1e-3 * errs.numel() or d_mom > 1e-3:
-        fail(f"reduced {arch}: training on the card disagrees with the CPU")
+          f"{errs.numel()} beyond "
+          f"{'lr + 2^-8 |w|' if bf16 else '1e-2 lr'} and {over} beyond "
+          f"{'2 x steps x lr + 2^-7 |w|' if bf16 else 'lr'}, moments max "
+          f"rel diff {d_mom:.3e}", flush=True)
+    tol = BF16_TOL if bf16 else {"loss": 1e-3, "grad_norm": 1e-3,
+                                 "moments": 1e-3, "far": 1e-3}
+    if d_loss > tol["loss"] or d_gn > tol["grad_norm"] or over \
+            or far > tol["far"] * errs.numel() or d_mom > tol["moments"]:
+        fail(f"reduced {arch} ({what}): training on the card disagrees "
+             f"with the CPU")
 
 
 def train_probe(torch, cfg, dev):
@@ -2606,6 +2667,299 @@ def phase_train(torch, arch: str) -> dict:
     return launches
 
 
+# the preemption path: a falcon-mamba-7b training task (f32, batch 4 x
+# 1024, remat full, priority 0, no deadline) evicted after PREEMPT_AT of
+# PREEMPT_STEPS steps by one urgent static mixtral-8x7b batch (24 layers,
+# bf16, 4 x 1024 prompts, 32 tokens, priority 5, PREEMPT_DEADLINE_S), on
+# PREEMPT_WORKERS pool workers so the eviction fence is crossed between two
+# pool threads; the training task's depth is the least whose probe and the
+# batch's exceed the scheduler's memory while each fits alone
+PREEMPT_STEPS, PREEMPT_AT, PREEMPT_WORKERS = 6, 2, 2
+PREEMPT_DEADLINE_S = 60.0
+
+
+def _measured(torch, inner, log: list):
+    """``inner`` as a runner that records, per attempt, the bytes allocated
+    on the card at its BEGIN, its peak (the peak statistic reset at BEGIN:
+    on this path nothing else runs on the card meanwhile, the fence and the
+    memory see to it) and the monotonic times of its BEGIN and exit (its
+    stream synchronised)."""
+    def runner(device):
+        rec = {"t_begin": time.monotonic(),
+               "alloc_begin": torch.cuda.memory_allocated(device)}
+        torch.cuda.reset_peak_memory_stats(device)
+        log.append(rec)
+        try:
+            inner(device)
+        finally:
+            torch.cuda.current_stream(device).synchronize()
+            rec["peak"] = torch.cuda.max_memory_allocated(device)
+            rec["t_exit"] = time.monotonic()
+    return runner
+
+
+def phase_preempt(torch, gpu: str) -> dict:
+    """Preemption on one card through probe -> ``PreemptiveAlg3Scheduler``
+    -> executor (``PREEMPT_WORKERS`` pool workers): a full-width
+    falcon-mamba-7b training task (``launch.train.train_job``) is evicted
+    by an urgent mixtral-8x7b batch (``launch.serve.batch_job``, which
+    makes its weights in the task) that does not fit beside it, submitted
+    from the training task's step hook once step ``PREEMPT_AT`` has
+    finished. The training task saves that step and returns; the batch
+    begins only once it has (the executor's fence), is served, and the
+    training task restores that step from its checkpoint's host copy and
+    resumes. Fails unless: one eviction,
+    of the training task, the batch admitted after it; nothing crashed and
+    both DONE; the batch's tokens equal the same batch served alone; the
+    resumed attempt starts at ``PREEMPT_AT`` and its losses, grad norms,
+    parameters and moments equal an uninterrupted run's within the
+    ``[train-reduced]`` f32 tolerances (the largest differences printed;
+    bits expected); the card holds at most the pool's reserve at the
+    batch's BEGIN; probe/observed >= 1.0 for the batch and the resumed
+    attempt; the kernels' launches exactly the formula's, the resumed steps
+    included. Prints the eviction latency, the checkpoint's bytes and
+    times, and the batch's TTFT against waiting out the training task
+    (reckoned from this run's step times, not run)."""
+    import math
+    import shutil
+    import numpy as np
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.core.cluster import Cluster, JobStatus
+    from repro_torch.core.scheduler import (MGBAlg3Scheduler,
+                                            PreemptiveAlg3Scheduler)
+    from repro_torch.launch.serve import batch_job, pool_reserve
+    from repro_torch.launch.train import train, train_job
+    from repro_torch.obs.replay import admission_order, eviction_order
+    dev = torch.device("cuda", 0)
+    fresh_card(torch)
+    free = torch.cuda.mem_get_info(dev)[0]
+    reserve = pool_reserve([dev], PREEMPT_WORKERS)
+    hbm = free - reserve
+    ucfg = full_cfg("mixtral-8x7b", MIXTRAL_LAYERS)
+    gen_len = 32
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, ucfg.vocab, (4, 1024), dtype=np.int64))
+
+    def urgent_job(name):
+        return batch_job(ucfg, prompts, gen_len=gen_len, seed=0,
+                         param_dtype=torch.bfloat16, device=dev, name=name)
+
+    t = time.perf_counter()
+    urgent = urgent_job("urgent")
+    u_vec = urgent.vec
+    print(f"[preempt] {gpu}: the urgent batch, mixtral-8x7b at every "
+          f"published width, {MIXTRAL_LAYERS} of 32 layers, bf16, 4 x 1024 "
+          f"prompts, {gen_len} tokens, priority 5, deadline "
+          f"{PREEMPT_DEADLINE_S:g} s, its weights made in the task: probe "
+          f"hbm {u_vec.hbm_bytes} B (traced in {time.perf_counter() - t:.1f}"
+          f" s); the scheduler's memory {hbm} B ({free} B free less the "
+          f"pool's reserve {reserve} B for {PREEMPT_WORKERS} workers)",
+          flush=True)
+    if u_vec.hbm_bytes > hbm:
+        fail(f"preempt: the urgent batch ({u_vec.hbm_bytes} B) does not fit "
+             f"the card alone")
+    ckpt_dir = os.path.join(HERE, "build", "preempt_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    box = {}
+
+    def on_step(k):
+        if k == PREEMPT_AT and "urgent" not in box:
+            box["t_submit"] = time.monotonic()
+            box["urgent"] = cluster.submit(urgent.ej, priority=5,
+                                           deadline_s=PREEMPT_DEADLINE_S)
+
+    kw = dict(steps=PREEMPT_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              reduced=False, lr=TRAIN_LR, log_every=1)
+    n = 0
+    while True:
+        n += 1
+        t = time.perf_counter()
+        run = train_job("falcon-mamba-7b", n_layers=n, device=dev,
+                        ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
+                        on_step=on_step, keep_state=True, **kw)
+        t_vec = run.vec
+        print(f"[preempt] the training task at {n} layer(s), f32, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat full: probe hbm "
+              f"{t_vec.hbm_bytes} B (traced in "
+              f"{time.perf_counter() - t:.1f} s); with the urgent batch "
+              f"{t_vec.hbm_bytes + u_vec.hbm_bytes} B against {hbm} B",
+              flush=True)
+        if t_vec.hbm_bytes > hbm:
+            fail("preempt: the training task does not fit the card alone")
+        if t_vec.hbm_bytes + u_vec.hbm_bytes > hbm:
+            break
+    vcfg = run.cfg
+    attempts, u_log = [], []
+    run.ej.runners[0] = _measured(torch, run.ej.runners[0], attempts)
+    urgent.ej.runners[0] = _measured(torch, urgent.ej.runners[0], u_log)
+    sched = PreemptiveAlg3Scheduler(1, hbm_per_device=hbm)
+    cluster = Cluster(sched, workers=PREEMPT_WORKERS, devices=[dev],
+                      trace=True)
+    for c in counters().values():
+        c.reset()
+    t0 = time.time()
+    h_train = cluster.submit(run.ej, priority=0)
+    cluster.drain()
+    counts = read_counts()
+    stats = cluster.stats()
+    cluster.shutdown()
+    run.close()
+    res = run.result(h_train.status, h_train.job.error, time.time() - t0)
+    h_urgent = box.get("urgent")
+    events = cluster.trace.events()
+    evicted, admitted = eviction_order(events), admission_order(events)
+    print(f"[preempt] {gpu}: {stats['completed']} done, {stats['crashed']} "
+          f"crashed, {stats['preemptions']} preemption(s) (evicted "
+          f"{evicted}), {stats['migrations']} migration(s); admission order "
+          f"{admitted}; training {res['status']}, urgent "
+          f"{h_urgent.status.value if h_urgent else 'never submitted'}",
+          flush=True)
+    if h_urgent is None or h_train.status is not JobStatus.DONE \
+            or h_urgent.status is not JobStatus.DONE or stats["crashed"]:
+        fail(f"preempt: training {res['status']} ({res['error']}), urgent "
+             f"{h_urgent and h_urgent.status} ({h_urgent and h_urgent.job.error})")
+    if sched.preemptions != 1 or evicted != ["train"] \
+            or admitted != ["train", "urgent", "train"]:
+        fail(f"preempt: expected one eviction of the training task and the "
+             f"urgent batch admitted after it: {evicted}, {admitted}")
+
+    # launches: the 6 train steps over both attempts, and the batch's one
+    # eager prefill and its decode (warm-up and capture counted, the rest
+    # replayed)
+    steps = gen_len - 1
+    want = expected_train_launches(vcfg, PREEMPT_STEPS)
+    serve_want = expected_launches(ucfg, 1, 2)
+    want = {k: want[k] + serve_want[k] for k in want}
+    got = {k: counts[k] for k in want}
+    graphs = (counts["graph_captures"], counts["graph_replays"],
+              counts["prefill_captures"], counts["prefill_replays"])
+    print(f"[launches] preempt: counted {got}, expected {want}; decode "
+          f"graphs captured/replayed, prefill graphs captured/replayed "
+          f"{graphs}, expected (1, {steps - 1}, 0, 0)", flush=True)
+    if got != want or graphs != (1, steps - 1, 0, 0):
+        fail("preempt: launches differ from expected")
+    per_step = expected_launches(ucfg, 0, 1)
+    launches = {k: got[k] + (steps - 1) * per_step[k] for k in got}
+
+    # the fence, the eviction and the checkpoint
+    a1, a2 = res["attempts"]
+    m1, m2 = attempts
+    u = u_log[-1]
+    latency = m1["t_exit"] - res["notices"][0]
+    ck = res["checkpoint"]
+    print(f"[preempt] {gpu}: eviction notice -> the training task's exit "
+          f"(its stream synchronised) {latency * 1e3:.1f} ms; the urgent "
+          f"batch's BEGIN {(u['t_begin'] - m1['t_exit']) * 1e3:.1f} ms after "
+          f"that exit (the executor returns its blocks) and {(u['t_begin'] - res['notices'][0]) * 1e3:.1f}"
+          f" ms after the notice; allocated on the card at its BEGIN "
+          f"{u['alloc_begin']} B (the training task's probe "
+          f"{t_vec.hbm_bytes} B; the pool's reserve {reserve} B)",
+          flush=True)
+    print(f"[preempt] {gpu}: checkpoint at step {a1.get('evicted_at')}: "
+          f"{ck['nbytes']} B, copy to the host {a1.get('copy_s', 0) * 1e3:.1f}"
+          f" ms at the eviction; the resumed attempt restored it from the "
+          f"host copy in {a2.get('restore_s', 0) * 1e3:.1f} ms, then started"
+          f" its write to the disk ({ck['write_s'] * 1e3:.1f} ms beside its "
+          f"steps); resumed at step {a2['start']}", flush=True)
+    if m1["t_exit"] > u["t_begin"] or u["alloc_begin"] > reserve:
+        fail("preempt: the urgent batch began before the evicted attempt "
+             "had left the card")
+    if a1.get("evicted_at") != PREEMPT_AT or a2["start"] != PREEMPT_AT:
+        fail(f"preempt: evicted at {a1.get('evicted_at')}, resumed at "
+             f"{a2['start']}, expected {PREEMPT_AT}")
+    for what, vec, rec in (("urgent batch", u_vec, u),
+                           ("resumed training attempt", t_vec, m2)):
+        used = rec["peak"] - rec["alloc_begin"]
+        print(f"[preempt] {what}: probe hbm {vec.hbm_bytes} B vs observed "
+              f"peak {rec['peak']} B less {rec['alloc_begin']} B held at its"
+              f" BEGIN = {used} B (probe/observed "
+              f"{vec.hbm_bytes / used:.4f})", flush=True)
+        if vec.hbm_bytes < used:
+            fail(f"preempt: the {what}'s probe is below its observed peak")
+
+    res_u = urgent.result
+    ttft = res_u["t_first"][-1] - box["t_submit"]
+    # the steps that are neither an attempt's first (its allocations; on
+    # the resume also the checkpoint's write beside it)
+    steady = [ms for i, ms in enumerate(res["step_ms"])
+              if i not in (0, a2["start"])]
+    step_s = sum(steady) / max(len(steady), 1) / 1e3
+    del run, urgent
+
+    # the same batch alone, and the same training uninterrupted
+    fresh_card(torch)
+    alone = urgent_job("alone")
+    c = Cluster(MGBAlg3Scheduler(1, hbm_per_device=hbm), workers=1,
+                devices=[dev])
+    h = c.submit(alone.ej, priority=5)
+    c.drain()
+    c.shutdown()
+    if h.status is not JobStatus.DONE or alone.result["tokens"] is None:
+        fail(f"preempt: the batch alone ended {h.status}: {h.job.error}")
+    same = np.array_equal(res_u["tokens"], alone.result["tokens"])
+    own = alone.result["t_first"][0] - alone.result["t_begin"][0]
+    print(f"[preempt] the urgent batch's tokens {res_u['tokens'].shape} "
+          f"equal the batch served alone: {same}; alone, BEGIN -> first "
+          f"tokens {own * 1e3:.1f} ms (with the eviction "
+          f"{(res_u['t_first'][-1] - res_u['t_begin'][-1]) * 1e3:.1f} ms)",
+          flush=True)
+    # TTFT with the eviction, against waiting out the training task: its
+    # remaining steps at this run's mean steady step, then the batch's own
+    # BEGIN -> first tokens on a card it has alone
+    wait = (PREEMPT_STEPS - PREEMPT_AT) * step_s + own
+    print(f"[preempt] {gpu}: the urgent batch's TTFT {ttft * 1e3:.1f} ms "
+          f"with the eviction; waiting out the training task instead "
+          f"{wait * 1e3:.1f} ms (its {PREEMPT_STEPS - PREEMPT_AT} remaining "
+          f"steps at {step_s * 1e3:.1f} ms, the mean of this run's steps but "
+          f"each attempt's first, then the batch's BEGIN -> first tokens "
+          f"alone); training steps {[round(x, 1) for x in res['step_ms']]} "
+          f"ms, the resumed attempt's first with the write beside it",
+          flush=True)
+    if not same:
+        fail("preempt: the urgent batch's tokens differ from the batch "
+             "served alone")
+    del alone
+    fresh_card(torch)
+    want = train("falcon-mamba-7b", n_layers=vcfg.n_layers, keep_state=True,
+                 **kw)
+    d_loss = max(abs(a - b) for a, b in zip(res["losses"], want["losses"]))
+    d_gn = max(abs(a - b) / b for a, b in zip(res["grad_norms"],
+                                              want["grad_norms"]))
+    pg = tree_leaves(res["params"])
+    pw = tree_leaves(want["params"])
+    d_par = max(float((a - b).abs().max()) for a, b in zip(pg, pw))
+    far = sum(int(((a - b).abs() > 1e-2 * TRAIN_LR).sum())
+              for a, b in zip(pg, pw))
+    n_par = sum(a.numel() for a in pg)
+    d_mom = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for key in ("mu", "nu") for a, b in
+                zip(tree_leaves(res["opt_state"][key]),
+                    tree_leaves(want["opt_state"][key])))
+    bits = all((torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b) for a, b in zip(
+        tree_leaves((res["params"], res["opt_state"])),
+        tree_leaves((want["params"], want["opt_state"])))) \
+        and res["losses"] == want["losses"] \
+        and res["grad_norms"] == want["grad_norms"]
+    print(f"[preempt] resumed training vs an uninterrupted "
+          f"{PREEMPT_STEPS}-step run from the same seed: losses "
+          f"{[round(x, 6) for x in res['losses']]} / "
+          f"{[round(x, 6) for x in want['losses']]}, largest differences: "
+          f"loss {d_loss:.3e}, grad norm {d_gn:.3e} relative, parameters "
+          f"{d_par:.3e} ({d_par / TRAIN_LR:.3e} lr; {far} of {n_par} beyond "
+          f"1e-2 lr), moments {d_mom:.3e} of their largest; the same bits: "
+          f"{bits}", flush=True)
+    if not all(math.isfinite(x) for x in res["losses"]) \
+            or len(res["losses"]) != PREEMPT_STEPS or d_loss > 1e-3 \
+            or d_gn > 1e-3 or d_par > TRAIN_LR or far > 1e-3 * n_par \
+            or d_mom > 1e-3:
+        fail("preempt: the resumed training differs from the uninterrupted "
+             "run")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del res, want
+    return launches
+
+
 # the JAX package's NN vectors (``src/repro/core/workloads.py::_nn_vector``
 # on a CPU, virtual seconds): hbm, flops, bytes, core, bw
 REFERENCE_NN = {"predict": (166458120, 7.731e12, 3.401e11, 0.014, 0.150),
@@ -2660,6 +3014,8 @@ def main() -> None:
     phase_train_reduced(torch, "qwen1.5-32b")
     phase_train_reduced(torch, "falcon-mamba-7b")
     phase_train_reduced(torch, "mixtral-8x7b")
+    phase_train_reduced(torch, "gemma2-9b", param_dtype=torch.bfloat16,
+                        micro=2, remat="dots", batch=4)
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
                "falcon-mamba-7b": phase_serve(torch, "falcon-mamba-7b",
                                               1024, False),
@@ -2679,6 +3035,7 @@ def main() -> None:
     phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
     for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
+    by_path["preempt"] = phase_preempt(torch, gpu)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

@@ -26,7 +26,10 @@ the same submission trace produces the same admission order live and
 simulated. With ``shed_late=True`` a job still parked when its deadline
 passes is failed with ``JobStatus.SHED``. ``trace=True`` (or a ``Tracer``)
 attaches an ``obs.events.Tracer`` that the scheduler and both backends emit
-into. Preemption, explain, calibration, profiling and trace export come in
+into. ``preempt=`` turns the eviction half of deadline/priority enforcement
+on or off on a preemption-capable scheduler (``scheduler.preempt``), and
+``stats()`` then counts the cluster's own ``preemptions`` and
+``migrations``. Explain, calibration, profiling and trace export come in
 later slices.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 from repro_torch.core.executor import ExecJob, ExecRecord, Executor, _JobRun
 from repro_torch.core.scheduler.base import Scheduler
+from repro_torch.core.scheduler.preempt import PreemptionMixin
 from repro_torch.core.simulator import Simulator, _JobState
 from repro_torch.core.task import Job
 from repro_torch.obs.events import Tracer, attach_tracer
@@ -127,11 +131,25 @@ class Cluster:
                  backend: str = "live",
                  devices: Optional[Sequence[object]] = None,
                  poll_interval: float = 0.05, crash_delay: float = 8.0,
-                 shed_late: bool = False,
+                 shed_late: bool = False, preempt: Optional[bool] = None,
                  trace: Union[None, bool, Tracer] = None):
         self.sched = scheduler
         self.backend = backend
         scheduler.shed_expired = shed_late
+        # preempt=True lets an arriving waiter that strictly outranks a
+        # resident evict it (scheduler.preempt); the scheduler must be
+        # preemption-capable. False disables it on a capable scheduler;
+        # None keeps the scheduler's own setting (preemptive classes enable
+        # themselves at construction)
+        if preempt is not None:
+            if preempt and not isinstance(scheduler, PreemptionMixin):
+                raise ValueError(
+                    f"preempt=True needs a preemption-capable scheduler, "
+                    f"got {type(scheduler).__name__} — use "
+                    f"PreemptiveAlg2Scheduler / PreemptiveAlg3Scheduler / "
+                    f"PreemptiveGangScheduler from "
+                    f"repro_torch.core.scheduler")
+            scheduler.preempt_enabled = bool(preempt)
         n_workers = workers if workers is not None \
             else len(scheduler.devices)
         self._ex: Optional[Executor] = None
@@ -158,7 +176,11 @@ class Cluster:
             self.trace = trace if isinstance(trace, Tracer) else Tracer()
             attach_tracer(scheduler, self.trace)
         self.handles: List[JobHandle] = []
+        # scheduler counters are lifetime totals: a cluster over a reused
+        # scheduler reports only its own activity
         self._attempts0 = getattr(scheduler, "begin_attempts", 0)
+        self._preempt0 = getattr(scheduler, "preemptions", 0)
+        self._migr0 = getattr(scheduler, "migrations", 0)
         self._submit_lock = threading.Lock()
         # aggregate counters, maintained at submit and by each job's
         # resolution callback, so stats() never scans the handles
@@ -330,11 +352,16 @@ class Cluster:
         with self._stats_lock:
             attempts = getattr(self.sched, "begin_attempts", 0) \
                 - self._attempts0
+            preemptions = getattr(self.sched, "preemptions", 0) \
+                - self._preempt0
+            migrations = getattr(self.sched, "migrations", 0) - self._migr0
             if not self._n_jobs:
                 return {"makespan_s": 0.0, "throughput_jobs_per_s": 0.0,
                         "completed": 0, "crashed": 0, "cancelled": 0,
                         "shed": 0, "mean_turnaround_s": 0.0,
-                        "sched_attempts": attempts}
+                        "sched_attempts": attempts,
+                        "preemptions": preemptions,
+                        "migrations": migrations}
             t1 = self._t1 if self._t1 > float("-inf") else self._t0
             makespan = max(t1 - self._t0, 1e-9)
             return {
@@ -344,6 +371,8 @@ class Cluster:
                 "crashed": self._n_crashed,
                 "cancelled": self._n_cancelled,
                 "shed": self._n_shed,
+                "preemptions": preemptions,
+                "migrations": migrations,
                 "mean_turnaround_s":
                     self._turnaround_sum / max(self._n_done, 1),
                 "sched_attempts": attempts,

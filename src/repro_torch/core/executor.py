@@ -2,9 +2,9 @@
 under a scheduler — the end-to-end path probe -> admit/enqueue -> wakeup ->
 lazy bind -> launch -> release (paper §IV prototype).
 
-Port of ``src/repro/core/executor.py`` (``Executor`` only; the polling
-baseline and the preemption surface come in later slices). Engine shape, as
-in the reference:
+Port of ``src/repro/core/executor.py``: the event-driven ``Executor`` with
+its cooperative preemption surface, and ``PollingExecutor``, the baseline
+that spins ``task_begin``. Engine shape, as in the reference:
 
   * **open arrival**: ``submit(ej)`` may be called at any time, including
     while earlier jobs are mid-flight;
@@ -28,7 +28,24 @@ What PyTorch changes:
     the task's kernels have finished.
   * **failures**: a runner's exception (a kernel that fails to build or
     launch, ``torch.cuda.OutOfMemoryError``) crashes the job with a record,
-    and its repr is kept in ``job.error``.
+    and its repr is kept in ``job.error``;
+  * **the eviction fence** (ROADMAP C14): under a preemptive scheduler an
+    eviction releases the victim's reservation in the scheduler's ledger at
+    once, while the victim's runner is still running on its own stream and
+    holds its tensors until it notices ``ExecJob.preempted`` and returns.
+    The reference lets the preemptor begin meanwhile; on a card that is an
+    out-of-memory crash. Here an attempt whose epoch was superseded while
+    it ran stays registered on its devices until its runner has returned
+    and its stream is synchronised, and no attempt begins on a device that
+    holds such an attempt: ``_execute`` waits for it between DISPATCH and
+    BEGIN. Only BEGIN times move; admissions and evictions are the
+    scheduler's, as in the reference. When the evicted attempt exits on a
+    card, the executor returns the blocks it freed, which sit in its own
+    stream's pool of the caching allocator, to the device
+    (``torch.cuda.empty_cache``) before the fence opens: the allocator
+    hands one stream's cached blocks to another only after a failed
+    ``cudaMalloc`` and a retry that synchronises the device, in the middle
+    of the preemptor's first allocation.
 """
 from __future__ import annotations
 
@@ -45,6 +62,10 @@ from repro_torch.core.scheduler.base import DEADLINE_SHED, Scheduler
 from repro_torch.core.task import Job, Task
 from repro_torch.core.topology import placement_devices
 from repro_torch.obs import events as obs
+
+
+class OOMError(RuntimeError):
+    """Raised when an admitted task exceeds its device's memory (CG path)."""
 
 
 # ``ExecRecord.t_start`` sentinel: the task crashed BEFORE its kernel ever
@@ -76,6 +97,25 @@ class ExecJob:
     job: Job
     runners: List[Callable[[object], None]]
     buffers: Dict[str, lazy.LazyBuffer] = dataclasses.field(default_factory=dict)
+    # cooperative preemption surface (used only under a preemptive
+    # scheduler): ``preempted`` is SET when the scheduler evicts this job's
+    # in-flight task and CLEARED at each (re)dispatch; a cooperative runner
+    # checks it between steps and returns early (the eviction already
+    # released the reservation and the epoch fence voids this attempt's
+    # completion). ``on_preempt`` (optional) fires once per eviction with
+    # the evicted Task, on the thread that delivers the scheduler's notice,
+    # while the runner may still be running: it must not touch the runner's
+    # tensors. A training runner saves its checkpoint itself when it sees
+    # ``preempted`` (``launch.train``).
+    preempted: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    on_preempt: Optional[Callable[[Task], None]] = None
+
+
+def _empty_stats() -> Dict[str, float]:
+    return {"makespan_s": 0.0, "throughput_jobs_per_s": 0.0,
+            "completed": 0, "crashed": 0, "mean_turnaround_s": 0.0,
+            "sched_attempts": 0}
 
 
 def default_devices() -> List[torch.device]:
@@ -117,9 +157,11 @@ class Executor:
     bounded execution pool."""
 
     def __init__(self, scheduler: Scheduler, *, workers: int,
-                 devices: Optional[Sequence[object]] = None):
+                 devices: Optional[Sequence[object]] = None,
+                 poll_interval: float = 0.002):
         self.sched = scheduler
         self.workers = workers
+        self.poll = poll_interval  # PollingExecutor's retry interval
         n = len(scheduler.devices)
         real = [torch.device(d) for d in devices] if devices is not None \
             else default_devices()
@@ -127,9 +169,24 @@ class Executor:
         self.records: List[ExecRecord] = []
         self._rec_lock = threading.Lock()
         self._jr_by_uid: Dict[int, _JobRun] = {}
-        # a re-dispatched incarnation (after mark_dead) must not run
-        # concurrently with its superseded attempt: they share buffers
+        # a re-dispatched incarnation (after an eviction or mark_dead) must
+        # not run concurrently with its superseded attempt: they share
+        # buffers and the one ``preempted`` event
         self._attempt_locks: Dict[int, threading.Lock] = {}
+        # uid -> epoch of the attempt armed on ExecJob.preempted, guarded by
+        # _signal_lock: a notice older than the armed attempt is dropped, or
+        # it would stop the fresh attempt and turn its early return into a
+        # current-epoch completion
+        self._armed_epoch: Dict[int, int] = {}
+        self._signal_lock = threading.Lock()
+        # the eviction fence: scheduler device -> {uid: (task, epoch)} of
+        # the attempts inside their runner there. An attempt whose epoch is no
+        # longer its task's admission epoch was evicted and still holds its
+        # memory; nothing begins on its devices until it has left
+        self._fence = threading.Condition()
+        self._inside: Dict[int, Dict[int, tuple]] = {}
+        if hasattr(scheduler, "add_preempt_listener"):
+            scheduler.add_preempt_listener(self._on_preempt)
         self._ready: Optional["queue_mod.Queue[Optional[_Ready]]"] = None
         self._threads: List[threading.Thread] = []
         self._running = False
@@ -224,6 +281,20 @@ class Executor:
             self._finish(jr, crashed=False, cancelled=True)
         return True
 
+    # -- compatibility shim ---------------------------------------------------
+    def run(self, jobs: Sequence[ExecJob]) -> Dict[str, float]:
+        """Closed-batch protocol: submit every job in the order given,
+        drain, report."""
+        if not jobs:
+            return _empty_stats()
+        attempts0 = getattr(self.sched, "begin_attempts", 0)
+        self.start()
+        for ej in jobs:
+            self.submit(ej)
+        self.drain()
+        self.shutdown()
+        return self._stats(jobs, attempts0)
+
     # -- engine internals -----------------------------------------------------
     def _record(self, jr: _JobRun, rec: ExecRecord) -> None:
         with self._rec_lock:
@@ -235,6 +306,7 @@ class Executor:
         for t in jr.ej.job.tasks:
             self._jr_by_uid.pop(t.uid, None)
             self._attempt_locks.pop(t.uid, None)
+            self._armed_epoch.pop(t.uid, None)
         with self._state:
             if jr.done.is_set():
                 return  # double-finish guard (cancel raced a completion)
@@ -254,6 +326,68 @@ class Executor:
         on_done, jr.on_done = jr.on_done, None
         if on_done is not None:
             on_done(jr)
+
+    def _on_preempt(self, victims) -> None:
+        """Eviction notice from the scheduler: signal the running attempt to
+        stop cooperatively and call the job's ``on_preempt``. Each notice
+        names the victim's superseded epoch; a notice that arrives after a
+        fresh attempt has armed itself with a newer epoch is dropped. The
+        superseded attempt's ``task_end`` is epoch-fenced either way."""
+        for t, epoch in victims:
+            jr = self._jr_by_uid.get(t.uid)
+            if jr is None:
+                continue
+            with self._signal_lock:
+                stale = self._armed_epoch.get(t.uid, -1) > epoch
+                if not stale:
+                    jr.ej.preempted.set()
+            if not stale and jr.ej.on_preempt is not None:
+                try:
+                    jr.ej.on_preempt(t)
+                except Exception:
+                    # a failing callback must not poison the scheduler's
+                    # notify path; the task restarts from its last
+                    # committed state
+                    pass
+
+    # -- the eviction fence ----------------------------------------------------
+    def _evicted_on(self, devs) -> bool:
+        """Whether an evicted attempt is still inside its runner on any of
+        ``devs`` (call under ``_fence``)."""
+        return any(self.sched.admission_epoch(t) != e
+                   for d in devs for t, e in self._inside.get(d, {}).values())
+
+    def _enter(self, task: Task, epoch: int, devs) -> bool:
+        """Register this attempt on its devices once no evicted attempt is
+        left there; False (nothing registered) if the attempt itself was
+        superseded meanwhile. The epoch check and the registration are one
+        step under ``_fence``, so an eviction either voids this attempt
+        before it registers or finds it registered, and then whatever was
+        admitted into its memory waits for it here."""
+        with self._fence:
+            while True:
+                if self.sched.admission_epoch(task) != epoch:
+                    return False
+                if not self._evicted_on(devs):
+                    break
+                self._fence.wait()
+            for d in devs:
+                self._inside.setdefault(d, {})[task.uid] = (task, epoch)
+            return True
+
+    def _leave(self, task: Task, epoch: int, devs,
+               device: torch.device) -> None:
+        """Deregister an attempt whose runner has returned (its stream is
+        synchronised). An evicted one first gives the blocks it freed back
+        to the device, then opens the fence."""
+        if (device.type == "cuda"
+                and self.sched.admission_epoch(task) != epoch):
+            with torch.cuda.device(device):
+                torch.cuda.empty_cache()
+        with self._fence:
+            for d in devs:
+                self._inside.get(d, {}).pop(task.uid, None)
+            self._fence.notify_all()
 
     def _submit_next(self, jr: _JobRun) -> None:
         if jr.cancel_requested:
@@ -350,11 +484,22 @@ class Executor:
             return
         if task.uid not in self._jr_by_uid:
             return  # job already resolved: stale straggler dispatch
+        # serialise with any still-running superseded attempt of this task,
+        # then arm the cooperative-preemption surface: clear first, then
+        # re-check the epoch (in _enter). An eviction racing this dispatch
+        # lands on one side or the other: before the re-check its epoch
+        # bump voids this attempt; after it, the notice finds the cleared
+        # event and stops the runner below
         lock = self._attempt_locks.setdefault(task.uid, threading.Lock())
         crashed = False
         t_start = None
+        device = self.device_map[lead]
         with lock:
-            if self.sched.admission_epoch(task) == item.epoch:
+            with self._signal_lock:
+                jr.ej.preempted.clear()
+                self._armed_epoch[task.uid] = item.epoch
+            # the fence: wait out every evicted attempt on these devices
+            if self._enter(task, item.epoch, devs):
                 t_start = time.monotonic()
                 task.start_t = t_start
                 jr.started = True
@@ -362,7 +507,6 @@ class Executor:
                     tr.emit(obs.BEGIN, task.uid, task.name, lead,
                             item.epoch)
                 try:
-                    device = self.device_map[lead]
                     lazy.kernel_launch_prepare(jr.ej.buffers, device)
                     bound = (device if len(devs) == 1
                              else [self.device_map[d] for d in devs])
@@ -371,9 +515,15 @@ class Executor:
                 except Exception as e:  # the runner's failure is the job's
                     crashed = True
                     jr.ej.job.error = f"{task.name}: {e!r}"
+                finally:
+                    self._leave(task, item.epoch, devs, device)
         if t_start is None:
+            # superseded between pool pickup and BEGIN; if the fresh
+            # incarnation meanwhile finished the job, reap what _finish
+            # could no longer see
             if jr.done.is_set():
                 self._attempt_locks.pop(task.uid, None)
+                self._armed_epoch.pop(task.uid, None)
             return
         # epoch fence: a completion of a task evicted mid-run (device died)
         # is stale; the fresh incarnation owns the job's progress
@@ -404,3 +554,99 @@ class Executor:
             if item is None:
                 return
             self._execute(item, streams)
+
+    def _stats(self, jobs: Sequence[ExecJob], attempts0: int
+               ) -> Dict[str, float]:
+        done = [j.job for j in jobs if not j.job.crashed]
+        t0 = min(j.job.arrival_t for j in jobs)
+        t1 = max(j.job.finish_t for j in jobs)
+        makespan = max(t1 - t0, 1e-9)
+        return {
+            "makespan_s": makespan,
+            "throughput_jobs_per_s": len(done) / makespan,
+            "completed": len(done),
+            "crashed": sum(1 for j in jobs if j.job.crashed),
+            "mean_turnaround_s": sum(
+                j.job.finish_t - j.job.arrival_t for j in jobs
+                if not j.job.crashed) / max(len(done), 1),
+            "sched_attempts":
+                getattr(self.sched, "begin_attempts", 0) - attempts0,
+        }
+
+
+class PollingExecutor(Executor):
+    """The previous protocol: one worker thread per in-flight job, each
+    spinning ``task_begin`` in a sleep(poll) retry loop. Kept as the baseline
+    the event-driven engine is measured against: concurrency is capped at
+    ``workers`` and blocked jobs burn a thread and poll attempts each. Each
+    worker thread runs its tasks on its own stream, synchronised before
+    ``task_end``, as the event-driven pool does."""
+
+    def run(self, jobs: Sequence[ExecJob]) -> Dict[str, float]:
+        if not jobs:
+            return _empty_stats()
+        attempts0 = getattr(self.sched, "begin_attempts", 0)
+        q: "queue_mod.Queue[ExecJob]" = queue_mod.Queue()
+        for j in jobs:
+            j.job.arrival_t = time.monotonic()
+            q.put(j)
+
+        def worker(_wid: int) -> None:
+            streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+            while True:
+                try:
+                    ej = q.get_nowait()
+                except queue_mod.Empty:
+                    return
+                try:
+                    self._run_job(ej, streams)
+                except OOMError:
+                    ej.job.crashed = True
+                finally:
+                    lazy.free_all(ej.buffers)  # crash paths must free too
+                ej.job.finish_t = time.monotonic()
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(self.workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return self._stats(jobs, attempts0)
+
+    def _run_job(self, ej: ExecJob, streams) -> None:
+        for task, runner in zip(ej.job.tasks, ej.runners):
+            t_queue = time.monotonic()
+            # probe -> scheduler (task_begin), retry while infeasible
+            placement = self.sched.task_begin(task)
+            while placement is None:
+                if not self.sched.can_ever_fit(task):
+                    raise OOMError(f"{task.name}: never feasible")
+                time.sleep(self.poll)
+                placement = self.sched.task_begin(task)
+            devs = placement_devices(placement)
+            lead = devs[0]
+            # a memory-unsafe scheduler may have oversubscribed: OOM crash
+            if any(self.sched.devices[d].oom() for d in devs):
+                self.sched.task_end(task)
+                with self._rec_lock:
+                    self.records.append(ExecRecord(
+                        ej.job.name, task.name, lead, t_queue,
+                        NEVER_STARTED, time.monotonic(), crashed=True,
+                        gang_chips=len(devs)))
+                raise OOMError(
+                    f"{task.name}: {task.resources.hbm_bytes} B exceeded "
+                    f"device {lead} capacity")
+            t_start = time.monotonic()
+            device = self.device_map[lead]
+            try:
+                lazy.kernel_launch_prepare(ej.buffers, device)
+                bound = (device if len(devs) == 1
+                         else [self.device_map[d] for d in devs])
+                self._run_on_device(runner, bound, device, streams)
+            finally:
+                self.sched.task_end(task)
+            with self._rec_lock:
+                self.records.append(ExecRecord(
+                    ej.job.name, task.name, lead, t_queue, t_start,
+                    time.monotonic(), gang_chips=len(devs)))

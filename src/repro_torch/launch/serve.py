@@ -1,7 +1,7 @@
 """Serving under the compiler-guided scheduler, on the card: static batches
 (prefill + greedy decode) and continuous batching (``serve_continuous``).
 
-Port of ``src/repro/launch/serve.py`` (no preemption or tracing yet).
+Port of ``src/repro/launch/serve.py`` (no tracing yet).
 Every request batch is ONE task whose resource vector comes from probing
 what the task allocates (``static_task``: the prefill and its first
 tokens, or on the card ``replayed_task``; ``repro_torch.core.probe``);
@@ -51,7 +51,26 @@ Differences from the reference:
     and captured prefill, probed by ``kept_by_worker``), where the
     reference sizes it by the device.
 
-Preemption and tracing come in later slices.
+With ``preempt=True`` (``--preempt``) the scheduler is the preemptive
+Algorithm 3 (reference ``:57-64``): an arriving batch that strictly
+outranks a resident one (a higher priority class, or an earlier deadline
+within one) may evict it. The static runner is cooperative: it checks its
+``ExecJob.preempted`` after the prefill and before each decode step (a
+graph replay on the card; a host check, no synchronisation), and when
+evicted it lets the steps in flight finish and returns, dropping what the
+attempt made; its worker's decoder and captured prefill stay the worker's.
+Serving has no checkpoint: the evicted batch is requeued and served again
+from its prompt, and only the attempt that completes records tokens. The
+result counts ``preemptions`` and ``migrations``.
+
+``batch_job`` is one static batch as a task that brings its own weights:
+its runner makes them from the seed on the device it is given, prefills,
+decodes over a decoder of its own and frees all of it when it returns, and
+its probe charges the weights, the prefill and the decoder. It is the unit
+to submit beside other work on a shared card (an urgent batch that evicts a
+training task there, ``chip_smoke.py``'s ``phase_preempt``).
+
+Tracing comes in a later slice.
 
 It serves the dense attention, MoE and Mamba-1 (ssm) families.
 
@@ -75,7 +94,7 @@ import argparse
 import dataclasses
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -86,7 +105,9 @@ from repro_torch.core.executor import ExecJob
 from repro_torch.core.probe import (
     CUDA_UNSEEN_BYTES, TensorSpec, probe_fn, trace_counts,
 )
-from repro_torch.core.scheduler import MGBAlg3Scheduler
+from repro_torch.core.scheduler import (
+    MGBAlg3Scheduler, PreemptiveAlg3Scheduler,
+)
 from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
 from repro_torch.models.model import FAMILIES, init_params
@@ -94,6 +115,7 @@ from repro_torch.serve.decode import (
     GreedyDecoder, PrefillGraph, capture_stream, decode_buffers,
     make_prefill_step,
 )
+from torch.utils._pytree import tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -190,13 +212,101 @@ def kept_by_worker(params, batch: dict, cfg, first: torch.Tensor,
         bytes_accessed=dec.bytes_accessed + pool["bytes_accessed"])
 
 
+def owned_batch_task(params, batch: dict, cfg, max_seq: int):
+    """What a ``batch_job`` task allocates, for its probe (with the weights
+    charged: the task makes them): the prefill and its first tokens, then a
+    decoder of its own loaded with the prefill's cache and one decode step
+    over it (on the card the step's temporaries live in the graph's pool
+    for the task's life)."""
+    first, cache = static_task(params, batch, cfg)
+    dec = GreedyDecoder(cfg, params, decode_buffers(
+        cfg, first.shape[0], max_seq, params["embed"].dtype, first.device))
+    dec.load(cache, first, batch["tokens"].shape[1])
+    del cache
+    dec.step()
+    return dec.tokens
+
+
+@dataclasses.dataclass
+class BatchJob:
+    """A ``batch_job``: ``ej`` to submit, its probe ``vec``, and what its
+    runner records in ``result``: ``tokens`` ([rows, gen_len] int32 on the
+    host, from the attempt that completed), the monotonic ``t_begin`` and
+    ``t_first`` (first tokens synchronised) of each attempt, and
+    ``attempts``."""
+    ej: ExecJob
+    vec: object
+    result: Dict[str, object]
+
+
+def batch_job(cfg, tokens: torch.Tensor, *, gen_len: int, seed: int = 0,
+              param_dtype: torch.dtype = torch.bfloat16, device=None,
+              name: str = "batch") -> BatchJob:
+    """One static batch of prompts ``tokens`` [rows, prompt_len] as a task
+    that brings its weights: the runner makes ``cfg``'s weights from
+    ``seed`` on its device, prefills, decodes ``gen_len - 1`` greedy steps
+    on a ``GreedyDecoder`` of its own (its step captured and replayed on
+    the card) and frees all of it when it returns. It is cooperative: it
+    checks ``ej.preempted`` after the prefill and before each step and
+    returns early when evicted, recording no tokens. The probe
+    (``owned_batch_task`` on specs of the weights, nothing allocated)
+    charges the weights, the prefill and the decoder."""
+    dev = torch.device(device) if device is not None \
+        else serving_devices(1, None)[0][0]
+    rows, prompt_len = tokens.shape
+    max_seq = prompt_len + gen_len
+    meta = init_params(cfg, None, param_dtype, torch.device("meta"))
+    p_spec = tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype, dev),
+                      meta)
+    vec = probe_fn(owned_batch_task, p_spec, {"tokens": tokens.to(dev)},
+                   cfg, max_seq)
+    prefill = make_prefill_step(cfg)
+    result: Dict[str, object] = {"tokens": None, "t_begin": [],
+                                 "t_first": [], "attempts": 0}
+    task = Task(units=[UnitTask(fn=None, memobjs=frozenset({name}),
+                                resources=vec, name=name)], name=name)
+    ej = ExecJob(job=Job(tasks=[task], name=name), runners=[])
+
+    def runner(device) -> None:
+        result["attempts"] += 1
+        result["t_begin"].append(time.monotonic())
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = init_params(cfg, gen, param_dtype, device)
+        logits, cache = prefill(params, {"tokens": tokens.to(device)})
+        if not bool(torch.isfinite(logits).all()):
+            raise FloatingPointError(f"{name}: non-finite prefill logits")
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        _sync(device)
+        result["t_first"].append(time.monotonic())
+        del logits
+        if ej.preempted.is_set():
+            return
+        dec = GreedyDecoder(cfg, params, decode_buffers(
+            cfg, rows, max_seq, params["embed"].dtype, device))
+        dec.load(cache, first, prompt_len)
+        del cache
+        out = dec.generate(gen_len - 1, stop=ej.preempted.is_set)
+        if out is None:
+            return
+        toks = torch.cat([first[:, None], out], dim=1).cpu().numpy()
+        if not ej.preempted.is_set():
+            result["tokens"] = toks
+
+    ej.runners.append(runner)
+    return BatchJob(ej, vec, result)
+
+
 def serve(arch: str, *, requests: int = 16, batch: int = 4,
           prompt_len: int = 64, gen_len: int = 32, seed: int = 0,
           num_devices: int = 1, workers: int = 0, deadline_s: float = 5.0,
           shed_late: bool = False, full: bool = False,
           param_dtype: torch.dtype = torch.float32,
           device: Optional[str] = None,
-          n_layers: Optional[int] = None) -> dict:
+          n_layers: Optional[int] = None, preempt: bool = False) -> dict:
+    """Serve ``requests`` prompts in static batches of ``batch``, each
+    batch one task with its deadline (``deadline_s``), EDF within its
+    class. With ``preempt`` the scheduler is the preemptive
+    Algorithm 3 and the runners are cooperative (module docstring)."""
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
     published_layers = cfg.n_layers
     if n_layers is not None:
@@ -244,22 +354,28 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         vec = probe_fn(static_task, params[first], batch0, cfg)
         kept = probe_fn(decode_state, params[first], tokens0, cfg, max_seq,
                         uncharged=(0,))
-    sched = MGBAlg3Scheduler(
-        num_devices,
-        hbm_per_device=hbm - pool_reserve(devices, workers, kept.hbm_bytes))
+    managed = hbm - pool_reserve(devices, workers, kept.hbm_bytes)
+    sched = (PreemptiveAlg3Scheduler(num_devices, hbm_per_device=managed)
+             if preempt else
+             MGBAlg3Scheduler(num_devices, hbm_per_device=managed))
     # (pool thread, device) -> the decoder that thread keeps for it; on
     # the card (pool thread, device, prompt shape) -> its captured prefill
     decoders, prefills = {}, {}
 
     cluster = Cluster(sched, workers=workers, devices=devices,
-                      shed_late=shed_late)
+                      shed_late=shed_late, preempt=preempt or None)
     handles = []
     # per-batch wall-clock marks: (submit, first token, last token)
     marks = [[0.0, -1.0, -1.0] for _ in range(n_batches)]
     generated: List[Optional[np.ndarray]] = [None] * n_batches
     t0 = time.time()
     for i in range(n_batches):
-        def runner(dev, i=i):
+        task = Task(units=[UnitTask(fn=None, memobjs=frozenset({f"req{i}"}),
+                                    resources=vec, name=f"req{i}")],
+                    name=f"req{i}")
+        ej = ExecJob(job=Job(tasks=[task], name=f"req{i}"), runners=[])
+
+        def runner(dev, i=i, ej=ej):
             p = params[dev]
             b = {k: v.to(dev) for k, v in batches[i].items()}
             if dev.type == "cuda":
@@ -276,6 +392,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             _sync(dev)
             marks[i][1] = time.time()
+            if ej.preempted.is_set():
+                return  # evicted: requeued and served again from its prompt
             key = (threading.get_ident(), dev)
             dec = decoders.get(key)
             if dec is None:
@@ -283,18 +401,18 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
                     cfg, batch, max_seq, p["embed"].dtype, dev))
             dec.load(cache, first_tok, prompt_len)
             del logits, cache  # the decoder holds what decode reads
-            out = dec.generate(gen_len - 1)
+            out = dec.generate(gen_len - 1, stop=ej.preempted.is_set)
+            if out is None:
+                return
             toks = torch.cat([first_tok[:, None], out], dim=1)
-            generated[i] = toks[:rows[i]].cpu().numpy()  # synchronises
-            marks[i][2] = time.time()
+            toks = toks[:rows[i]].cpu().numpy()  # synchronises
+            if not ej.preempted.is_set():
+                generated[i] = toks
+                marks[i][2] = time.time()
 
         marks[i][0] = time.time()
-        task = Task(units=[UnitTask(fn=None, memobjs=frozenset({f"req{i}"}),
-                                    resources=vec, name=f"req{i}")],
-                    name=f"req{i}")
-        handles.append(cluster.submit(
-            ExecJob(job=Job(tasks=[task], name=f"req{i}"), runners=[runner]),
-            deadline_s=deadline_s))
+        ej.runners.append(runner)
+        handles.append(cluster.submit(ej, deadline_s=deadline_s))
 
     cluster.drain()
     stats = cluster.stats()
@@ -330,6 +448,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             "deadlines_met": len(met),
             "deadline_met_rate": len(met) / max(n_batches, 1),
             "shed": len(shed),
+            "preemptions": stats["preemptions"],
+            "migrations": stats["migrations"],
             "sched_attempts": stats["sched_attempts"],
             "placements": sched.placements,
             "probe": vec, "kept_per_worker": kept, "decode_graphs": graphs,
@@ -445,6 +565,11 @@ def main():
     ap.add_argument("--param-dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, choices=["cpu"],
                     help="run on the CPU (default: CUDA)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="preemptive EDF: an arriving request batch that "
+                         "outranks a resident one may evict it (it is "
+                         "served again from its prompt) instead of "
+                         "queueing behind it (static mode only)")
     ap.add_argument("--tpot-slo-s", type=float, default=1.0,
                     help="continuous mode: time-per-output-token SLO")
     ap.add_argument("--continuous", action="store_true",
@@ -457,6 +582,8 @@ def main():
     if args.continuous:
         if args.num_devices != 1:
             ap.error("--continuous serves on one device (--num-devices 1)")
+        if args.preempt:
+            ap.error("--preempt is for static serving")
         res = serve_continuous(
             args.arch, requests=args.requests, batch=args.batch,
             prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -484,7 +611,8 @@ def main():
                 num_devices=args.num_devices, workers=args.workers,
                 deadline_s=args.deadline_s, shed_late=args.shed_late,
                 full=args.full, param_dtype=DTYPES[args.param_dtype],
-                device=args.device, n_layers=args.n_layers)
+                device=args.device, n_layers=args.n_layers,
+                preempt=args.preempt)
     print(f"[serve] {res['arch']} ({res['n_layers']} of "
           f"{res['published_layers']} layers): {res['completed']}/"
           f"{res['batches']} "
@@ -496,7 +624,9 @@ def main():
           f"TPOT p50/p99 {res['p50_tpot_s'] * 1e3:.0f}/"
           f"{res['p99_tpot_s'] * 1e3:.0f} ms, "
           f"{res['deadlines_met']}/{res['batches']} deadlines met, "
-          f"{res['shed']} shed, {res['sched_attempts']} admission attempts, "
+          f"{res['shed']} shed, {res['preemptions']} preemption(s), "
+          f"{res['migrations']} migration(s), "
+          f"{res['sched_attempts']} admission attempts, "
           f"probe {res['probe'].hbm_bytes / 2**30:.2f} GiB/batch)")
     for err in res["errors"]:
         print(f"[serve] error: {err}")

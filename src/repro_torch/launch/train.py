@@ -6,7 +6,7 @@ pipeline -> train loop with checkpointing).
 Port of ``src/repro/launch/train.py``. Differences from the reference:
 
   * the mesh arguments are gone: the port trains on one device
-    (distribution is ROADMAP item 8), and with them the straggler
+    (distribution is ROADMAP A, "Distribution"), and with them the straggler
     detector, which compares hosts (``train/straggler.py`` waits for it);
   * the run goes through the paper's loop on every call: ``probe_fn`` of
     one step on ``TensorSpec``s of the state and the batch (nothing
@@ -20,7 +20,16 @@ Port of ``src/repro/launch/train.py``. Differences from the reference:
     9.24e9 parameters x 16 B = 148e9 B, beyond one 80 GB card;
   * parameters are f32, as the reference's ``init_params`` makes them;
     each step reports loss, grad norm, lr, host ms, device ms (CUDA
-    events, on a card) and tokens/s.
+    events, on a card) and tokens/s;
+  * the run is a preemptible task, the design the reference's ``ExecJob``
+    describes (``src/repro/core/executor.py:96-108``) but its trainer never
+    wires: ``train`` takes a ``priority``, a ``deadline_s`` and a
+    ``scheduler`` (a preemptive one lets an urgent task evict it), and the
+    runner checks ``ExecJob.preempted`` at each step boundary, saves the
+    last finished step and returns; the re-dispatched attempt resumes from
+    the step its run saved last (``train_job``). ``ExecJob.on_preempt`` only
+    records when the notice came: it fires on the scheduler's notify
+    thread, beside the runner, and must not touch its tensors.
 
 The loop runs on CUDA unless ``device="cpu"``; with no card and no CPU
 request it raises.
@@ -35,10 +44,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import shutil
+import tempfile
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import ARCHS, get_arch
@@ -46,6 +58,7 @@ from repro_torch.core.cluster import Cluster, JobStatus
 from repro_torch.core.executor import ExecJob
 from repro_torch.core.probe import probe_fn
 from repro_torch.core.scheduler import MGBAlg3Scheduler
+from repro_torch.core.scheduler.base import Scheduler
 from repro_torch.core.task import Job, Task, UnitTask
 from repro_torch.data.pipeline import Prefetcher, TokenPipeline, to_device
 from repro_torch.launch.serve import pool_reserve, serving_devices
@@ -56,18 +69,79 @@ from repro_torch.train import checkpoint as CK
 from repro_torch.train.train_step import abstract_train_state, make_train_step
 
 
-def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
-          reduced: bool = True, n_layers: Optional[int] = None,
-          device: Optional[str] = None, ckpt_dir: Optional[str] = None,
-          ckpt_every: int = 20, resume: bool = False, seed: int = 0,
-          attn_impl: str = "flash_kernel", lr: float = 3e-4,
-          log_every: int = 10) -> dict:
-    """Train ``arch`` for ``steps`` steps as one scheduled task. Returns the
-    per-step metrics (``losses``, ``grad_norms``, ``lrs``, ``step_ms``,
-    ``device_ms``, ``tokens_per_s``), the task's ``probe`` vector, how it
-    ended (``status``, ``error``), ``reduced`` (the cuts of the published
-    configuration), ``peak_allocated`` (a card's
-    ``max_memory_allocated`` after the run, 0 on the CPU)."""
+@dataclasses.dataclass
+class TrainRun:
+    """One training run as a preemptible task (``train_job``): ``ej`` to
+    submit, ``out`` the per-step metrics the runner fills (see ``train``),
+    ``cfg`` and ``vec`` (the probe of one step). ``attempts`` has one dict
+    per attempt of the runner: ``start`` (the step it began from),
+    ``restore_s`` (when it resumed from a checkpoint), and when evicted
+    ``evicted_at`` (the step it saved), ``copy_s`` (the state's copy to the
+    host), ``nbytes`` and ``t_exit``; ``notices`` the monotonic times of
+    the eviction notices (``ExecJob.on_preempt``, bookkeeping only)."""
+    ej: ExecJob
+    out: dict
+    cfg: object
+    vec: object
+    ckpt: Optional[CK.AsyncCheckpointer]
+    attempts: List[dict] = dataclasses.field(default_factory=list)
+    notices: List[float] = dataclasses.field(default_factory=list)
+    tmp_dir: Optional[str] = None
+
+    def close(self) -> None:
+        """Wait for a write in flight and remove a temporary checkpoint
+        directory (the one an eviction without ``ckpt_dir`` made)."""
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        if self.tmp_dir is not None:
+            shutil.rmtree(self.tmp_dir, ignore_errors=True)
+            self.tmp_dir = None
+
+    def result(self, status, error, wall_s: float) -> dict:
+        """``out`` completed with how the task ended."""
+        out = self.out
+        out.update(wall_s=wall_s, status=status.value, error=error,
+                   steps=len(out["losses"]),
+                   final_loss=out["losses"][-1] if out["losses"] else None,
+                   attempts=self.attempts, notices=self.notices)
+        if self.ckpt is not None:
+            out["checkpoint"] = {"nbytes": self.ckpt.nbytes,
+                                 "copy_s": self.ckpt.copy_s,
+                                 "write_s": self.ckpt.write_s}
+        return out
+
+
+def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
+              reduced: bool = True, n_layers: Optional[int] = None,
+              device=None, ckpt_dir: Optional[str] = None,
+              ckpt_every: int = 20, resume: bool = False, seed: int = 0,
+              attn_impl: str = "flash_kernel", lr: float = 3e-4,
+              log_every: int = 10,
+              on_step: Optional[Callable[[int], None]] = None,
+              keep_state: bool = False) -> TrainRun:
+    """The training run as one task, not yet submitted: its probe (one step
+    on ``TensorSpec``s of the state on ``device``, nothing allocated) and
+    its runner, which makes the state on the device it is given and trains
+    there. ``on_step(k)`` is called on the runner's thread after step k
+    (counted from 1) has finished. With ``keep_state`` the final parameters
+    and optimizer state are kept, copied to the host, in ``out["params"]``
+    and ``out["opt_state"]``.
+
+    The runner is cooperative: at each step boundary it checks
+    ``ej.preempted``. When evicted, it saves the last finished step through
+    an ``AsyncCheckpointer`` (the state's copy to the host; the write held
+    back) and returns, dropping its tensors (the executor returns their
+    blocks to the card). The re-dispatched attempt restores the step its
+    run saved last from the checkpointer's host copy, in place of a fresh
+    state, so it resumes at the step the eviction saved, never at a step
+    another run left in ``ckpt_dir``; then it commits the held write, which
+    runs beside its steps (ROADMAP C15). ``resume`` restores the newest
+    committed step in ``ckpt_dir`` on the first attempt. Without
+    ``ckpt_dir`` an evicted run checkpoints under a temporary directory
+    (``TMPDIR``), which ``TrainRun.close`` removes. With ``ckpt_dir`` on a
+    card, the first attempt pins the host mirror its checkpoints copy into
+    while its first steps run (``AsyncCheckpointer.reserve``), so an
+    eviction only copies."""
     cfg = get_arch(arch)
     cuts: List[str] = []
     if reduced:
@@ -80,8 +154,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         if n_layers != cfg.n_layers:
             cuts.append(f"depth {cfg.n_layers} -> {n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    devices, hbm = serving_devices(1, device)
-    dev = devices[0]
+    dev = torch.device(device) if device is not None \
+        else serving_devices(1, None)[0][0]
     shape = ShapeConfig("train", seq, batch, "train")
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
                                 total_steps=steps,
@@ -89,32 +163,78 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     step_fn = make_train_step(cfg, opt_cfg, attn_impl=attn_impl)
 
     # the task: one step over the run's state, probed on specs
-    p_spec, o_spec = abstract_train_state(cfg, opt_cfg, torch.float32, dev)
+    p_spec, o_spec = abstract_train_state(cfg, opt_cfg, torch.float32,
+                                          dev)
     vec = probe_fn(step_fn, p_spec, o_spec, input_specs(cfg, shape, dev))
-    sched = MGBAlg3Scheduler(1, hbm_per_device=hbm - pool_reserve(devices, 1))
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "reduced": cuts,
            "probe": vec, "losses": [], "grad_norms": [], "lrs": [],
            "step_ms": [], "device_ms": [], "tokens_per_s": [],
            "start_step": 0}
+    ckpt = CK.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    task = Task(units=[UnitTask(fn=None, memobjs=frozenset({"train"}),
+                                resources=vec, name="train")], name="train")
+    run = TrainRun(ExecJob(job=Job(tasks=[task], name="train"), runners=[]),
+                   out, cfg, vec, ckpt)
+    run.ej.on_preempt = lambda t: run.notices.append(time.monotonic())
 
     def runner(device) -> None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        params = init_params(cfg, gen, torch.float32, device)
-        opt_state = adamw.init_state(opt_cfg, params)
-        start = 0
-        ckpt = CK.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
-        if resume and ckpt_dir and CK.latest_step(ckpt_dir) is not None:
-            start, state = CK.restore(ckpt_dir,
-                                      {"params": params, "opt": opt_state})
+        attempt = {"start": 0}
+        run.attempts.append(attempt)
+        # a re-dispatched attempt takes the step its run saved last, from
+        # the host copy; a first one with ``resume`` the newest on disk
+        saved = (run.ckpt is not None and run.ckpt.saved_step is not None
+                 and len(run.attempts) > 1)
+        if saved or (len(run.attempts) == 1 and resume and ckpt_dir
+                     and CK.latest_step(ckpt_dir) is not None):
+            t0 = time.perf_counter()
+            # the state's storage, filled from the checkpoint in place
+            params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                    device=device), p_spec)
+            state = {"params": params,
+                     "opt": adamw.init_state(opt_cfg, params)}
+            start, state = (run.ckpt.restore_into(state) if saved
+                            else CK.restore_into(ckpt_dir, state))
             params, opt_state = state["params"], state["opt"]
+            attempt["restore_s"] = time.perf_counter() - t0
+            if saved:
+                run.ckpt.commit()  # the write an eviction held back
             print(f"[train] resumed from step {start}", flush=True)
-        out["start_step"] = start
+        else:
+            start = 0
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = init_params(cfg, gen, torch.float32, device)
+            opt_state = adamw.init_state(opt_cfg, params)
+        attempt["start"] = start
+        if len(run.attempts) == 1:
+            out["start_step"] = start
         pipe = TokenPipeline(cfg, shape, seed=seed, start_step=start,
                              batch_override=batch, seq_override=seq)
         prefetch = Prefetcher(pipe)
         on_card = device.type == "cuda"
+        if on_card and run.ckpt is not None and len(run.attempts) == 1:
+            # the host mirror an eviction copies into, pinned while the
+            # first steps run
+            run.ckpt.reserve({"params": p_spec, "opt": o_spec})
         try:
             for step in range(start, steps):
+                if run.ej.preempted.is_set():
+                    # evicted: copy the last finished step to the host and
+                    # return; the write is left to the attempt that resumes
+                    # (one in flight would stall the release of the card's
+                    # blocks and slow the preemptor)
+                    if run.ckpt is None:
+                        run.tmp_dir = tempfile.mkdtemp(
+                            prefix="repro_torch_train_")
+                        run.ckpt = CK.AsyncCheckpointer(run.tmp_dir, keep=1)
+                    run.ckpt.save(step, {"params": params,
+                                         "opt": opt_state}, start=False)
+                    attempt.update(evicted_at=step,
+                                   copy_s=run.ckpt.copy_s,
+                                   nbytes=run.ckpt.nbytes)
+                    print(f"[train] evicted at step {step}: "
+                          f"{run.ckpt.nbytes} B copied to the host in "
+                          f"{run.ckpt.copy_s * 1e3:.1f} ms", flush=True)
+                    return
                 b = to_device(next(prefetch), device)
                 if on_card:
                     ev = [torch.cuda.Event(enable_timing=True)
@@ -140,32 +260,71 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                           f"{out['grad_norms'][-1]:.3f} lr "
                           f"{out['lrs'][-1]:.2e} {host_s * 1e3:.1f} ms{dms}, "
                           f"{batch * seq / host_s:.0f} tok/s", flush=True)
-                if ckpt and (step + 1) % ckpt_every == 0:
-                    ckpt.save(step + 1, {"params": params, "opt": opt_state})
-            if ckpt:
-                ckpt.save(steps, {"params": params, "opt": opt_state})
-                ckpt.wait()
+                if ckpt_dir and (step + 1) % ckpt_every == 0:
+                    run.ckpt.save(step + 1, {"params": params,
+                                             "opt": opt_state})
+                if on_step is not None:
+                    on_step(step + 1)
+            if ckpt_dir:
+                run.ckpt.save(steps, {"params": params, "opt": opt_state})
+                run.ckpt.wait()
+            if keep_state:
+                out["params"], out["opt_state"] = tree_map(
+                    lambda x: x.to("cpu", copy=True)
+                    if isinstance(x, torch.Tensor) else x,
+                    (params, opt_state))
         finally:
             prefetch.close()
+            attempt["t_exit"] = time.monotonic()
         if on_card:
             torch.cuda.current_stream(device).synchronize()
 
-    task = Task(units=[UnitTask(fn=None, memobjs=frozenset({"train"}),
-                                resources=vec, name="train")], name="train")
-    cluster = Cluster(sched, workers=1, devices=devices)
+    run.ej.runners.append(runner)
+    return run
+
+
+def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
+          reduced: bool = True, n_layers: Optional[int] = None,
+          device: Optional[str] = None, ckpt_dir: Optional[str] = None,
+          ckpt_every: int = 20, resume: bool = False, seed: int = 0,
+          attn_impl: str = "flash_kernel", lr: float = 3e-4,
+          log_every: int = 10, priority: int = 0,
+          deadline_s: Optional[float] = None,
+          scheduler: Optional[Scheduler] = None,
+          keep_state: bool = False) -> dict:
+    """Train ``arch`` for ``steps`` steps as one scheduled task
+    (``train_job``) at ``priority`` with ``deadline_s``, under
+    ``scheduler`` (default: MGB Algorithm 3 over the memory free on the
+    card when training starts, less the pool's reserve). Returns the
+    per-step metrics (``losses``, ``grad_norms``, ``lrs``, ``step_ms``,
+    ``device_ms``, ``tokens_per_s``), the task's ``probe`` vector, how it
+    ended (``status``, ``error``), ``reduced`` (the cuts of the published
+    configuration), ``attempts`` (one entry per attempt: an evicted one
+    says where it saved), ``peak_allocated`` (a card's
+    ``max_memory_allocated`` after the run, 0 on the CPU) and, with
+    ``keep_state``, the final ``params`` and ``opt_state`` on the host."""
+    devices, hbm = serving_devices(1, device)
+    dev = devices[0]
+    run = train_job(arch, steps=steps, batch=batch, seq=seq,
+                    reduced=reduced, n_layers=n_layers, device=dev,
+                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
+                    seed=seed, attn_impl=attn_impl, lr=lr,
+                    log_every=log_every, keep_state=keep_state)
+    if scheduler is None:
+        scheduler = MGBAlg3Scheduler(
+            1, hbm_per_device=hbm - pool_reserve(devices, 1))
+    cluster = Cluster(scheduler, workers=1, devices=devices)
     t0 = time.time()
-    handle = cluster.submit(ExecJob(job=Job(tasks=[task], name="train"),
-                                    runners=[runner]))
+    handle = cluster.submit(run.ej, priority=priority,
+                            deadline_s=deadline_s)
     cluster.drain()
     cluster.shutdown()
-    out.update(wall_s=time.time() - t0, status=handle.status.value,
-               error=handle.job.error,
-               steps=len(out["losses"]),
-               final_loss=out["losses"][-1] if out["losses"] else None,
-               peak_allocated=torch.cuda.max_memory_allocated(dev)
-               if dev.type == "cuda" else 0)
+    run.close()
+    out = run.result(handle.status, handle.job.error, time.time() - t0)
+    out["peak_allocated"] = (torch.cuda.max_memory_allocated(dev)
+                             if dev.type == "cuda" else 0)
     if handle.status is not JobStatus.DONE:
-        raise RuntimeError(f"train {cfg.name}: the task ended "
+        raise RuntimeError(f"train {run.cfg.name}: the task ended "
                            f"{handle.status.value}: {handle.job.error}")
     return out
 

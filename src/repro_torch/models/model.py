@@ -23,7 +23,9 @@ reference) differentiates the same forward: the hand kernels' ops carry
 their backward kernels (``repro_torch.kernels``), and under
 ``remat_policy="full"`` each layer is a non-reentrant
 ``torch.utils.checkpoint`` whose backward recomputes the layer (the
-reference's ``_remat``, ``:309``), so only the layers' inputs are saved.
+reference's ``_remat``, ``:309``), so only the layers' inputs are saved;
+under ``"dots"`` the outputs of the layer's matrix products stay saved too
+and the rest is recomputed.
 The loss recomputes each 512-position chunk's f32 logits in the backward
 instead of saving them. Training runs every family the port serves: the
 Mamba-1 layer's scan and the MoE layer's grouped matmuls have backward
@@ -31,12 +33,15 @@ kernels too, and the loss adds the MoE aux loss (``aux_weight``, 0.01).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -307,21 +312,46 @@ def _ssm_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig,
     return x + out, None
 
 
+# the matrix products without batch dims, which "dots" saves: JAX's
+# ``checkpoint_dots_with_no_batch_dims`` saves every ``dot_general`` that
+# has no batch dimension, and a projection's ``einsum`` or ``@`` over
+# [B, S, d] reaches PyTorch's dispatcher as one of these on the rows
+# folded together
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for "dots": save the outputs of
+    matrix products without batch dims (and a batched product over a
+    batch of one, which is the same product), recompute everything else,
+    the hand kernels' ops (flash attention, the grouped matmul, the scan,
+    RMSNorm) among them."""
+    if op in _DOTS or (op is torch.ops.aten.bmm.default
+                       and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, policy: str):
     """The reference's ``_remat`` (``model.py:309``): ``"nothing"`` saves
     every activation; ``"full"`` checkpoints the layer (non-reentrant: the
     backward reruns its forward, hand kernels included, and only the
-    layer's inputs stay saved). No randomness runs in a layer, so no RNG
-    state is stashed. ``"dots"`` (save the matrix products) is used by no
-    configuration the port trains yet."""
+    layer's inputs stay saved); ``"dots"`` checkpoints it selectively
+    (``torch.utils.checkpoint.create_selective_checkpoint_contexts``): the
+    outputs of its matrix products without batch dims stay saved and the
+    rest is recomputed (``_dots_policy``), as the reference's
+    ``checkpoint_dots_with_no_batch_dims``. No randomness runs in a layer,
+    so no RNG state is stashed."""
     if policy == "nothing":
         return fn
     if policy == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False,
                                         preserve_rng_state=False)
     if policy == "dots":
-        raise NotImplementedError(
-            "remat_policy 'dots' is not ported yet (ROADMAP A, item 6)")
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy))
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 

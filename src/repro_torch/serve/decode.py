@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -296,15 +296,22 @@ class GreedyDecoder:
         self.tokens.copy_(first_tokens)
         self.pos.fill_(start_pos)
 
-    def generate(self, num_steps: int) -> torch.Tensor:
+    def generate(self, num_steps: int,
+                 stop: Optional[Callable[[], bool]] = None
+                 ) -> Optional[torch.Tensor]:
         """``num_steps`` greedy steps from the loaded tokens and position:
-        the tokens [B, num_steps] int32 (an empty [B, 0] block for 0)."""
+        the tokens [B, num_steps] int32 (an empty [B, 0] block for 0).
+        ``stop`` is asked on the host before each step (a cooperative
+        task's eviction check): once it answers True no further step is
+        launched, the steps in flight finish, and None is returned."""
         out = torch.empty(self.tokens.shape[0], max(num_steps, 0),
                           dtype=torch.int32, device=self.device)
         if num_steps <= 0:
             return out
         if self.device.type != "cuda":
             for i in range(num_steps):
+                if stop is not None and stop():
+                    return None
                 self.step()
                 out[:, i] = self.tokens
             return out
@@ -315,15 +322,19 @@ class GreedyDecoder:
             first = 1  # the warm-up was this batch's first step
         stream = self.graph.stream
         stream.wait_stream(caller)
+        stopped = False
         with torch.cuda.stream(stream):
             if first:
                 out[:, 0].copy_(self.tokens)
             for i in range(first, num_steps):
+                if stop is not None and stop():
+                    stopped = True
+                    break
                 self.graph.replay()
                 out[:, i].copy_(self.tokens)
         stream.synchronize()
         caller.wait_stream(stream)
-        return out
+        return None if stopped else out
 
 
 def greedy_generate(cfg: ArchConfig, params, cache: D.Cache,

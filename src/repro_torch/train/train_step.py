@@ -43,7 +43,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     into n consecutive blocks whose gradients are summed in f32
     accumulators and divided by n, as the reference's scan does. The
     reference's ``grad_compressor`` serves only its sharded path and waits
-    for the port's distribution (ROADMAP item 8)."""
+    for the port's distribution (ROADMAP A, "Distribution")."""
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port trains the {', '.join(TRAIN_FAMILIES)} "

@@ -314,8 +314,8 @@ def test_serve_falcon_mamba_f32_decodes_like_jax(monkeypatch):
     states = []
     decode = LS.GreedyDecoder.generate
 
-    def generate(self, num_steps):
-        out = decode(self, num_steps)
+    def generate(self, num_steps, **kw):  # kw: the runner's stop check
+        out = decode(self, num_steps, **kw)
         states.append({k: v.clone() for k, v in self.cache.items()})
         return out
 

@@ -172,15 +172,137 @@ def test_remat_full_equals_nothing_exactly():
                                                  tree_leaves(p_b)))
 
 
-def test_remat_dots_is_not_ported():
-    cfg = dataclasses.replace(port_arch("gemma2-9b").reduced(),
-                              remat_policy="dots")
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
-    for p in tree_leaves(params):
-        p.requires_grad_(True)
-    tok = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dots"):
-        TM.loss_fn(params, cfg, {"tokens": tok, "labels": tok})
+_JAX_DOTS = {}
+
+
+def _jax_dots_run(arch):
+    """The reference's 3 steps with every layer under ``"dots"``
+    (``checkpoint_dots_with_no_batch_dims``)."""
+    if arch not in _JAX_DOTS:
+        cfg, _, params, state, _, _ = _start(arch)
+        cfg = dataclasses.replace(cfg, remat_policy="dots")
+        step = jax.jit(jax_step(cfg, _opt(JA), attn_impl="flash"))
+        pipe = JPipe(cfg, ShapeConfig("t", S, B, "train"), seed=0)
+        metrics = []
+        for i in range(STEPS):
+            batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()}
+            params, state, m = step(params, state, batch)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        _JAX_DOTS[arch] = (metrics, _np(params), _np(state))
+    return _JAX_DOTS[arch]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "falcon-mamba-7b",
+                                  "mixtral-8x7b"])
+def test_remat_dots_matches_jitted_jax_dots_step(arch):
+    """``remat_policy="dots"`` (the matrix products' outputs saved, the
+    rest recomputed) trains in parity with the jitted JAX step under
+    ``"dots"`` (the module's tolerances), and repeats the port's
+    ``"nothing"`` and ``"full"`` steps exactly: recomputing a layer's
+    other ops repeats their arithmetic."""
+    want_m, want_p, want_s = _jax_dots_run(arch)
+    tcfg, got_m, params, state = _port_run(arch, "dots")
+    for (gl, gn), (wl, wn) in zip(got_m, want_m):
+        assert abs(gl - wl) <= 1e-4
+        assert abs(gn - wn) <= 1e-4 * wn
+    _params_close(params, convert.params_from_jax(want_p, tcfg, "cpu"))
+    _moments_close(state, convert.opt_state_from_jax(want_s, tcfg, "cpu"))
+    for policy in ("nothing", "full"):
+        _, m_o, p_o, s_o = _port_run(arch, policy)
+        assert m_o == got_m, policy
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_o),
+                                                     tree_leaves(params)))
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(s_o["mu"]), tree_leaves(state["mu"])))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "falcon-mamba-7b",
+                                  "mixtral-8x7b"])
+def test_probe_of_dots_lies_between_full_and_nothing(arch):
+    """The probe traces the selective checkpoint as it runs: under
+    ``"dots"`` a step keeps each layer's matrix products besides its input,
+    so its live peak lies above ``"full"``'s and below ``"nothing"``'s,
+    and it recomputes less than ``"full"`` (fewer flops)."""
+    cfg = port_arch(arch).reduced()
+    opt = TA.AdamWConfig()
+    params, opts = abstract_train_state(cfg, opt, torch.float32)
+    batch = input_specs(cfg, TShape("t", 256, 4, "train"))
+    counts = {p: trace_counts(make_train_step(
+        dataclasses.replace(cfg, remat_policy=p), opt), params, opts, batch)
+        for p in ("nothing", "dots", "full")}
+    peak = {p: c["peak_live_bytes"] for p, c in counts.items()}
+    assert peak["full"] < peak["dots"] < peak["nothing"], peak
+    assert counts["nothing"]["hbm_bytes"] > counts["dots"]["hbm_bytes"] \
+        > counts["full"]["hbm_bytes"]
+    assert counts["nothing"]["flops"] <= counts["dots"]["flops"] \
+        < counts["full"]["flops"]
+
+
+# bf16 training: parameters and their gradients in bf16, the moments in
+# f32. Both packages round each update to bf16, so an element whose f32
+# value lies near a rounding boundary lands one bf16 unit apart, and one
+# whose gradient is a rounding error's size may move up to ~lr a step the
+# other way. Measured over 3 steps of reduced gemma2-9b, batch 4 in 2
+# microbatches, every layer under "dots": losses within 3.1e-3, grad norms
+# within 2.0e-4 relative, moments within 1.3e-2 of their largest magnitude,
+# 0.17% of the parameters beyond lr + 2^-8 |w| of the reference (at most
+# 3.5 times it). Tolerances (chip_smoke's [train-reduced] holds the card to
+# the same, 10x where absolute):
+BF16_TOL = {"loss": 1e-2, "grad_norm": 1e-3, "moments": 5e-2,
+            "far": 1e-2, "max": 2 * STEPS * LR}
+
+
+def bf16_params_close(got, want, lr=LR, steps=STEPS):
+    """Every element within 2 * steps * lr + 2^-7 |w| of the reference,
+    all but ``BF16_TOL["far"]`` of them within lr + 2^-8 |w|."""
+    g = torch.cat([x.float().flatten() for x in tree_leaves(got)])
+    w = torch.cat([x.float().flatten() for x in tree_leaves(want)])
+    d = (g - w).abs()
+    assert bool((d <= 2 * steps * lr + 2 ** -7 * w.abs()).all()), \
+        float(d.max())
+    far = int((d > lr + 2 ** -8 * w.abs()).sum())
+    assert far <= BF16_TOL["far"] * d.numel(), (far, d.numel())
+
+
+def test_bf16_microbatched_dots_matches_jitted_jax_step():
+    """bf16 parameters, a batch of 4 in 2 microbatches and every layer
+    under ``"dots"``: 3 steps of the port against the jitted JAX step
+    with the same options from the same bf16 state (``BF16_TOL``)."""
+    arch = "gemma2-9b"
+    cfg = dataclasses.replace(get_arch(arch).reduced(), remat_policy="dots")
+    tcfg = dataclasses.replace(port_arch(arch).reduced(),
+                               remat_policy="dots")
+    params = JM.init_params(cfg, jax.random.PRNGKey(0),
+                            param_dtype=jnp.bfloat16)
+    state = JA.init_state(_opt(JA), params)
+    tparams = convert.params_from_jax(_np(params), tcfg, "cpu")
+    tstate = convert.opt_state_from_jax(_np(state), tcfg, "cpu")
+    assert {p.dtype for p in tree_leaves(tparams)} == {torch.bfloat16}
+    assert {m.dtype for m in tree_leaves(tstate["mu"])} == {torch.float32}
+    jstep = jax.jit(jax_step(cfg, _opt(JA), attn_impl="flash",
+                             num_microbatches=2))
+    tstep = make_train_step(tcfg, _opt(TA), num_microbatches=2)
+    jpipe = JPipe(cfg, ShapeConfig("t", S, 4, "train"), seed=0)
+    tpipe = TokenPipeline(tcfg, TShape("t", S, 4, "train"), seed=0)
+    for i in range(STEPS):
+        params, state, m = jstep(params, state, {
+            k: jnp.asarray(v) for k, v in jpipe.batch_at(i).items()})
+        tparams, tstate, tm = tstep(tparams, tstate,
+                                    to_device(tpipe.batch_at(i), "cpu"))
+        assert abs(float(tm["loss"]) - float(m["loss"])) \
+            <= BF16_TOL["loss"]
+        assert abs(float(tm["grad_norm"]) - float(m["grad_norm"])) \
+            <= BF16_TOL["grad_norm"] * float(m["grad_norm"])
+    assert {p.dtype for p in tree_leaves(tparams)} == {torch.bfloat16}
+    bf16_params_close(tparams, convert.params_from_jax(_np(params), tcfg,
+                                                       "cpu"))
+    want = convert.opt_state_from_jax(_np(state), tcfg, "cpu")
+    for key in ("mu", "nu"):
+        for g, w in zip(tree_leaves(tstate[key]), tree_leaves(want[key])):
+            scale = float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=BF16_TOL["moments"] * scale)
+    assert tstate["step"] == STEPS
 
 
 # the MoE aux loss is a product of batch means (token fractions times
