@@ -167,6 +167,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the launches are exactly the formula's. Prints the eviction latency,
    the checkpoint's bytes, copy, write and restore times, and the batch's
    TTFT against waiting out the training task.
+12. obs (``phase_obs``): one card, 2 pool workers, probe -> MGB Algorithm 3
+   -> executor under ``Cluster(trace=True, calibrate=True, flight_path=)``:
+   static batches that make their weights in the task
+   (``launch.serve.batch_job``, bf16, 4 prompts, 32 tokens) of two
+   resource classes at every published width, gemma2-9b at 12 of 42
+   layers and falcon-mamba-7b at 16 of 64, five of each in waves, the
+   first of each class alone on the card. The executor measures the
+   memory high-water and duration of every attempt that had the card to
+   itself (ROADMAP C16), and the calibration store corrects the later
+   batches' vectors. Fails unless nothing crashed, the tokens are in
+   range, the launches are exactly the formula's, the exported Chrome
+   trace validates, a high-water was measured and none exceeds its
+   reservation, a corrected vector was applied and the flight recorder's
+   file loads. Prints each task's profile, the probe's runtime ratio and
+   memory margin per class, raw against corrected error, the device's
+   occupancy, the SLO drift stream, a ``launch.top`` frame and the run
+   replayed on the sim backend under MGB Algorithm 3 and SA.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -2960,6 +2977,239 @@ def phase_preempt(torch, gpu: str) -> dict:
     return launches
 
 
+# the observability phase: (arch, layers, prompt length) of each resource
+# class, one batch shape a class, and the order its batches are submitted
+# in: each inner list is submitted together and drained before the next
+# (the first batch of each class alone on the card, so that its high-water
+# is measured; a class's fourth completion comes before its later batches)
+OBS_CLASSES = {"gemma2-9b": (12, 1000), "falcon-mamba-7b": (16, 1024)}
+OBS_WAVES = [["gemma2-9b"], ["falcon-mamba-7b"],
+             ["gemma2-9b", "falcon-mamba-7b"],
+             ["gemma2-9b", "falcon-mamba-7b"],
+             ["gemma2-9b"], ["falcon-mamba-7b"],
+             ["gemma2-9b", "falcon-mamba-7b"]]
+OBS_WORKERS = 2
+
+
+def phase_obs(torch, gpu: str) -> dict:
+    """The observability plane on one card: ``Cluster(MGBAlg3Scheduler,
+    workers=OBS_WORKERS, trace=True, calibrate=True, flight_path=...)``
+    serves static batches that make their weights in the task
+    (``launch.serve.batch_job``, bf16, 4 prompts, 32 tokens) of two
+    resource classes at every published width and a cut depth
+    (``OBS_CLASSES``: gemma2-9b's flash attention and RMSNorm,
+    falcon-mamba-7b's scan and RMSNorm), in ``OBS_WAVES``. The executor
+    measures the high-water and duration of each attempt that had the card
+    to itself (ROADMAP C16); the calibration store learns each class's
+    observed/predicted runtime and its high-water and corrects the
+    vectors of later batches. Fails unless nothing crashed, every batch's
+    tokens are in range, the exported trace validates, at least one
+    high-water was measured and none is above its reservation (the
+    store's violations, the profiles' memory violations), a corrected
+    vector was applied, the flight recorder's file loads, and the
+    launches are exactly the formula's. Prints each task's profile, the
+    store's accuracy per class (the probe's runtime ratio, the measured
+    high-water against the probe and against the probe less
+    ``CUDA_UNSEEN_BYTES``, raw against corrected error), the device's
+    occupancy, the SLO monitor's drift stream, a ``launch.top`` frame, and
+    the card run's submissions replayed on the sim backend under MGB
+    Algorithm 3 and SA (``obs.whatif``). Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch.core.cluster import Cluster, JobStatus
+    from repro_torch.core.probe import CUDA_UNSEEN_BYTES
+    from repro_torch.core.scheduler import MGBAlg3Scheduler, SAScheduler
+    from repro_torch.launch import top
+    from repro_torch.launch.serve import batch_job, pool_reserve
+    from repro_torch.obs import whatif
+    from repro_torch.obs.export import trace_summary, validate_chrome_trace
+    from repro_torch.obs.profile import device_occupancy, format_profile
+    from repro_torch.obs.replay import load_flight
+    from repro_torch.obs.slo import SLOMonitor
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    fresh_card(torch)
+    hbm = torch.cuda.mem_get_info(dev)[0] - pool_reserve([dev], OBS_WORKERS)
+    gen_len = 32
+    cfgs = {arch: full_cfg(arch, layers)
+            for arch, (layers, _) in OBS_CLASSES.items()}
+    rng = np.random.default_rng(0)
+    made = {arch: 0 for arch in cfgs}
+
+    def make(arch):
+        cfg, prompt_len = cfgs[arch], OBS_CLASSES[arch][1]
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, prompt_len),
+                                               dtype=np.int64))
+        made[arch] += 1
+        return batch_job(cfg, tokens, gen_len=gen_len, seed=0,
+                         param_dtype=torch.bfloat16, device=dev,
+                         name=f"{arch}#{made[arch]}")
+
+    flight = os.path.join(HERE, "build", "obs_flight.json")
+    os.makedirs(os.path.dirname(flight), exist_ok=True)
+    cluster = Cluster(MGBAlg3Scheduler(1, hbm_per_device=hbm),
+                      workers=OBS_WORKERS, devices=[dev], trace=True,
+                      calibrate=True, flight_path=flight)
+    store = cluster.calibration
+    # subscribed before the first completion: it reads every observation,
+    # and a subscriber makes the store fold each completion at once, so an
+    # admission after it sees the class's statistics
+    slo = SLOMonitor.for_calibration(store, window=32)
+    for c in counters().values():
+        c.reset()
+    jobs, handles, frame = [], [], None
+    t0 = time.time()
+    for i, wave in enumerate(OBS_WAVES):
+        for arch in wave:
+            bj = make(arch)
+            jobs.append((arch, bj))
+            handles.append(cluster.submit(bj.ej))
+        if i == len(OBS_WAVES) - 1:
+            frame = top.render(cluster.sched, slo=slo,
+                               stats=cluster.stats(),
+                               title=f"repro-top on {gpu}, the last wave")
+        cluster.drain()
+    wall = time.time() - t0
+    counts = read_counts()
+    stats = cluster.stats()
+    cluster.shutdown()
+    errors = [h.job.error for h in handles if h.job.error]
+    print(f"[obs] {gpu}: {len(handles)} batches in {len(OBS_WAVES)} waves, "
+          f"{stats['completed']} done, {stats['crashed']} crashed in "
+          f"{wall:.1f} s; the scheduler's memory {hbm} B, {OBS_WORKERS} "
+          f"workers", flush=True)
+    if stats["crashed"] or errors or any(
+            h.status is not JobStatus.DONE for h in handles):
+        fail(f"obs: a batch did not complete: {errors}")
+    for arch, cfg in cfgs.items():
+        check_tokens(f"obs {arch}", [bj.result["tokens"] for a, bj in jobs
+                                     if a == arch], (4, gen_len), cfg.vocab)
+
+    # launches: each batch's eager prefill and its decode (warm-up and
+    # capture counted, the rest replayed)
+    steps = gen_len - 1
+    n = {arch: sum(a == arch for a, _ in jobs) for arch in cfgs}
+    want = {k: sum(n[a] * expected_launches(cfg, 1, 2)[k]
+                   for a, cfg in cfgs.items())
+            for k in expected_launches(cfgs["gemma2-9b"], 0, 0)}
+    got = {k: counts[k] for k in want}
+    graphs = (counts["graph_captures"], counts["graph_replays"],
+              counts["prefill_captures"], counts["prefill_replays"])
+    print(f"[launches] obs: counted {got}, expected {want}; decode graphs "
+          f"captured/replayed, prefill graphs captured/replayed {graphs}, "
+          f"expected ({len(jobs)}, {len(jobs) * (steps - 1)}, 0, 0)",
+          flush=True)
+    if got != want or graphs != (len(jobs), len(jobs) * (steps - 1), 0, 0):
+        fail("obs: launches differ from expected")
+    launches = {k: got[k] + sum(n[a] * (steps - 1)
+                                * expected_launches(cfg, 0, 1)[k]
+                                for a, cfg in cfgs.items()) for k in got}
+
+    # per task: predicted -> observed, parked/dispatch, reserved vs
+    # high-water (measured where the attempt had the card to itself)
+    measured = []
+    for (arch, bj), h in zip(jobs, handles):
+        (p,) = h.profile().values()
+        task = h.job.tasks[0]
+        tv = task.true_vec
+        if tv is not None:
+            measured.append((arch, task, tv))
+        print(f"[obs] {format_profile(p)}; "
+              + (f"measured alone: {tv.hbm_bytes} B in {tv.est_seconds:.3f}"
+                 f" s, reserved {task.resources.hbm_bytes} B"
+                 if tv is not None else "shared the card: not measured"),
+              flush=True)
+    for arch in cfgs:
+        first = next(h for (a, _), h in zip(jobs, handles) if a == arch)
+        if first.job.tasks[0].true_vec is None:
+            fail(f"obs: the first {arch} batch was not measured alone")
+    rep = store.accuracy_report()
+    prof = cluster.profile()
+    print(f"[obs] calibration: {rep['classes']} classes, "
+          f"{rep['observations']} observations, {rep['corrections']} "
+          f"corrected vectors applied, {rep['violations']} high-water(s) "
+          f"above the reservation; paired error over "
+          f"{rep['paired']['n']} corrected completions: raw probe "
+          f"{rep['paired']['mae_raw_s']:.4f} s, corrected "
+          f"{rep['paired']['mae_used_s']:.4f} s "
+          f"({rep['paired']['improvement']:.1f}x); uncorrected warm-up "
+          f"{rep['uncalibrated']['n']} at {rep['uncalibrated']['mae_s']:.4f}"
+          f" s; profiles' memory violations {prof['memory_violations']}",
+          flush=True)
+    rows = {(r["est_s"], r["hbm_gb"]): r for r in store.rows()}
+    for arch in cfgs:
+        vec = next(bj.vec for a, bj in jobs if a == arch)
+        row = rows[(vec.est_seconds, vec.hbm_bytes / 1e9)]
+        mine = [v for a, _, v in measured if a == arch]
+        hw = max(v.hbm_bytes for v in mine)
+        print(f"[obs] {arch} ({OBS_CLASSES[arch][0]} layers, 4 x "
+              f"{OBS_CLASSES[arch][1]} prompts, {gen_len} tokens) on {gpu}: "
+              f"probe est {vec.est_seconds:.5f} s, observed alone "
+              f"{', '.join(f'{v.est_seconds:.4f}' for v in mine)} s, "
+              f"learned observed/predicted x{row['ratio']:.2f} over "
+              f"{row['n']} completions, mean abs error raw "
+              f"{row['mae_raw_s']:.4f} s -> used {row['mae_used_s']:.4f} s; "
+              f"probe hbm {vec.hbm_bytes} B, measured high-water "
+              f"{', '.join(str(v.hbm_bytes) for v in mine)} B in "
+              f"{len(mine)} lone attempt(s) (probe/measured "
+              f"{vec.hbm_bytes / hw:.4f}, margin {vec.hbm_bytes - hw} B; "
+              f"less the {CUDA_UNSEEN_BYTES} B unseen "
+              f"{(vec.hbm_bytes - CUDA_UNSEEN_BYTES) / hw:.4f}); the store's "
+              f"high-water {store.highwater(vec)} B (a completion that "
+              f"shared the card reports the probe's bytes), violations "
+              f"{row['violations']}", flush=True)
+    for d, o in device_occupancy(cluster.trace.events()).items():
+        print(f"[obs] device {d} occupancy: busy {o['busy_frac']:.4f} of the "
+              f"run, mean demand-weighted {o['mean_occupancy']:.4f}",
+              flush=True)
+    print(f"[obs] SLO (drift stream from the store): {slo.status()}",
+          flush=True)
+    print(frame, flush=True)
+    if rep["violations"] or prof["memory_violations"] or any(
+            v.hbm_bytes > t.resources.hbm_bytes for _, t, v in measured):
+        fail("obs: a measured high-water is above its reservation")
+    if not rep["corrections"]:
+        fail("obs: no corrected vector was applied")
+
+    # the trace, the flight recorder, and the run replayed on the sim
+    doc = cluster.export_trace(os.path.join(HERE, "build", "obs_trace.json"))
+    problems = validate_chrome_trace(doc)
+    print(f"[obs] Chrome trace: {trace_summary(doc)}, problems {problems}",
+          flush=True)
+    if problems:
+        fail(f"obs: the exported trace is invalid: {problems[:5]}")
+    dumps = cluster.flight.dumps
+    if not dumps or not os.path.exists(dumps[-1][1]):
+        fail("obs: the flight recorder wrote no file")
+    try:
+        flown = load_flight(dumps[-1][1])
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        fail(f"obs: the flight recorder's file does not load: {e!r}")
+    print(f"[obs] flight recorder: {len(dumps)} dump(s), the last "
+          f"({dumps[-1][0]}) {len(flown)} events", flush=True)
+    if not flown:
+        fail("obs: the flight recorder's file holds no event")
+    events = cluster.trace.events()
+    start = events[0].t
+    events = [e._replace(t=e.t - start) for e in events]
+    report = whatif.compare(
+        events,
+        {"MGB Alg. 3": {},
+         "SA": {"scheduler_factory": lambda: SAScheduler(
+             1, hbm_per_device=hbm)}},
+        scheduler_factory=lambda: MGBAlg3Scheduler(1, hbm_per_device=hbm),
+        workers=OBS_WORKERS)
+    print(f"[obs] what-if, the card run's submissions replayed on the sim "
+          f"backend (the probe's est_seconds as each task's work): "
+          f"recorded {report['baseline']}; "
+          + "; ".join(f"{k}: makespan {v['makespan_s']:.4f} s, p99 queueing "
+                      f"{v['p99_queueing_s']:.4f} s, first divergence "
+                      f"{v['first_divergence']}"
+                      for k, v in report["policies"].items()), flush=True)
+    print(f"[obs] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 # the JAX package's NN vectors (``src/repro/core/workloads.py::_nn_vector``
 # on a CPU, virtual seconds): hbm, flops, bytes, core, bw
 REFERENCE_NN = {"predict": (166458120, 7.731e12, 3.401e11, 0.014, 0.150),
@@ -3036,6 +3286,7 @@ def main() -> None:
     for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
     by_path["preempt"] = phase_preempt(torch, gpu)
+    by_path["obs"] = phase_obs(torch, gpu)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

@@ -24,13 +24,27 @@ Both route admission through the scheduler's own priority/deadline waiter
 queue: higher ``priority`` first, EDF within a class, arrival order last, so
 the same submission trace produces the same admission order live and
 simulated. With ``shed_late=True`` a job still parked when its deadline
-passes is failed with ``JobStatus.SHED``. ``trace=True`` (or a ``Tracer``)
-attaches an ``obs.events.Tracer`` that the scheduler and both backends emit
-into. ``preempt=`` turns the eviction half of deadline/priority enforcement
-on or off on a preemption-capable scheduler (``scheduler.preempt``), and
-``stats()`` then counts the cluster's own ``preemptions`` and
-``migrations``. Explain, calibration, profiling and trace export come in
-later slices.
+passes is failed with ``JobStatus.SHED``. ``preempt=`` turns the eviction
+half of deadline/priority enforcement on or off on a preemption-capable
+scheduler (``scheduler.preempt``), and ``stats()`` then counts the
+cluster's own ``preemptions`` and ``migrations``.
+
+Observability (``repro_torch.obs``), on both backends as in the reference:
+
+  * ``trace=True`` (or a ``Tracer``) attaches the lifecycle tracer that the
+    scheduler and both backends emit into; ``flight_path=`` adds a
+    ``FlightRecorder`` that dumps its window at a crash and at every
+    ``drain``; ``export_trace`` writes it as Chrome/Perfetto JSON;
+  * ``explain=`` (None: follows ``trace``) records decision verdicts,
+    read by ``Cluster.explain`` / ``JobHandle.explain``;
+  * ``calibrate=True`` (or a ``CalibrationStore``) feeds completions back
+    into admission (``obs.calibrate``); a scheduler already wrapped in
+    ``CalibratedScheduler`` is discovered, not attached twice. On a card
+    the live executor measures each lone attempt's memory high-water and
+    duration for the store (``core.executor``, ROADMAP C16);
+  * ``Cluster.profile`` / ``JobHandle.profile`` join predicted and
+    observed per task from the event stream (``obs.profile``);
+  * ``metrics=`` is a ``MetricsRegistry`` the flight recorder snapshots.
 """
 from __future__ import annotations
 
@@ -44,7 +58,14 @@ from repro_torch.core.scheduler.base import Scheduler
 from repro_torch.core.scheduler.preempt import PreemptionMixin
 from repro_torch.core.simulator import Simulator, _JobState
 from repro_torch.core.task import Job
+from repro_torch.obs import explain as obsx
+from repro_torch.obs.calibrate import CalibrationStore, attach_calibrator
 from repro_torch.obs.events import Tracer, attach_tracer
+from repro_torch.obs.explain import Explainer, attach_explainer
+from repro_torch.obs.export import write_chrome_trace
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.profile import Profiler, TaskProfile
+from repro_torch.obs.replay import FlightRecorder
 
 
 class JobStatus(enum.Enum):
@@ -121,6 +142,20 @@ class JobHandle:
         already finished."""
         return self._cluster._cancel(self._state)
 
+    def explain(self) -> Dict[str, List]:
+        """Per-task decision verdicts: why is this job still parked, who
+        evicted it and at what cost, where did it land. Delegates to
+        ``Cluster.explain`` (needs the cluster built with ``explain=`` or
+        ``trace=``)."""
+        return self._cluster.explain(self)
+
+    def profile(self) -> Dict[str, TaskProfile]:
+        """Per-task observed-vs-predicted attribution: runtime error against
+        the probe estimate, memory reserved vs high-water, the parked /
+        dispatch / execution delay decomposition. Delegates to
+        ``Cluster.profile`` (needs the cluster built with ``trace=``)."""
+        return self._cluster.profile(self)
+
 
 class Cluster:
     """The open-arrival submission surface over a scheduler and a backend.
@@ -132,7 +167,11 @@ class Cluster:
                  devices: Optional[Sequence[object]] = None,
                  poll_interval: float = 0.05, crash_delay: float = 8.0,
                  shed_late: bool = False, preempt: Optional[bool] = None,
-                 trace: Union[None, bool, Tracer] = None):
+                 trace: Union[None, bool, Tracer] = None,
+                 explain: Union[None, bool, Explainer] = None,
+                 calibrate: Union[None, bool, CalibrationStore] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 flight_path: Optional[str] = None):
         self.sched = scheduler
         self.backend = backend
         scheduler.shed_expired = shed_late
@@ -170,11 +209,36 @@ class Cluster:
                              "(expected 'live' or 'sim')")
         # attached after the backend: attach_tracer binds the tracer's clock
         # to the scheduler's _clock late, so it follows the sim's virtual
-        # clock. Identity checks, not truthiness: an empty Tracer is falsy
+        # clock. Identity checks, not truthiness: an empty Tracer or
+        # Explainer is falsy
         self.trace: Optional[Tracer] = None
-        if trace is not None and trace is not False:
+        self.flight: Optional[FlightRecorder] = None
+        self.metrics: Optional[MetricsRegistry] = metrics
+        want_trace = trace is not None and trace is not False
+        if want_trace:
             self.trace = trace if isinstance(trace, Tracer) else Tracer()
             attach_tracer(scheduler, self.trace)
+            if flight_path is not None:
+                self.flight = FlightRecorder(self.trace, flight_path,
+                                             registry=metrics)
+        # explain=None follows trace: a traced cluster answers "why" too
+        self.explainer: Optional[Explainer] = None
+        if explain is None:
+            explain = want_trace
+        if explain is not False:
+            self.explainer = explain if isinstance(explain, Explainer) \
+                else Explainer()
+            attach_explainer(scheduler, self.explainer)
+        # calibrate=True builds a default store; a scheduler pre-wrapped in
+        # CalibratedScheduler is discovered instead of attached twice
+        self.calibration: Optional[CalibrationStore] = None
+        if calibrate is not None and calibrate is not False:
+            self.calibration = calibrate \
+                if isinstance(calibrate, CalibrationStore) \
+                else CalibrationStore()
+            attach_calibrator(scheduler, self.calibration)
+        else:
+            self.calibration = getattr(scheduler, "_calib", None)
         self.handles: List[JobHandle] = []
         # scheduler counters are lifetime totals: a cluster over a reused
         # scheduler reports only its own activity
@@ -259,6 +323,9 @@ class Cluster:
             else:
                 self._n_done += 1
                 self._turnaround_sum += job.finish_t - job.arrival_t
+        if self.flight is not None and job.crashed \
+                and not state.cancelled and not state.shed:
+            self.flight.dump("crash")
 
     @staticmethod
     def _as_execjob(job: Union[Job, ExecJob],
@@ -288,6 +355,8 @@ class Cluster:
             self._ex.drain()
         else:
             self._sim_drain_checked()
+        if self.flight is not None:
+            self.flight.dump("drain", always=True)
 
     def _sim_drain_checked(self) -> None:
         res = self._sim.drain()
@@ -338,6 +407,82 @@ class Cluster:
             self._ex.shutdown()
         else:
             self._sim_drain_checked()
+
+    def explain(self, handle: "JobHandle") -> Dict[str, List[obsx.Verdict]]:
+        """Why is this job still parked / who evicted it, at what cost, per
+        task name: the recorded verdict window plus, for a task parked right
+        now, a live rejection probe of the current queue state. Requires
+        ``explain=`` (on by default when the cluster is traced)."""
+        if self.explainer is None:
+            raise RuntimeError(
+                "Cluster was built without explain= — pass explain=True "
+                "(or an Explainer) to record decision verdicts")
+        ex = self.explainer
+        eq = getattr(self.sched, "explain_queue", None)
+        out: Dict[str, List[obsx.Verdict]] = {}
+        for task in handle.job.tasks:
+            verdicts = ex.verdicts(task.uid)
+            if eq is not None:
+                live = eq(task)
+                if live is not None:       # parked right now: probe live
+                    verdicts.append(obsx.Verdict(
+                        seq=-1, t=self.now, uid=task.uid, name=task.name,
+                        action=obsx.REJECTED, reasons=tuple(live),
+                        data={"live": True}))
+            out[task.name or str(task.uid)] = verdicts
+        return out
+
+    def profile(self, handle: Optional["JobHandle"] = None):
+        """Observed-vs-predicted attribution from the event stream (requires
+        ``trace=``). With a handle: per-task ``TaskProfile`` records for that
+        job, keyed by task name. Without: the fleet summary, with the
+        calibration store's accuracy report when the cluster is
+        calibrated."""
+        if self.trace is None:
+            raise RuntimeError("Cluster was built without trace= — pass "
+                               "trace=True (or a Tracer) to enable profiling")
+        prof = Profiler(self.trace, self.calibration)
+        if handle is None:
+            return prof.summary()
+        profs = prof.profiles()
+        out: Dict[str, TaskProfile] = {}
+        for task in handle.job.tasks:
+            p = profs.get(task.uid)
+            if p is None:          # never reached an emission site yet
+                p = TaskProfile(task.uid)
+                p.name = task.name
+            out[task.name or str(task.uid)] = p
+        return out
+
+    def export_trace(self, path: str, *,
+                     profile_counters: Optional[bool] = None) -> Dict:
+        """Write the tracer's event window as a Chrome/Perfetto trace-event
+        JSON and return the document (requires ``trace=``). Device tracks
+        are ``pod{p}/dev{d}`` on a multi-pod topology, ``device {i}``
+        otherwise. ``profile_counters`` adds the occupancy % and prediction
+        error % counter tracks; default: on exactly when the cluster is
+        calibrated."""
+        if self.trace is None:
+            raise RuntimeError("Cluster was built without trace= — pass "
+                               "trace=True (or a Tracer) to enable telemetry")
+        if profile_counters is None:
+            profile_counters = self.calibration is not None
+        return write_chrome_trace(self.trace.events(), path,
+                                  devices_per_pod=self._devices_per_pod(),
+                                  profile_counters=profile_counters)
+
+    def _devices_per_pod(self) -> Optional[int]:
+        """Pod factoring for trace-track labels: a sharded wrapper's uniform
+        shard width, or a multi-pod gang topology's pod size; None for flat
+        fleets."""
+        sched = self.sched
+        dpp = getattr(sched, "_shard_devs", None)
+        if dpp and len(getattr(sched, "shards", ())) > 1:
+            return dpp
+        topo = getattr(sched, "topo", None)
+        if topo is not None and getattr(topo, "pods", 1) > 1:
+            return topo.rows * topo.cols
+        return None
 
     def __enter__(self) -> "Cluster":
         return self

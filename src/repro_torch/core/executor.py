@@ -46,6 +46,21 @@ What PyTorch changes:
     hands one stream's cached blocks to another only after a failed
     ``cudaMalloc`` and a retry that synchronises the device, in the middle
     of the preemptor's first allocation.
+  * **the observed high-water** (ROADMAP C16): the reference's live backend
+    takes the probe's bytes as a task's observed memory high-water
+    (``core.task.observed_highwater`` without a ``true_vec``). On a card the
+    executor measures it where it can be exact: when the scheduler carries
+    a calibration store (``obs.calibrate``, the only reader of a live
+    high-water) and an attempt on one card had that card to itself from
+    BEGIN to its end (no other attempt inside a runner there at its BEGIN,
+    none joining before its end), the card's peak statistic is reset at
+    BEGIN and, before ``task_end``, ``task.true_vec`` becomes the probe's
+    vector with ``hbm_bytes`` = the job's lazy buffers already bound on the
+    card at BEGIN + the peak of ``torch.cuda.max_memory_allocated`` above
+    the bytes allocated at BEGIN (what the probe counts: arguments + live
+    peak), and ``est_seconds`` = its end − BEGIN. Any other attempt, and
+    every attempt on the CPU or without a store, leaves ``true_vec`` as it
+    is and the peak statistic untouched.
 """
 from __future__ import annotations
 
@@ -185,6 +200,11 @@ class Executor:
         # memory; nothing begins on its devices until it has left
         self._fence = threading.Condition()
         self._inside: Dict[int, Dict[int, tuple]] = {}
+        # the observed high-water (C16), guarded by _fence: attempts inside
+        # a runner on each real device, and the uid of the attempt measured
+        # there (dropped when another attempt joins it)
+        self._on_card: Dict[torch.device, int] = {}
+        self._lone: Dict[torch.device, int] = {}
         if hasattr(scheduler, "add_preempt_listener"):
             scheduler.add_preempt_listener(self._on_preempt)
         self._ready: Optional["queue_mod.Queue[Optional[_Ready]]"] = None
@@ -389,6 +409,55 @@ class Executor:
                 self._inside.get(d, {}).pop(task.uid, None)
             self._fence.notify_all()
 
+    # -- the observed high-water (C16) ----------------------------------------
+    def _card_in(self, jr: _JobRun, task: Task, devs,
+                 device: torch.device) -> Optional[int]:
+        """Count a beginning attempt in on its cards. When it is alone on
+        one card and a calibration store reads the high-water, reset the
+        card's peak statistic and return the baseline: the bytes allocated
+        there less the job's lazy buffers already bound there (the task's
+        arguments). Otherwise None."""
+        cards = {self.device_map[d] for d in devs}
+        with self._fence:
+            for c in cards:
+                n = self._on_card.get(c, 0)
+                self._on_card[c] = n + 1
+                if n:
+                    self._lone.pop(c, None)   # that attempt shares now
+            if len(devs) != 1 or device.type != "cuda" \
+                    or self._on_card[device] != 1 \
+                    or getattr(self.sched, "_calib", None) is None:
+                return None
+            held = sum(b.nbytes for b in jr.ej.buffers.values()
+                       if b.device == device)
+            # the statistics need the allocator: this pool thread may be
+            # the process's first to touch the card
+            torch.cuda.init()
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device) - held
+            self._lone[device] = task.uid
+            return base
+
+    def _card_out(self, task: Task, epoch: int, devs, device: torch.device,
+                  base: Optional[int], t_start: float, ok: bool) -> None:
+        """Count an attempt out (its stream synchronised). If it was
+        measured, still had its card to itself, returned normally and is
+        still its task's current attempt, stamp ``task.true_vec`` for
+        ``task_end``."""
+        cards = {self.device_map[d] for d in devs}
+        with self._fence:
+            lone = base is not None and self._lone.pop(device, None) \
+                == task.uid
+            peak = torch.cuda.max_memory_allocated(device) if lone else 0
+            for c in cards:
+                self._on_card[c] -= 1
+        if lone and ok and self.sched.admission_epoch(task) == epoch:
+            vec = task.probe_vec if task.probe_vec is not None \
+                else task.resources
+            task.true_vec = dataclasses.replace(
+                vec, hbm_bytes=peak - base,
+                est_seconds=time.monotonic() - t_start)
+
     def _submit_next(self, jr: _JobRun) -> None:
         if jr.cancel_requested:
             self._finish(jr, crashed=False, cancelled=True)
@@ -506,7 +575,9 @@ class Executor:
                 if tr is not None:
                     tr.emit(obs.BEGIN, task.uid, task.name, lead,
                             item.epoch)
+                base = None
                 try:
+                    base = self._card_in(jr, task, devs, device)
                     lazy.kernel_launch_prepare(jr.ej.buffers, device)
                     bound = (device if len(devs) == 1
                              else [self.device_map[d] for d in devs])
@@ -516,6 +587,8 @@ class Executor:
                     crashed = True
                     jr.ej.job.error = f"{task.name}: {e!r}"
                 finally:
+                    self._card_out(task, item.epoch, devs, device, base,
+                                   t_start, not crashed)
                     self._leave(task, item.epoch, devs, device)
         if t_start is None:
             # superseded between pool pickup and BEGIN; if the fresh

@@ -1,8 +1,9 @@
 """Workload generation for the paper's evaluation (§V-A): the Rodinia half.
 
 Port of ``src/repro/core/workloads.py:1-214``, with the NN jobs
-(``:218-293``) and a copy of the overload trace (``:383-452``,
-``_synthetic_job`` and ``overload_mix``, framework-free). Rodinia-analogue
+(``:218-293``) and copies of the overload trace (``:383-452``,
+``_synthetic_job`` and ``overload_mix``) and of the calibration plane's
+drifting trace (``:455-495``, ``drifting_mix``), both framework-free. Rodinia-analogue
 jobs: a library of kernel families with the same resource personalities as the
 paper's picks (backprop, srad v1/v2, lavaMD, needle, dwt2d, bfs), written
 as PyTorch functions on tensors. Each job's ResourceVector is obtained the
@@ -450,4 +451,51 @@ def overload_mix(seed: int, *, n_background: int = 8, n_bystander: int = 4,
                      + urgent_deadline_slack_s,
                      "kind": "urgent"})
     rows.sort(key=lambda r: r["t"])
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Drifting workload — the calibration plane's evaluation trace
+# ---------------------------------------------------------------------------
+
+def drifting_mix(seed: int, *, n_jobs: int = 120, n_classes: int = 4,
+                 rate_hz: float = 6.0, drift_start: float = 1.0,
+                 drift_end: float = 2.5, mem_truth: float = 0.8,
+                 est_range: Tuple[float, float] = (0.2, 0.8),
+                 gb_range: Tuple[float, float] = (2.0, 6.0)) -> List[Dict]:
+    """Seeded DRIFTING trace for the calibration plane (obs.calibrate):
+    submission rows ``{"t", "job", "priority", "deadline_s", "kind"}``.
+
+    ``n_classes`` resource classes each share ONE frozen predicted vector
+    (so the calibration store's value-keyed class memos aggregate them),
+    but every task carries a ``true_vec`` whose runtime is the prediction
+    times a drift factor ramping linearly ``drift_start`` -> ``drift_end``
+    over the trace — the probes grow steadily more wrong, the way a
+    dataset-size or input-distribution shift degrades a stale estimate.
+    Ground-truth memory is ``mem_truth`` x the predicted footprint
+    (conservative probes), so inflate-only calibration yields ZERO memory
+    violations — the acceptance-gate workload for bench_profile."""
+    rng = np.random.default_rng(seed)
+    classes = [ResourceVector(
+        hbm_bytes=int(rng.uniform(*gb_range) * GB), flops=1e12,
+        bytes_accessed=1e11, est_seconds=float(rng.uniform(*est_range)),
+        core_demand=0.35, bw_demand=0.25) for _ in range(n_classes)]
+    rows: List[Dict] = []
+    t = 0.0
+    for i in range(n_jobs):
+        t += float(rng.exponential(1.0 / rate_hz))
+        c = i % n_classes
+        vec = classes[c]
+        factor = drift_start + (drift_end - drift_start) \
+            * (i / max(n_jobs - 1, 1))
+        true_vec = dataclasses.replace(
+            vec, est_seconds=vec.est_seconds * factor,
+            hbm_bytes=int(vec.hbm_bytes * mem_truth))
+        name = f"drift{i:03d}"
+        unit = UnitTask(fn=None, memobjs=frozenset({f"{name}/ws"}),
+                        resources=vec, name=name)
+        job = Job(tasks=[Task(units=[unit], name=name, true_vec=true_vec)],
+                  name=name)
+        rows.append({"t": t, "job": job, "priority": 0,
+                     "deadline_s": None, "kind": f"class{c}"})
     return rows

@@ -1,7 +1,7 @@
 """Serving under the compiler-guided scheduler, on the card: static batches
 (prefill + greedy decode) and continuous batching (``serve_continuous``).
 
-Port of ``src/repro/launch/serve.py`` (no tracing yet).
+Port of ``src/repro/launch/serve.py``.
 Every request batch is ONE task whose resource vector comes from probing
 what the task allocates (``static_task``: the prefill and its first
 tokens, or on the card ``replayed_task``; ``repro_torch.core.probe``);
@@ -70,7 +70,9 @@ its probe charges the weights, the prefill and the decoder. It is the unit
 to submit beside other work on a shared card (an urgent batch that evicts a
 training task there, ``chip_smoke.py``'s ``phase_preempt``).
 
-Tracing comes in a later slice.
+``trace_path=`` (``--trace OUT_JSON``) records the scheduler's event
+stream and writes it as a Chrome/Perfetto trace-event JSON at the end
+(``Cluster.export_trace``), as the reference does.
 
 It serves the dense attention, MoE and Mamba-1 (ssm) families.
 
@@ -302,11 +304,13 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
           shed_late: bool = False, full: bool = False,
           param_dtype: torch.dtype = torch.float32,
           device: Optional[str] = None,
-          n_layers: Optional[int] = None, preempt: bool = False) -> dict:
+          n_layers: Optional[int] = None, preempt: bool = False,
+          trace_path: Optional[str] = None) -> dict:
     """Serve ``requests`` prompts in static batches of ``batch``, each
     batch one task with its deadline (``deadline_s``), EDF within its
     class. With ``preempt`` the scheduler is the preemptive
-    Algorithm 3 and the runners are cooperative (module docstring)."""
+    Algorithm 3 and the runners are cooperative (module docstring). With
+    ``trace_path`` the run's trace is written there."""
     cfg = get_arch(arch) if full else get_arch(arch).reduced()
     published_layers = cfg.n_layers
     if n_layers is not None:
@@ -363,7 +367,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     decoders, prefills = {}, {}
 
     cluster = Cluster(sched, workers=workers, devices=devices,
-                      shed_late=shed_late, preempt=preempt or None)
+                      shed_late=shed_late, preempt=preempt or None,
+                      trace=bool(trace_path))
     handles = []
     # per-batch wall-clock marks: (submit, first token, last token)
     marks = [[0.0, -1.0, -1.0] for _ in range(n_batches)]
@@ -418,6 +423,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
     stats = cluster.stats()
     cluster.shutdown()
     wall = time.time() - t0
+    if trace_path:
+        cluster.export_trace(trace_path)
     graphs = sum(d.graph is not None for d in decoders.values())
     prefill_graphs = len(prefills)
     decoders.clear()  # their buffers and graph pools go with them
@@ -480,7 +487,8 @@ def serve_continuous(arch: str, *, requests: int = 16, batch: int = 4,
                      full: bool = False,
                      param_dtype: torch.dtype = torch.float32,
                      device: Optional[str] = None,
-                     n_layers: Optional[int] = None) -> dict:
+                     n_layers: Optional[int] = None,
+                     trace_path: Optional[str] = None) -> dict:
     """Continuous-batching counterpart (reference
     ``src/repro/launch/serve.py:166-200``): per-request streaming through
     ``serve.engine.ServeEngine`` with a ``TorchModel``; ``batch`` becomes
@@ -490,6 +498,7 @@ def serve_continuous(arch: str, *, requests: int = 16, batch: int = 4,
     ``used_hbm`` the scheduler reserved on the card during the run
     (``peak_reserved``), the loop base, slot and prefill vectors, and the
     tokens generated per request (``generated``, in submission order).
+    With ``trace_path`` the run's trace is written there.
 
     One card: the model's weights live on one device (placement across
     cards comes in a later slice)."""
@@ -511,7 +520,7 @@ def serve_continuous(arch: str, *, requests: int = 16, batch: int = 4,
         1, hbm_per_device=hbm - pool_reserve(devices, workers))
     peak = _track_peak_reservation(sched.devices[0])
     cluster = Cluster(sched, workers=workers, devices=devices,
-                      shed_late=shed_late)
+                      shed_late=shed_late, trace=bool(trace_path))
     eng = ServeEngine(cluster, model, max_batch=batch,
                       slo=SLO(ttft_s=ttft_slo_s, tpot_s=tpot_slo_s))
     rng = np.random.default_rng(seed)
@@ -526,6 +535,8 @@ def serve_continuous(arch: str, *, requests: int = 16, batch: int = 4,
     loop_vec = eng.loops[0].host.resources
     eng.shutdown()
     cluster.shutdown()
+    if trace_path:
+        cluster.export_trace(trace_path)
     m.update(arch=cfg.name, n_layers=cfg.n_layers, wall_s=wall,
              tokens_per_s=m["tokens"] / wall,
              sched_attempts=cluster.stats()["sched_attempts"],
@@ -572,6 +583,10 @@ def main():
                          "queueing behind it (static mode only)")
     ap.add_argument("--tpot-slo-s", type=float, default=1.0,
                     help="continuous mode: time-per-output-token SLO")
+    ap.add_argument("--trace", default=None, metavar="OUT_JSON",
+                    help="record the scheduler's event stream and write a "
+                         "Chrome/Perfetto trace-event JSON here at the end "
+                         "(load in chrome://tracing or ui.perfetto.dev)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching via repro_torch.serve.engine: "
                          "requests stream individually, the decode batch "
@@ -591,7 +606,7 @@ def main():
             ttft_slo_s=args.deadline_s, tpot_slo_s=args.tpot_slo_s,
             shed_late=args.shed_late, full=args.full,
             param_dtype=DTYPES[args.param_dtype], device=args.device,
-            n_layers=args.n_layers)
+            n_layers=args.n_layers, trace_path=args.trace)
         print(f"[serve --continuous] {res['arch']} ({res['n_layers']} "
               f"layers): {res['done']}/{res['requests']} done, "
               f"{res['tokens']} tokens in {res['wall_s']:.1f}s "
@@ -612,7 +627,7 @@ def main():
                 deadline_s=args.deadline_s, shed_late=args.shed_late,
                 full=args.full, param_dtype=DTYPES[args.param_dtype],
                 device=args.device, n_layers=args.n_layers,
-                preempt=args.preempt)
+                preempt=args.preempt, trace_path=args.trace)
     print(f"[serve] {res['arch']} ({res['n_layers']} of "
           f"{res['published_layers']} layers): {res['completed']}/"
           f"{res['batches']} "
