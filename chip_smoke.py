@@ -53,7 +53,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    softcap). Flash also runs, both routes, forward and backward,
    at zamba2-2.7b's heads (32 of 80, no GQA) and nemotron-4-340b's (96 / 8
    of 192), and RMSNorm at nemotron's rows (d 18432: in f32 its backward
-   takes the wide path). The backward kernels of the Mamba scan (at
+   takes the wide path), and at zamba2-2.7b's gated norm ([4096, 5120],
+   bf16 and f32, forward and backward, timed beside ``F.rms_norm``) and
+   every other row its paths give RMSNorm (d 2560 and 5120 at a 4 x 1024
+   prefill, a decode step of 4 and a 1 x 1024 training microbatch). The
+   scan is timed at zamba2-2.7b's recurrence across chunks too ([4, 4,
+   5120, 64]: B, chunks, heads x head dim, N), forward and backward, and
+   checked at a training microbatch's [1, 4, 5120, 64]. The
+   backward kernels of the Mamba scan (at
    falcon-mamba-7b's training shape, timed) and of the grouped matmul
    (plain and gated, f32 and bf16, each route forced: bf16 on the tensor
    cores and on the CUDA cores; at the forward's edge cases, groups of 0,
@@ -62,17 +69,20 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``torch._grouped_mm``'s backward the yardstick in bf16) are held against
    their plain versions and autograd through the plain forwards, the same
    bits on two calls.
-5. reduced: the reduced gemma2-9b, falcon-mamba-7b and mixtral-8x7b served
-   paths on the card (hand kernels) against the same weights on the CPU
+5. reduced: the reduced gemma2-9b, falcon-mamba-7b, mixtral-8x7b and
+   zamba2-2.7b served paths on the card (hand kernels) against the same
+   weights on the CPU
    (plain versions), in f32: last-token logits within 2e-3 and 8 greedy
    tokens equal. mixtral's prompt (128) is past its window (64), so the
    ring rotates; a disagreement reports how many expert choices flipped.
-6. continuous, reduced: the same three reduced models served continuously
+6. continuous, reduced: the same four reduced models served continuously
    (``serve_continuous``: 6 requests, a loop of 4 rows, 9 tokens each) on
    the card, the loop step replayed from a CUDA graph, against the CPU:
    every request's tokens equal. Then reduced gemma2-9b (softcaps, window
-   64), qwen1.5-32b (QKV bias), falcon-mamba-7b (the scan's backward) and
-   mixtral-8x7b (the grouped matmul's backward, the aux loss) trained 3
+   64), qwen1.5-32b (QKV bias), falcon-mamba-7b (the scan's backward),
+   mixtral-8x7b (the grouped matmul's backward, the aux loss) and
+   zamba2-2.7b (Mamba-2's SSD, the scan across chunks, the shared block)
+   trained 3
    steps of 2 x 128 on the card and on the CPU from one seed: losses, grad
    norms, parameters and moments within the CPU parity tests' tolerances
    (10x where absolute); and reduced gemma2-9b with bf16 parameters, a
@@ -115,7 +125,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (``NEMOTRON_LAYERS``), bf16: 4 requests in one batch, prompt 1024, 32
      generated tokens: flash attention at D = 192 and RMSNorm at d = 18432
      on a main path. Then one batch alone.
-8. continuous, one main path per model at the same widths: 32 requests
+   - zamba2-2.7b, every published width and all 54 layers (9 groups of 5
+     Mamba-2 layers and the shared attention + MLP block), bf16: 32
+     requests in 8 batches of 4, prompt 1024 (a multiple of its SSD chunk,
+     256), 32 generated tokens, one worker; flash attention 9 launches
+     (D 80) and the scan 45 (the recurrence across chunks) per prefill,
+     RMSNorm 109 per prefill and per decode step. Then one batch alone.
+8. continuous, one main path per model at the same widths (zamba2-2.7b
+   too): 32 requests
    submitted together (prompt 1000 for gemma2-9b, 1024 for the others), 32
    tokens each, one decode loop of 8 rows whose step is replayed from a
    CUDA graph, 2 pool workers for the prefills; launches checked as in 7
@@ -133,21 +150,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    experts the step routed to) and the cache's filled slots.
 10. train, the training main paths: gemma2-9b (depth cut to 12 of 42
    layers: all 42 are 9.24e9 parameters x 16 B = 148e9 B in f32 with a
-   gradient and two moments), falcon-mamba-7b and mixtral-8x7b (depth from
-   the probe: the deepest whose step fits 0.9 of the free memory, at most
-   16 and 8 layers), each at every published width, f32, batch 4 x 1024,
-   ``remat_policy="full"``, 5 steps through ``launch.train.train``: the
-   probe of one step at the depth and two layers more against the memory
-   free on the card first, then the run as one task through probe -> MGB
-   -> executor, each step's loss, grad norm, lr, host and device ms and
-   tokens/s printed, the launches checked exactly (each forward kernel
-   twice a layer a step, forward and recompute, each backward once; the
-   final norm once each way), the probe's flops at least 2.5x the analytic
-   forward; then one step alone whose probe must cover
+   gradient and two moments), falcon-mamba-7b, mixtral-8x7b and
+   zamba2-2.7b (depth from the probe: the deepest whose step fits 0.9 of
+   the free memory, at most 16, 8 and 54 layers; zamba2's in whole groups
+   of 6), each at every published width, f32, batch 4 x 1024,
+   ``remat_policy="full"`` (zamba2 a group at a time, in its config's 4
+   microbatches), 5 steps through ``launch.train.train``: the
+   probe of one step at the depth and two layers (groups) more against the
+   memory free on the card first, then the run as one task through probe
+   -> MGB -> executor, each step's loss, grad norm, lr, host and device ms
+   and tokens/s printed, the launches checked exactly (each forward kernel
+   twice a layer a microbatch, forward and recompute, each backward once;
+   the final norm once each way), the probe's flops at least 2.5x the
+   analytic forward; then one step alone whose probe must cover
    ``torch.cuda.max_memory_allocated`` (fails below 1.0), and a
    ``torch.profiler`` breakdown of one step, with the ms a step of the
    kernels each path leans on (the scan's and the grouped matmul's
-   backward among them).
+   backward among them; for zamba2 the SSD's batched einsums too).
 11. preempt (``phase_preempt``): one card, 2 pool workers, probe ->
    ``PreemptiveAlg3Scheduler`` -> executor. A falcon-mamba-7b training
    task at every published width (f32, batch 4 x 1024, remat full,
@@ -363,7 +382,9 @@ def phase_kernels(torch):
             .to(dtype)
 
     # gemma2-9b's prefill and decode rows (d 3584), falcon-mamba-7b's
-    # (d 4096), nemotron-4-340b's (d 18432), then a narrow edge case
+    # (d 4096), nemotron-4-340b's (d 18432), zamba2-2.7b's (d 2560 and its
+    # gated norm's E 5120: prefill and decode rows in bf16, and the f32
+    # rows of a 1 x 1024 training microbatch), then a narrow edge case
     for shape, dtype in [((4000, 3584), torch.bfloat16),
                          ((4000, 3584), torch.float32),
                          ((4096, 3584), torch.float32),
@@ -375,6 +396,16 @@ def phase_kernels(torch):
                          ((4, 4096), torch.float32),
                          ((4096, 18432), torch.bfloat16),
                          ((4096, 18432), torch.float32),
+                         ((4096, 5120), torch.bfloat16),
+                         ((4096, 5120), torch.float32),
+                         ((4096, 2560), torch.bfloat16),
+                         ((4096, 2560), torch.float32),
+                         ((4, 2560), torch.bfloat16),
+                         ((4, 2560), torch.float32),
+                         ((4, 5120), torch.bfloat16),
+                         ((4, 5120), torch.float32),
+                         ((1024, 2560), torch.float32),
+                         ((1024, 5120), torch.float32),
                          ((1000, 512), torch.float32),
                          ((1000, 512), torch.bfloat16)]:
         x = randn(shape, dtype)
@@ -407,15 +438,21 @@ def phase_kernels(torch):
             table["rmsnorm"]["nemotron_case"] = dict(
                 shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, library_ms=lib_ms)
+        elif shape == (4096, 5120):
+            table["rmsnorm"][f"zamba2_case_{str(dtype)[6:]}"] = dict(
+                shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, library_ms=lib_ms)
 
     phase_flash(torch, randn, table)
 
     # the selective scan: edge cases (S = 1, S = 7, B*E*N off the block
-    # size, E*N not a multiple of 4, N = 64), then falcon-mamba-7b's prefill
-    # shape, timed. a = exp(-|randn|) as tests/test_kernels.py:108.
+    # size, E*N not a multiple of 4, N = 64), zamba2-2.7b's recurrence
+    # across chunks in a 1 x 1024 training microbatch, then falcon-mamba-
+    # 7b's prefill shape and zamba2-2.7b's at a 4 x 1024 prefill ([B, nc,
+    # nh·P, N]), timed. a = exp(-|randn|) as tests/test_kernels.py:108.
     for shape in [(2, 1, 8, 4), (1, 7, 5, 3), (3, 33, 17, 64),
                   (2, 96, 128, 64), (1, 64, 128, 16), (2, 300, 1000, 16),
-                  (4, 1024, 8192, 16)]:
+                  (1, 4, 5120, 64), (4, 1024, 8192, 16), (4, 4, 5120, 64)]:
         a = torch.exp(-randn(shape, torch.float32).abs_())
         b = randn(shape, torch.float32)
         h_all, h_last = SC.mamba_scan(a, b)
@@ -427,7 +464,7 @@ def phase_kernels(torch):
                           f"mamba_scan {shape} h_last"))
         del h_all, h_last, want_all, want_last
         line = f"[kernels] mamba_scan {shape} f32: max_abs_err {err:.3e}"
-        if shape == (4, 1024, 8192, 16):
+        if shape in ((4, 1024, 8192, 16), (4, 4, 5120, 64)):
             ms = time_ms(torch, lambda: SC.mamba_scan(a, b), 10)
             plain_ms = time_ms(torch, lambda: SC.mamba_scan_plain(a, b), 2)
             # a, b read once, h_all and h_last written once
@@ -440,12 +477,16 @@ def phase_kernels(torch):
                      f"library call, bound {bound:.4f} ms ({by}), "
                      f"{nbytes / ms / 1e6:.1f} GB/s = "
                      f"{100 * bound / ms:.1f}% of the bound")
-            table["mamba_scan"] = dict(
-                name="mamba_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
-                replaces="src/repro/kernels/mamba_scan.py:73",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None)
+            if shape[1] == 4:
+                table["mamba_scan"]["zamba2_case"] = dict(
+                    shape=list(shape), **entry)
+            else:
+                table["mamba_scan"] = dict(
+                    name="mamba_scan", route="cuda",
+                    source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                    replaces="src/repro/kernels/mamba_scan.py:73", **entry)
         del a, b
         print(line, flush=True)
     phase_gmm(torch, randn, table)
@@ -1154,9 +1195,12 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
             del q, k, v, o, lse, do, got
 
     # the train path's rows, nemotron-4-340b's (18432: in f32 past the
-    # registers, the wide path), a row past 32768 bf16 elements, tails
-    for shape in [(4096, 3584), (4096, 18432), (4097, 3584), (33, 40000),
-                  (1000, 512), (7, 100), (3, 5, 128)]:
+    # registers, the wide path), zamba2-2.7b's gated norm (5120) and its d
+    # 2560, at 4 x 1024 and at a 1 x 1024 training microbatch, a row past
+    # 32768 bf16 elements, tails
+    for shape in [(4096, 3584), (4096, 18432), (4096, 5120), (4096, 2560),
+                  (1024, 2560), (1024, 5120), (4097, 3584),
+                  (33, 40000), (1000, 512), (7, 100), (3, 5, 128)]:
         for dtype in (f32, bf16):
             x, dy = randn(shape, dtype), randn(shape, dtype)
             sc = randn(shape[-1:], dtype, 0.1)
@@ -1180,7 +1224,7 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
             line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
                     f"backward, {ag:.3e} vs autograd through the plain "
                     f"forward; dscale the same bits twice")
-            if shape in ((4096, 3584), (4096, 18432)):
+            if shape in ((4096, 3584), (4096, 18432), (4096, 5120)):
                 ms = time_ms(torch, lambda: torch.ops.repro_torch
                              .rmsnorm_bwd(x, sc, dy, 1e-5), 20)
                 plain_ms = time_ms(torch, lambda: RN.rmsnorm_bwd_plain(
@@ -1205,6 +1249,10 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
                              bound_ms=bound, max_abs_err=err,
                              kernel="rmsnorm_bwd_wide_kernel"
                              if dtype == f32 else "rmsnorm_bwd_kernel")
+                elif shape[-1] == 5120:
+                    table["rmsnorm_bwd"][f"zamba2_case_{str(dtype)[6:]}"] = \
+                        dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound, max_abs_err=err)
                 elif dtype == f32:
                     table["rmsnorm_bwd"] = dict(
                         name="rmsnorm_bwd", route="cuda",
@@ -1246,7 +1294,8 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
     dev = torch.device("cuda", 0)
     bf16, f32 = torch.bfloat16, torch.float32
     for shape in [(2, 1, 8, 4), (1, 7, 5, 3), (3, 33, 17, 64),
-                  (2, 300, 1000, 16), (4, 1024, 8192, 16)]:
+                  (2, 300, 1000, 16), (1, 4, 5120, 64), (4, 1024, 8192, 16),
+                  (4, 4, 5120, 64)]:
         a = torch.exp(-randn(shape, f32).abs_())
         b = randn(shape, f32)
         h, _ = SC.mamba_scan(a, b)
@@ -1271,7 +1320,7 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
         line = (f"[kernels] {what}: max_abs_err {err:.3e} vs the plain "
                 f"backward, {ag:.3e} vs autograd through the plain forward; "
                 f"da, db the same bits twice")
-        if shape == (4, 1024, 8192, 16):
+        if shape in ((4, 1024, 8192, 16), (4, 4, 5120, 64)):
             ms = time_ms(torch, lambda: torch.ops.repro_torch.mamba_scan_bwd(
                 a, h, dh, dl), 5)
             plain_ms = time_ms(torch, lambda: SC.mamba_scan_bwd_plain(
@@ -1286,16 +1335,21 @@ def phase_scan_gmm_backward(torch, randn, table) -> None:
                      f"library call, bound {bound:.4f} ms ({by}), "
                      f"{nbytes / ms / 1e6:.1f} GB/s = "
                      f"{100 * bound / ms:.1f}% of the bound")
-            table["mamba_scan_bwd"] = dict(
-                name="mamba_scan_bwd", route="cuda",
-                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
-                replaces="src/repro/models/ssm.py:47",
-                backward_of="src/repro/kernels/mamba_scan.py:73",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None,
-                kernels="mamba_scan_bwd_kernel: a reverse scan, a thread's "
-                        "channels walked from the end, 16-byte streaming "
-                        "loads of 8 steps in flight")
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=None)
+            if shape[1] == 4:
+                table["mamba_scan_bwd"]["zamba2_case"] = dict(
+                    shape=list(shape), **entry)
+            else:
+                table["mamba_scan_bwd"] = dict(
+                    name="mamba_scan_bwd", route="cuda",
+                    source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                    replaces="src/repro/models/ssm.py:47",
+                    backward_of="src/repro/kernels/mamba_scan.py:73",
+                    **entry,
+                    kernels="mamba_scan_bwd_kernel: a reverse scan, a "
+                            "thread's channels walked from the end, 16-byte "
+                            "streaming loads of 8 steps in flight")
         print(line, flush=True)
         del a, b, h, dh, dl
 
@@ -1750,9 +1804,20 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
     Mamba layer or one flash attention per attention layer; per prefill and
     per decode step, one RMSNorm per norm of a layer plus the final norm,
     and for an MoE layer two grouped-matmul launches (``moe_gmm`` counts
-    both): the gated one (wi, wg) and wo, or wi and wo ungated. No
+    both): the gated one (wi, wg) and wo, or wi and wo ungated. A hybrid
+    of G groups of k layers: per prefill one flash attention a group and
+    one scan (the recurrence across chunks) a Mamba-2 layer; per prefill
+    and per decode step two RMSNorms a Mamba-2 layer (the pre-norm and the
+    gated norm) and two a group's shared block, plus the final norm. No
     backward runs."""
     bwd = dict.fromkeys(BWD_KERNELS, 0)
+    if cfg.family == "hybrid":
+        k = cfg.hybrid_shared_every
+        g = cfg.n_layers // k
+        return {"rmsnorm": (g * (2 * (k - 1) + 2) + 1) * (prefills + steps),
+                "flash_attention": g * prefills,
+                "mamba_scan": g * (k - 1) * prefills,
+                "moe_gmm": 0, "moe_gmm_gated": 0, **bwd}
     if cfg.family == "ssm":
         return {"rmsnorm": (cfg.n_layers + 1) * (prefills + steps),
                 "flash_attention": 0, "mamba_scan": cfg.n_layers * prefills,
@@ -1765,22 +1830,31 @@ def expected_launches(cfg, prefills: int, steps: int) -> dict:
             "moe_gmm_gated": gated * (prefills + steps), **bwd}
 
 
-def expected_train_launches(cfg, steps: int) -> dict:
-    """Each kernel's launches over ``steps`` train steps under
-    ``remat_policy="full"``: every forward launch of a layer twice (the
-    forward and the layer's recompute in the backward) and each op's
-    backward once. Per step and layer: an attention layer runs two
-    RMSNorms and one flash attention, and an MoE layer two grouped matmuls
-    (the gated one, wi and wg, and wo), each backward once (``moe_gmm_bwd``
-    counts both backward ops, ``moe_gmm_gated_bwd`` its own); a Mamba-1
-    layer one RMSNorm and one scan. The final norm runs once a step, and
-    its backward once."""
+def expected_train_launches(cfg, steps: int, micro: int = 1) -> dict:
+    """Each kernel's launches over ``steps`` train steps of ``micro``
+    microbatches under ``remat_policy="full"``: every forward launch of a
+    layer (of a hybrid's group) twice (the forward and the recompute in
+    the backward) and each op's backward once. Per microbatch and layer: an
+    attention layer runs two RMSNorms and one flash attention, and an MoE
+    layer two grouped matmuls (the gated one, wi and wg, and wo), each
+    backward once (``moe_gmm_bwd`` counts both backward ops,
+    ``moe_gmm_gated_bwd`` its own); a Mamba-1 layer one RMSNorm and one
+    scan; a hybrid group the launches of a prefill (``expected_launches``).
+    The final norm runs once a microbatch, and its backward once."""
     n = cfg.n_layers
     assert cfg.remat_policy == "full"
     out = {"rmsnorm": 1, "flash_attention": 0, "mamba_scan": 0, "moe_gmm": 0,
            "moe_gmm_gated": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 1,
            "mamba_scan_bwd": 0, "moe_gmm_bwd": 0, "moe_gmm_gated_bwd": 0}
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        fwd = expected_launches(cfg, 1, 0)
+        norms = fwd["rmsnorm"] - 1
+        out.update(rmsnorm=2 * norms + 1,
+                   flash_attention=2 * fwd["flash_attention"],
+                   mamba_scan=2 * fwd["mamba_scan"], rmsnorm_bwd=norms + 1,
+                   flash_attention_bwd=fwd["flash_attention"],
+                   mamba_scan_bwd=fwd["mamba_scan"])
+    elif cfg.family == "ssm":
         out.update(rmsnorm=2 * n + 1, mamba_scan=2 * n, rmsnorm_bwd=n + 1,
                    mamba_scan_bwd=n)
     else:
@@ -1791,7 +1865,7 @@ def expected_train_launches(cfg, steps: int) -> dict:
             gated = cfg.mlp_act.endswith("gated")
             out.update(moe_gmm=4 * n, moe_gmm_gated=2 * n if gated else 0,
                        moe_gmm_bwd=2 * n, moe_gmm_gated_bwd=n if gated else 0)
-    return {k: v * steps for k, v in out.items()}
+    return {k: v * steps * micro for k, v in out.items()}
 
 
 def check_launches(what: str, cfg, counts: dict, prefills: int,
@@ -2225,17 +2299,18 @@ def phase_continuous(torch, arch: str, prompt_len: int, n_layers=None):
     return launches
 
 
-def device_breakdown(torch, label: str, fn, top: int = 8) -> list:
-    """Run ``fn()`` once under ``torch.profiler`` and print the device time
-    by kernel: the busy total against the host wall time, the ``top``
-    kernels, and the port's own kernels below them. The profiler's own cost
-    inflates the wall time, not the kernels' device times. Returns the rows,
-    (device ms, launches, kernel name)."""
+def device_breakdown(torch, label: str, fn, top: int = 8):
+    """Run ``fn()`` once under ``torch.profiler``, the ops' input shapes
+    recorded, and print the device time by kernel: the busy total against
+    the host wall time, the ``top`` kernels, and the port's own kernels
+    below them. The profiler's own cost inflates the wall time, not the
+    kernels' device times. Returns the rows, (device ms, launches, kernel
+    name), and the profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
@@ -2263,7 +2338,7 @@ def device_breakdown(torch, label: str, fn, top: int = 8) -> list:
         if any(k in name for k in PORT_KERNELS):
             print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}% "
                   f"x{count:<5d} {name[:110]} (port kernel)", flush=True)
-    return rows
+    return rows, prof
 
 
 def phase_decode(torch, arch: str, s: int, n_layers=None, streams: int = 0):
@@ -2499,9 +2574,9 @@ def phase_train_reduced(torch, arch: str, seq: int = 128, steps: int = 3,
              f"with the CPU")
 
 
-def train_probe(torch, cfg, dev):
-    """The probe of one train step of ``cfg`` (f32, the trainer's batch) on
-    specs of the state: nothing allocated."""
+def train_probe(torch, cfg, dev, micro=None):
+    """The probe of one train step of ``cfg`` (f32, the trainer's batch,
+    ``micro`` microbatches) on specs of the state: nothing allocated."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.probe import probe_fn
     from repro_torch.launch.specs import input_specs
@@ -2511,16 +2586,19 @@ def train_probe(torch, cfg, dev):
     opt = adamw.AdamWConfig(moment_dtype=cfg.optimizer_moment_dtype)
     params, state = abstract_train_state(cfg, opt, torch.float32, dev)
     shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
-    return probe_fn(make_train_step(cfg, opt), params, state,
-                    input_specs(cfg, shape, dev))
+    return probe_fn(make_train_step(cfg, opt, num_microbatches=micro),
+                    params, state, input_specs(cfg, shape, dev))
 
 
 # the depth a train phase runs: gemma2-9b's fixed cut, or for the
 # others the deepest whose one-step probe fits TRAIN_FIT of the memory free
-# on the card, at most this many layers
+# on the card, at most this many layers (zamba2-2.7b: all 54)
 TRAIN_DEPTH = {"gemma2-9b": TRAIN_LAYERS}
-TRAIN_MOST = {"falcon-mamba-7b": 16, "mixtral-8x7b": 8}
+TRAIN_MOST = {"falcon-mamba-7b": 16, "mixtral-8x7b": 8, "zamba2-2.7b": 54}
 TRAIN_FIT = 0.9
+# the train phases that run a step in their config's ``num_microbatches``
+# (zamba2-2.7b: 4); the others run one
+TRAIN_IN_MICROBATCHES = ("zamba2-2.7b",)
 # the kernels whose device time a train step's profile sums, by arch
 TRAIN_PROFILED = {
     "gemma2-9b": (("flash forward", ("flash_fwd_kernel",)),
@@ -2537,34 +2615,64 @@ TRAIN_PROFILED = {
                      ("flash forward", ("flash_fwd_kernel",)),
                      ("flash backward", ("flash_bwd_delta_kernel",
                                          "flash_bwd_dkdv_kernel",
-                                         "flash_bwd_dq_kernel")))}
+                                         "flash_bwd_dq_kernel"))),
+    "zamba2-2.7b": (("scan forward", ("mamba_scan_kernel",)),
+                    ("scan backward", ("mamba_scan_bwd_kernel",)),
+                    ("flash forward", ("flash_fwd_kernel",)),
+                    ("flash backward", ("flash_bwd_delta_kernel",
+                                        "flash_bwd_dkdv_kernel",
+                                        "flash_bwd_dq_kernel")),
+                    ("RMSNorm backward", ("rmsnorm_bwd_kernel",
+                                          "rmsnorm_dscale_kernel")))}
+
+
+def train_micro(arch: str):
+    """The microbatches of ``arch``'s train phase: its config's
+    ``num_microbatches`` where ``TRAIN_IN_MICROBATCHES`` names it, else
+    None (one)."""
+    if arch in TRAIN_IN_MICROBATCHES:
+        return full_cfg(arch).num_microbatches
+    return None
 
 
 def train_depth(torch, arch: str, dev, free: int) -> int:
     """The depth of ``arch``'s train phase (``TRAIN_DEPTH``, or from the
-    probe: at 1 and 2 layers, extrapolated to the deepest that fits
+    probe: at 1 and 2 units, extrapolated to the deepest that fits
     ``TRAIN_FIT`` of ``free``, at most ``TRAIN_MOST``, then checked); the
-    probe at that depth and two layers more printed against ``free``."""
+    probe at that depth and, where the published configuration is deeper,
+    two units more printed against ``free``. A
+    unit is a layer, or a hybrid's group (zamba2-2.7b: 6 layers), whose
+    depth must be a multiple of it."""
+    unit = full_cfg(arch).hybrid_shared_every or 1
+    micro = train_micro(arch)
+    probed = {}
+
     def probe(n):
-        t = time.perf_counter()
-        vec = train_probe(torch, full_cfg(arch, n), dev)
-        return vec, time.perf_counter() - t
+        if n not in probed:
+            t = time.perf_counter()
+            vec = train_probe(torch, full_cfg(arch, n), dev, micro)
+            probed[n] = vec, time.perf_counter() - t
+        return probed[n]
     n = TRAIN_DEPTH.get(arch)
     if n is None:
-        one, two = probe(1)[0].hbm_bytes, probe(2)[0].hbm_bytes
-        per_layer = two - one
-        n = int((TRAIN_FIT * free - (one - per_layer)) // per_layer)
-        n = max(1, min(n, TRAIN_MOST[arch]))
-        while n > 1 and probe(n)[0].hbm_bytes > TRAIN_FIT * free:
-            n -= 1
-        print(f"[train] depth of {arch}: one step probed at 1 and 2 layers, "
-              f"{one} and {two} B ({per_layer} B a layer); the deepest that "
+        one, two = probe(unit)[0].hbm_bytes, probe(2 * unit)[0].hbm_bytes
+        per_unit = two - one
+        n = unit * int((TRAIN_FIT * free - (one - per_unit)) // per_unit)
+        n = max(unit, min(n, TRAIN_MOST[arch]))
+        while n > unit and probe(n)[0].hbm_bytes > TRAIN_FIT * free:
+            n -= unit
+        print(f"[train] depth of {arch}: one step probed at {unit} and "
+              f"{2 * unit} layers, {one} and {two} B ({per_unit} B a "
+              f"{'group' if unit > 1 else 'layer'}); the deepest that "
               f"fits {TRAIN_FIT:g} of {free} B free, at most "
               f"{TRAIN_MOST[arch]}: {n} layers", flush=True)
-    for m in (n, n + 2):
+    # two units deeper, where the published configuration has them
+    for m in (n, n + 2 * unit)[:1 if n == full_cfg(arch).n_layers else 2]:
         vec, took = probe(m)
         print(f"[train] depth: the probe of one {arch} step at {m} layers, "
-              f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}: hbm {vec.hbm_bytes} "
+              f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}"
+              + (f" in {micro} microbatches" if micro else "")
+              + f": hbm {vec.hbm_bytes} "
               f"B ({vec.hbm_bytes / 1e9:.2f} GB) against {free} B free on "
               f"the card: "
               f"{'fits' if vec.hbm_bytes <= free else 'does not fit'} "
@@ -2578,12 +2686,13 @@ def phase_train(torch, arch: str) -> dict:
     """A training main path: ``arch`` at every published width, depth cut
     by ``train_depth``, f32, batch 4 x 1024, ``remat_policy="full"``,
     through ``launch.train.train``: probe of one step -> MGB admission ->
-    executor on the card, 5 steps, each kernel's launches checked exactly,
-    the probe's flops at least 2.5x the analytic forward. Then one step
-    alone after ``fresh_card``: the probe's hbm must be at least the
-    observed peak (fails below 1.0). Then a ``torch.profiler`` breakdown of
-    one step, with the device ms a step of the kernels of
-    ``TRAIN_PROFILED``."""
+    executor on the card, 5 steps (each of ``train_micro`` microbatches),
+    each kernel's launches checked exactly, the probe's flops at least 2.5x
+    the analytic forward. Then one step alone after ``fresh_card``: the
+    probe's hbm must be at least the observed peak (fails below 1.0). Then
+    a ``torch.profiler`` breakdown of one step, with the device ms a step
+    of the kernels of ``TRAIN_PROFILED``, and for a hybrid the SSD's
+    einsums' (``ssd_einsum_ms``)."""
     import dataclasses
     import math
     from repro_torch.configs.base import ShapeConfig
@@ -2601,13 +2710,15 @@ def phase_train(torch, arch: str) -> dict:
     cfg = full_cfg(arch, n_layers)
     if cfg.remat_policy != "full":
         cfg = dataclasses.replace(cfg, remat_policy="full")
+    micro = train_micro(arch)
     kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
-              n_layers=n_layers, lr=TRAIN_LR, log_every=1)
+              n_layers=n_layers, lr=TRAIN_LR, log_every=1,
+              num_microbatches=micro)
     for c in counters().values():
         c.reset()
     res = train(arch, steps=TRAIN_STEPS, **kw)
     counts = read_counts()
-    want = expected_train_launches(cfg, TRAIN_STEPS)
+    want = expected_train_launches(cfg, TRAIN_STEPS, micro or 1)
     got = {k: counts[k] for k in want}
     print(f"[launches] train {arch}: counted {got}, expected {want}",
           flush=True)
@@ -2617,8 +2728,10 @@ def phase_train(torch, arch: str) -> dict:
     host = res["step_ms"][1:]
     dms = res["device_ms"][1:]
     print(f"[train] {arch}, every published width, reduced: "
-          f"{'; '.join(res['reduced'])}; f32, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, remat full, one task through probe -> MGB -> "
+          f"{'; '.join(res['reduced']) or 'nothing'}; f32, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}"
+          + (f" in {micro} microbatches" if micro else "")
+          + f", remat full, one task through probe -> MGB -> "
           f"executor: {res['status']}, {res['steps']} steps, losses "
           f"{[round(x, 4) for x in res['losses']]}, grad norms "
           f"{[round(x, 4) for x in res['grad_norms']]}, lr "
@@ -2663,15 +2776,15 @@ def phase_train(torch, arch: str) -> dict:
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          torch.float32, dev)
     state = adamw.init_state(opt, params)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, num_microbatches=micro)
     pipe = TokenPipeline(cfg, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
                                           "train"), seed=0)
     batch = batch_to(pipe.batch_at(0), dev)
     step(params, state, batch)  # warm-up
     label = (f"{arch} train step, {n_layers} layers, f32, batch "
              f"{TRAIN_BATCH} x {TRAIN_SEQ}")
-    rows = device_breakdown(torch, label, lambda: step(params, state, batch),
-                            top=12)
+    rows, prof = device_breakdown(torch, label,
+                                  lambda: step(params, state, batch), top=12)
     busy = sum(r[0] for r in rows)
     for what, names in TRAIN_PROFILED[arch]:
         mine = [(ms, n) for ms, n, name in rows
@@ -2680,8 +2793,27 @@ def phase_train(torch, arch: str) -> dict:
         print(f"[profile] {label}: {what} {ms:.3f} ms a step over "
               f"{sum(n for _, n in mine)} launches, {100 * ms / busy:.1f}% "
               f"of the step's device busy time", flush=True)
+    if cfg.family == "hybrid":
+        ms = ssd_einsum_ms(prof)
+        print(f"[profile] {label}: the SSD's einsums (batched products, "
+              f"forward, recompute and backward) {ms:.3f} ms a step, "
+              f"{100 * ms / busy:.1f}% of the step's device busy time",
+              flush=True)
     del params, state, batch
     return launches
+
+
+def ssd_einsum_ms(prof) -> float:
+    """Device ms of the batched matrix products of a profile recorded with
+    the ops' shapes: in a hybrid's train step the ``aten::bmm`` calls whose
+    batch exceeds one are the Mamba-2 SSD's einsums (its intra-chunk scores
+    and outputs, the chunk states and the inter-chunk outputs) and their
+    gradients; a projection's einsum reaches ``aten::bmm`` with a batch of
+    one, if at all."""
+    return sum(e.device_time_total for e in
+               prof.key_averages(group_by_input_shape=True)
+               if e.key == "aten::bmm" and e.input_shapes
+               and e.input_shapes[0] and e.input_shapes[0][0] > 1) / 1e3
 
 
 # the preemption path: a falcon-mamba-7b training task (f32, batch 4 x
@@ -3257,13 +3389,16 @@ def main() -> None:
     phase_reduced(torch, "gemma2-9b", 100)
     phase_reduced(torch, "falcon-mamba-7b", 128)
     phase_reduced(torch, "mixtral-8x7b", 128)
+    phase_reduced(torch, "zamba2-2.7b", 128)
     phase_continuous_reduced(torch, "gemma2-9b", 100)
     phase_continuous_reduced(torch, "falcon-mamba-7b", 128)
     phase_continuous_reduced(torch, "mixtral-8x7b", 128)
+    phase_continuous_reduced(torch, "zamba2-2.7b", 128)
     phase_train_reduced(torch, "gemma2-9b")
     phase_train_reduced(torch, "qwen1.5-32b")
     phase_train_reduced(torch, "falcon-mamba-7b")
     phase_train_reduced(torch, "mixtral-8x7b")
+    phase_train_reduced(torch, "zamba2-2.7b")
     phase_train_reduced(torch, "gemma2-9b", param_dtype=torch.bfloat16,
                         micro=2, remat="dots", batch=4)
     by_path = {"gemma2-9b": phase_serve(torch, "gemma2-9b", 1000, True),
@@ -3274,16 +3409,21 @@ def main() -> None:
                "nemotron-4-340b": phase_serve(torch, "nemotron-4-340b", 1024,
                                               False, NEMOTRON_LAYERS,
                                               requests=4),
+               "zamba2-2.7b": phase_serve(torch, "zamba2-2.7b", 1024, False),
                "gemma2-9b continuous": phase_continuous(
                    torch, "gemma2-9b", 1000),
                "falcon-mamba-7b continuous": phase_continuous(
                    torch, "falcon-mamba-7b", 1024),
                "mixtral-8x7b continuous": phase_continuous(
-                   torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)}
+                   torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS),
+               "zamba2-2.7b continuous": phase_continuous(
+                   torch, "zamba2-2.7b", 1024)}
     phase_decode(torch, "gemma2-9b", 1000, streams=4)
     phase_decode(torch, "falcon-mamba-7b", 1024)
     phase_decode(torch, "mixtral-8x7b", 1024, MIXTRAL_LAYERS)
-    for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b"):
+    phase_decode(torch, "zamba2-2.7b", 1024)
+    for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b",
+                 "zamba2-2.7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
     by_path["preempt"] = phase_preempt(torch, gpu)
     by_path["obs"] = phase_obs(torch, gpu)

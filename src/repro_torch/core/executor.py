@@ -262,7 +262,10 @@ class Executor:
                ) -> _JobRun:
         """Enter ``ej`` into the admission path now. ``priority`` /
         ``deadline_t`` stamp every task of the job (None keeps stamps
-        already on the job)."""
+        already on the job). ``on_done(run)`` fires once, on the thread
+        that resolves the job, before the job leaves the in-flight count
+        (ROADMAP C17): a job it submits is inside the same ``drain``, and it
+        must not wait for a drain itself, which would wait for it."""
         job = ej.job
         if priority is not None:
             job.priority = priority
@@ -337,15 +340,23 @@ class Executor:
             jr.shed = shed and not cancelled
             jr.ej.job.finish_t = time.monotonic()
             jr.done.set()
-            self._inflight -= 1
-            if self._inflight == 0:
-                self._state.notify_all()
-        lazy.free_all(jr.ej.buffers)
-        # fires once; dropping it breaks the job -> callback -> cluster ->
-        # handles -> job cycle, so a finished run frees its tensors at once
-        on_done, jr.on_done = jr.on_done, None
-        if on_done is not None:
-            on_done(jr)
+        try:
+            lazy.free_all(jr.ej.buffers)
+            # fires once; dropping it breaks the job -> callback -> cluster
+            # -> handles -> job cycle, so a finished run frees its tensors
+            # at once
+            on_done, jr.on_done = jr.on_done, None
+            if on_done is not None:
+                on_done(jr)
+        finally:
+            # the job leaves the in-flight count after its callback, so a
+            # drain returns only once every resolved job's callback (the
+            # cluster's counters, its flight recorder's crash dump) has run
+            # (ROADMAP C17)
+            with self._state:
+                self._inflight -= 1
+                if self._inflight == 0:
+                    self._state.notify_all()
 
     def _on_preempt(self, victims) -> None:
         """Eviction notice from the scheduler: signal the running attempt to

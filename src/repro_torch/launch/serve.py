@@ -74,7 +74,8 @@ training task there, ``chip_smoke.py``'s ``phase_preempt``).
 stream and writes it as a Chrome/Perfetto trace-event JSON at the end
 (``Cluster.export_trace``), as the reference does.
 
-It serves the dense attention, MoE and Mamba-1 (ssm) families.
+It serves the dense attention, MoE, Mamba-1 (ssm) and zamba2 (hybrid)
+families.
 
 Usage (on a machine with an NVIDIA card):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \

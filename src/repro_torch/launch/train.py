@@ -18,6 +18,11 @@ Port of ``src/repro/launch/train.py``. Differences from the reference:
     ``launch/serve.py`` does; each cut is reported under ``reduced``.
     gemma2-9b's 42 layers in f32 with two f32 moments and a gradient are
     9.24e9 parameters x 16 B = 148e9 B, beyond one 80 GB card;
+  * ``train(num_microbatches=)`` splits each step's batch into that many
+    microbatches whose gradients are accumulated
+    (``train_step.make_train_step``), so a caller can run a config's
+    ``num_microbatches`` as its production step does; the reference's
+    launcher runs one;
   * parameters are f32, as the reference's ``init_params`` makes them;
     each step reports loss, grad norm, lr, host ms, device ms (CUDA
     events, on a card) and tokens/s;
@@ -118,7 +123,8 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
               attn_impl: str = "flash_kernel", lr: float = 3e-4,
               log_every: int = 10,
               on_step: Optional[Callable[[int], None]] = None,
-              keep_state: bool = False) -> TrainRun:
+              keep_state: bool = False,
+              num_microbatches: Optional[int] = None) -> TrainRun:
     """The training run as one task, not yet submitted: its probe (one step
     on ``TensorSpec``s of the state on ``device``, nothing allocated) and
     its runner, which makes the state on the device it is given and trains
@@ -160,7 +166,8 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
                                 total_steps=steps,
                                 moment_dtype=cfg.optimizer_moment_dtype)
-    step_fn = make_train_step(cfg, opt_cfg, attn_impl=attn_impl)
+    step_fn = make_train_step(cfg, opt_cfg, attn_impl=attn_impl,
+                              num_microbatches=num_microbatches)
 
     # the task: one step over the run's state, probed on specs
     p_spec, o_spec = abstract_train_state(cfg, opt_cfg, torch.float32,
@@ -291,7 +298,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           log_every: int = 10, priority: int = 0,
           deadline_s: Optional[float] = None,
           scheduler: Optional[Scheduler] = None,
-          keep_state: bool = False) -> dict:
+          keep_state: bool = False,
+          num_microbatches: Optional[int] = None) -> dict:
     """Train ``arch`` for ``steps`` steps as one scheduled task
     (``train_job``) at ``priority`` with ``deadline_s``, under
     ``scheduler`` (default: MGB Algorithm 3 over the memory free on the
@@ -309,7 +317,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                     reduced=reduced, n_layers=n_layers, device=dev,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
                     seed=seed, attn_impl=attn_impl, lr=lr,
-                    log_every=log_every, keep_state=keep_state)
+                    log_every=log_every, keep_state=keep_state,
+                    num_microbatches=num_microbatches)
     if scheduler is None:
         scheduler = MGBAlg3Scheduler(
             1, hbm_per_device=hbm - pool_reserve(devices, 1))

@@ -1,15 +1,19 @@
-"""One-token decode over a model's cache: an attention model's KV cache or
-the Mamba-1 family's recurrent states.
+"""One-token decode over a model's cache: an attention model's KV cache,
+the Mamba-1 family's recurrent states, or the zamba2 hybrid's Mamba-2
+states beside its shared block's KV cache.
 
-Port of ``src/repro/models/decode.py`` for the dense, moe and ssm families
-(the zamba2 hybrid's caches come in a later slice). A KV cache is stacked
+Port of ``src/repro/models/decode.py``. A KV cache is stacked
 over layers ``[L, B, Hkv, Smax, hd]`` in bf16, or int8 codes with
 per-(position, head) scales (``cfg.kv_cache_dtype == "int8"``). Pure
 sliding-window archs (mixtral) keep a ring of ``min(max_seq, window)``
 slots: position p lives at slot ``p % Smax`` and the overwrite enforces the
 window, so the cache costs O(window) whatever the context. An ssm cache is the conv state ``[L, B, W-1,
 E]`` in the cache dtype and the SSM state ``[L, B, E, N]`` in f32, O(1) in
-the context. ``decode_step`` takes one position for the whole batch or a
+the context. A hybrid cache is ``m_conv [G, k-1, B, W-1, E+2N]`` and
+``m_ssm [G, k-1, B, nh, P, N]`` f32 (the Mamba-2 states of each group's k-1
+layers) and ``k``, ``v`` ``[G, B, Hkv, Smax, hd]`` (one shared block a
+group), never int8: the reference does not quantize a hybrid's KV cache.
+``decode_step`` takes one position for the whole batch or a
 [B] vector, one per row (continuous batching).
 
 The port updates caches IN PLACE (``decode_step``, ``cache_insert``,
@@ -25,11 +29,12 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
-    Params, attn_decode_block, check_supported, kv_shape, logits_from_hidden,
-    scale_embedding, ssm_state_shapes, _layer_window,
+    Params, attn_decode_block, check_supported, hybrid_state_shapes,
+    kv_shape, logits_from_hidden, scale_embedding, ssm_state_shapes,
+    _layer_window,
 )
 from repro_torch.models.moe import moe_apply
-from repro_torch.models.ssm import mamba1_decode_step
+from repro_torch.models.ssm import mamba1_decode_step, mamba2_decode_step
 
 Cache = Dict[str, torch.Tensor]
 
@@ -43,16 +48,25 @@ def cache_seq_len(cfg: ArchConfig, max_seq: int) -> int:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype: torch.dtype = torch.bfloat16, device=None) -> Cache:
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               conv_dtype: Optional[torch.dtype] = None) -> Cache:
     """Zeroed cache for ``batch`` rows of up to ``max_seq`` positions (a
     ring holds ``cache_seq_len`` slots; an ssm cache does not depend on
-    ``max_seq``)."""
+    ``max_seq``): KV in ``dtype``, conv states in ``conv_dtype`` (default
+    ``dtype``), SSM states in f32."""
     check_supported(cfg)
+    conv_dtype = conv_dtype or dtype
     if cfg.family == "ssm":
         conv, ssm = ssm_state_shapes(cfg, batch)
-        return {"conv": torch.zeros(conv, dtype=dtype, device=device),
+        return {"conv": torch.zeros(conv, dtype=conv_dtype, device=device),
                 "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
     shape = kv_shape(cfg, batch, cache_seq_len(cfg, max_seq))
+    if cfg.family == "hybrid":
+        conv, ssm = hybrid_state_shapes(cfg, batch)
+        return {"m_conv": torch.zeros(conv, dtype=conv_dtype, device=device),
+                "m_ssm": torch.zeros(ssm, dtype=torch.float32, device=device),
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if cfg.kv_cache_dtype == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -83,8 +97,25 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
         return logits_from_hidden(cfg, params, x[:, None])[:, 0], cache
     if not torch.is_tensor(pos):
         pos = torch.full((), pos, dtype=torch.int32, device=tokens.device)
-    q8 = cfg.kv_cache_dtype == "int8"
     ring = uses_ring(cfg)
+    if cfg.family == "hybrid":
+        shared = params["shared"]
+        for gi, gp in enumerate(params["groups"]):
+            for j, (mp, nm) in enumerate(zip(gp["mamba"], gp["norm_m"])):
+                x = x + mamba2_decode_step(
+                    mp, L.rms_norm(x, nm), {"conv": cache["m_conv"][gi, j],
+                                            "ssm": cache["m_ssm"][gi, j]},
+                    cfg.ssm)
+            a = attn_decode_block(
+                shared["attn"], L.rms_norm(x, gp["norm_attn"])[:, None], cfg,
+                pos=pos, kcache=cache["k"][gi], vcache=cache["v"][gi],
+                window=cfg.sliding_window, ring=ring)
+            x = x + a[:, 0]
+            x = x + L.mlp_apply(shared["mlp"], L.rms_norm(x, gp["norm_mlp"]),
+                                cfg.mlp_act)
+        x = L.rms_norm(x, params["final_norm"])
+        return logits_from_hidden(cfg, params, x[:, None])[:, 0], cache
+    q8 = cfg.kv_cache_dtype == "int8"
     for i, lp in enumerate(params["layers"]):
         a = attn_decode_block(
             lp["attn"], L.rms_norm(x, lp["norm1"])[:, None], cfg, pos=pos,
@@ -114,10 +145,12 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
 # decode attention, so the padding is never attended).
 # ---------------------------------------------------------------------------
 
-# per-key (batch_axis, seq_axis or None) of the dense and ssm cache layouts
+# per-key (batch_axis, seq_axis or None) of the dense, ssm and hybrid cache
+# layouts
 CACHE_AXES: Dict[str, Tuple[int, Optional[int]]] = {
     "k": (1, 3), "v": (1, 3), "k_s": (1, 3), "v_s": (1, 3),
     "conv": (1, None), "ssm": (1, None),
+    "m_conv": (2, None), "m_ssm": (2, None),
 }
 
 
@@ -141,8 +174,9 @@ def cache_insert(cache: Cache, row_cache: Cache, row: int) -> Cache:
     generation): it lands at the front and the rest of the rows' sequence
     axis is zeroed, as the reference pads it; decode masks those slots
     (``cache_len``) until it writes them. A LONGER sequence axis is an
-    error. A state cache (ssm) has no sequence axis: its rows are copied as
-    they are."""
+    error. A state (ssm, and a hybrid's ``m_conv``, ``m_ssm``) has no
+    sequence axis: its rows are copied as they are, cast to the resident
+    buffer's dtype."""
     for key, t in cache.items():
         bax, sax = CACHE_AXES[key]
         rt = row_cache[key]

@@ -1,14 +1,18 @@
-"""Decoder model of the attention families (dense, the vlm/audio stacks that
-feed precomputed embeddings, and moe: mixtral, dbrx) and of the Mamba-1
-family (ssm: falcon-mamba), in PyTorch.
+"""Decoder model of every family the reference covers: the attention
+families (dense, the vlm/audio stacks that feed precomputed embeddings,
+and moe: mixtral, dbrx), the Mamba-1 family (ssm: falcon-mamba) and the
+zamba2 hybrid (groups of Mamba-2 layers, each group closed by one
+attention + MLP block whose weights all groups share), in PyTorch.
 
-Port of ``src/repro/models/model.py`` (dense, moe and ssm families; the
-zamba2 hybrid comes in a later slice and raises ``NotImplementedError``
-here).
+Port of ``src/repro/models/model.py``.
 Where the reference stacks layer weights on a leading [L] dim and
 ``lax.scan``s over them, the port keeps a list of per-layer dicts and runs a
 Python loop, so ``_layer_window`` returns a plain int per layer and gemma2's
-alternating window reaches the attention kernel as a runtime argument.
+alternating window reaches the attention kernel as a runtime argument. The
+hybrid's ``groups`` (stacked [G] and [G, k-1] in the reference) is a list
+of G dicts with the reference's keys (``mamba``, ``norm_m``, ``norm_attn``,
+``norm_mlp``), whose ``mamba`` and ``norm_m`` are lists of the group's k-1
+Mamba-2 layers; ``shared`` (``attn``, ``mlp``) is one plain dict.
 Parameters keep the reference's layouts (``wq: [d, h, hd]``, ``wo: [h, hd,
 d]``, ``in_proj: [d, 2E]``, experts ``router: [d, E]``, ``wi/wg: [E, d, f]``,
 ``wo: [E, f, d]``), so ``repro_torch.convert`` moves JAX weights over
@@ -21,14 +25,16 @@ online-softmax in plain PyTorch) or ``"naive"`` (the oracle).
 Training (``loss_fn``, ``chunked_softmax_xent``: ``model.py:438-471`` of the
 reference) differentiates the same forward: the hand kernels' ops carry
 their backward kernels (``repro_torch.kernels``), and under
-``remat_policy="full"`` each layer is a non-reentrant
-``torch.utils.checkpoint`` whose backward recomputes the layer (the
+``remat_policy="full"`` each layer (for the hybrid, each group, as the
+reference's ``group_body``) is a non-reentrant
+``torch.utils.checkpoint`` whose backward recomputes it (the
 reference's ``_remat``, ``:309``), so only the layers' inputs are saved;
 under ``"dots"`` the outputs of the layer's matrix products stay saved too
-and the rest is recomputed.
+and the rest is recomputed. The hybrid's shared block is used by every
+group, so its gradient is the sum of the groups'.
 The loss recomputes each 512-position chunk's f32 logits in the backward
 instead of saving them. Training runs every family the port serves: the
-Mamba-1 layer's scan and the MoE layer's grouped matmuls have backward
+Mamba scan and the MoE layer's grouped matmuls have backward
 kernels too, and the loss adds the MoE aux loss (``aux_weight``, 0.01).
 """
 from __future__ import annotations
@@ -49,9 +55,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
+FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 # families whose every kernel has a backward
-TRAIN_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm")
+TRAIN_FAMILIES = ("dense", "vlm", "audio", "moe", "ssm", "hybrid")
 XENT_CHUNK = 512
 ATTN_IMPLS = ("flash_kernel", "flash_plain", "naive")
 
@@ -60,7 +66,18 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families "
-            f"so far (family {cfg.family!r})")
+            f"(family {cfg.family!r})")
+    if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid_shared_every:
+        raise ValueError(
+            f"{cfg.name}: a hybrid's depth ({cfg.n_layers}) must be a "
+            f"multiple of its group ({cfg.hybrid_shared_every} layers)")
+
+
+def hybrid_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(groups G, layers k a group) of the hybrid: k-1 Mamba-2 layers and
+    the shared attention + MLP block."""
+    k = cfg.hybrid_shared_every
+    return cfg.n_layers // k, k
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +172,24 @@ def _mamba1_params(gen, cfg: ArchConfig, dtype, device) -> Params:
     }
 
 
+def _mamba2_params(gen, cfg: ArchConfig, dtype, device) -> Params:
+    """``dt_bias``, ``A_log`` and ``D`` (one per head) stay f32."""
+    d = cfg.d_model
+    e, n, w = cfg.ssm.expand * d, cfg.ssm.state_dim, cfg.ssm.conv_width
+    nh = e // cfg.ssm.headdim
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": _init(gen, (d, 2 * e + 2 * n + nh), dtype, device),
+        "conv_w": _init(gen, (e + 2 * n, w), dtype, device, 0.2),
+        "conv_b": torch.zeros(e + 2 * n, dtype=dtype, device=device),
+        "dt_bias": torch.zeros(nh, **f32),
+        "A_log": torch.zeros(nh, **f32),
+        "D": torch.ones(nh, **f32),
+        "norm": torch.zeros(e, dtype=dtype, device=device),
+        "out_proj": _init(gen, (e, d), dtype, device),
+    }
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 param_dtype: torch.dtype = torch.float32,
                 device=None) -> Params:
@@ -166,7 +201,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     zeros = dict(dtype=param_dtype, device=device)
     params: Params = {"embed": _init(generator, (v, d), param_dtype, device,
                                      1.0)}
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        g, k = hybrid_groups(cfg)
+        params["groups"] = [
+            {"mamba": [_mamba2_params(generator, cfg, param_dtype, device)
+                       for _ in range(k - 1)],
+             "norm_m": [torch.zeros(d, **zeros) for _ in range(k - 1)],
+             "norm_attn": torch.zeros(d, **zeros),
+             "norm_mlp": torch.zeros(d, **zeros)}
+            for _ in range(g)]
+        params["shared"] = {
+            "attn": _attn_params(generator, cfg, param_dtype, device),
+            "mlp": _mlp_params(generator, cfg, param_dtype, device)}
+    elif cfg.family == "ssm":
         params["layers"] = [
             {"norm": torch.zeros(d, **zeros),
              "mamba": _mamba1_params(generator, cfg, param_dtype, device)}
@@ -312,6 +359,35 @@ def _ssm_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig,
     return x + out, None
 
 
+def _hybrid_group(gp: Params, shared: Params, x: torch.Tensor,
+                  cfg: ArchConfig, gi: int, positions: torch.Tensor,
+                  attn_impl: str, cache: Optional[Dict[str, torch.Tensor]]):
+    """One hybrid group (the reference's ``group_body``): k-1 Mamba-2
+    layers ``x + mamba2(norm_m(x))``, then the shared block ``x +
+    attn(norm_attn(x))``, ``+ mlp(norm_mlp(.))``. Writes group ``gi``'s
+    Mamba-2 states and K, V into ``cache`` when given (prefill)."""
+    for j, (mp, nm) in enumerate(zip(gp["mamba"], gp["norm_m"])):
+        out = SSM.mamba2_apply(mp, L.rms_norm(x, nm), cfg.ssm,
+                               return_state=cache is not None)
+        if cache is not None:
+            out, st = out
+            cache["m_conv"][gi, j].copy_(st["conv"])
+            cache["m_ssm"][gi, j].copy_(st["ssm"])
+            del st
+        x = x + out
+    a, (k, v) = attn_block(shared["attn"], L.rms_norm(x, gp["norm_attn"]),
+                           cfg, positions=positions,
+                           window=cfg.sliding_window, attn_impl=attn_impl,
+                           return_kv=True)
+    if cache is not None:
+        cache["k"][gi].copy_(k)
+        cache["v"][gi].copy_(v)
+    del k, v
+    x = x + a
+    return x + L.mlp_apply(shared["mlp"], L.rms_norm(x, gp["norm_mlp"]),
+                           cfg.mlp_act)
+
+
 # the matrix products without batch dims, which "dots" saves: JAX's
 # ``checkpoint_dots_with_no_batch_dims`` saves every ``dot_general`` that
 # has no batch dimension, and a projection's ``einsum`` or ``@`` over
@@ -391,8 +467,10 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     """Full-sequence forward. Returns (hidden [B, S, d], the MoE aux loss
     summed over layers, 0 without experts) — plus
     the decode cache when ``collect_cache`` (prefill): the KV cache
-    ``{"k", "v": [L, B, Hkv, S, hd]}``, or for the ssm family the states
-    ``{"conv": [L, B, W-1, E], "ssm": [L, B, E, N] f32}``. The cache is
+    ``{"k", "v": [L, B, Hkv, S, hd]}``, for the ssm family the states
+    ``{"conv": [L, B, W-1, E], "ssm": [L, B, E, N] f32}``, for the hybrid
+    ``{"m_conv": [G, k-1, B, W-1, E+2N], "m_ssm": [G, k-1, B, nh, P, N]
+    f32, "k", "v": [G, B, Hkv, S, hd]}``. The cache is
     written layer by layer into preallocated stacks, so no second copy of
     it is ever live."""
     check_supported(cfg)
@@ -416,6 +494,22 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                 cache["conv"][i].copy_(st["conv"])
                 cache["ssm"][i].copy_(st["ssm"])
             del st
+    elif cfg.family == "hybrid":
+        positions = torch.arange(s, device=x.device)
+        if collect_cache:
+            conv, ssm = hybrid_state_shapes(cfg, bsz)
+            shape = kv_shape(cfg, bsz, s)
+            cache = {"m_conv": torch.empty(conv, dtype=x.dtype,
+                                           device=x.device),
+                     "m_ssm": torch.empty(ssm, dtype=torch.float32,
+                                          device=x.device),
+                     "k": torch.empty(shape, dtype=x.dtype, device=x.device),
+                     "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+        body = _remat(_hybrid_group, cfg.remat_policy) if grad \
+            else _hybrid_group
+        for gi, gp in enumerate(params["groups"]):
+            x = body(gp, params["shared"], x, cfg, gi, positions, attn_impl,
+                     cache)
     else:
         positions = torch.arange(s, device=x.device)
         if collect_cache:
@@ -443,9 +537,22 @@ def ssm_state_shapes(cfg: ArchConfig, batch: int
             (cfg.n_layers, batch, e, cfg.ssm.state_dim))
 
 
+def hybrid_state_shapes(cfg: ArchConfig, batch: int
+                        ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Shapes of the hybrid's stacked Mamba-2 decode states: conv [G, k-1,
+    B, W-1, E+2N] and ssm [G, k-1, B, nh, P, N]."""
+    g, k = hybrid_groups(cfg)
+    e, n = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+    return ((g, k - 1, batch, cfg.ssm.conv_width - 1, e + 2 * n),
+            (g, k - 1, batch, e // cfg.ssm.headdim, cfg.ssm.headdim, n))
+
+
 def kv_shape(cfg: ArchConfig, batch: int, seq: int) -> Tuple[int, ...]:
-    """Shape of one stacked KV cache tensor: [L, B, Hkv, S, hd]."""
-    return (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.resolved_head_dim)
+    """Shape of one stacked KV cache tensor: [L, B, Hkv, S, hd], or the
+    hybrid's [G, B, Hkv, S, hd] (one shared block a group)."""
+    layers = hybrid_groups(cfg)[0] if cfg.family == "hybrid" \
+        else cfg.n_layers
+    return (layers, batch, cfg.n_kv_heads, seq, cfg.resolved_head_dim)
 
 
 # ---------------------------------------------------------------------------

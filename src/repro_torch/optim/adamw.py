@@ -74,16 +74,18 @@ def init_state(cfg: AdamWConfig, params) -> OptState:
 
 def reference_rank(params) -> List[int]:
     """Each leaf's rank in the reference's tree, in ``tree_flatten`` order:
-    its own, plus one under ``layers`` (stacked on [L] there)."""
+    its own, plus one for each list that holds it, which the reference
+    stacks on a leading dim (``layers`` on [L]; the hybrid's ``groups`` on
+    [G], and within a group ``mamba`` and ``norm_m`` on [G, k-1])."""
     ranks: List[int] = []
 
     def walk(node, stacked: int) -> None:
         if isinstance(node, dict):
-            for key, val in node.items():
-                walk(val, stacked + (key == "layers" and isinstance(val, list)))
+            for val in node.values():
+                walk(val, stacked)
         elif isinstance(node, (list, tuple)):
             for val in node:
-                walk(val, stacked)
+                walk(val, stacked + 1)
         else:
             ranks.append(node.dim() + stacked)
     walk(params, 0)

@@ -2,7 +2,7 @@
 the greedy decode loop. These are the "GPU task" bodies of the static
 serving path.
 
-Port of ``src/repro/serve/decode.py`` for the dense, moe and ssm families.
+Port of ``src/repro/serve/decode.py`` for every family the port runs.
 ``greedy_generate`` loops over ``decode_step`` where the reference
 ``lax.scan``s; on the card the step is captured once in a CUDA graph
 (``StepGraph``) and replayed, the port's counterpart of the reference's
@@ -40,8 +40,9 @@ def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "flash_kernel"):
     ``window`` deep in ring order (``ring_from_prefill``). With
     ``cfg.kv_cache_dtype == "int8"`` it is then quantized as the reference
     does (per-(position, head) absmax, bf16 scales), one layer at a time so
-    the f32 temporaries stay one layer big. An ssm cache (conv and SSM
-    states) is returned as it is.
+    the f32 temporaries stay one layer big; a hybrid's KV cache is never
+    quantized, as the reference's is not. An ssm cache (conv and SSM
+    states) is returned as it is, and so are a hybrid's Mamba-2 states.
     """
     def prefill(params, batch: Dict[str, torch.Tensor]):
         hidden, _, cache = forward(params, cfg, batch, attn_impl=attn_impl,
@@ -51,7 +52,8 @@ def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "flash_kernel"):
             for name in ("k", "v"):
                 cache[name] = ring_from_prefill(cache.pop(name),
                                                 cfg.sliding_window)
-        if cfg.kv_cache_dtype == "int8" and "k" in cache:
+        if cfg.kv_cache_dtype == "int8" and "k" in cache \
+                and cfg.family != "hybrid":
             q8 = {}
             for name in ("k", "v"):
                 t = cache.pop(name)
@@ -91,13 +93,16 @@ def decode_cache(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
     ``max_seq`` deep (``models.decode.cache_insert``). A ring cache already
     holds its ``window`` slots and wraps, and an ssm cache holds states
     with no positions to pad: both are returned as they are, in their own
-    dtypes, as the reference decodes on its prefill cache.
+    dtypes, as the reference decodes on its prefill cache. A hybrid's KV
+    cache is padded and its Mamba-2 states (``m_conv``, ``m_ssm``) are
+    copied in their own dtypes.
     """
     if cfg.family == "ssm" or D.uses_ring(cfg):
         return cache
     k = cache["k"]
-    return D.cache_insert(D.init_cache(cfg, k.shape[1], max_seq,
-                                       device=k.device), cache, 0)
+    return D.cache_insert(D.init_cache(
+        cfg, k.shape[1], max_seq, device=k.device,
+        conv_dtype=cache.get("m_conv", k).dtype), cache, 0)
 
 
 def resident_ring(cfg: ArchConfig, cache: D.Cache, max_seq: int) -> D.Cache:
@@ -243,10 +248,12 @@ def decode_buffers(cfg: ArchConfig, rows: int, max_seq: int,
     of a prefill of ``rows`` rows whose activations are ``act_dtype``: a
     KV cache padded for ``max_seq`` positions (bf16, or int8 codes with
     bf16 scales), a ring of ``window`` slots in the prefill's dtype, or an
-    ssm cache (conv state in the prefill's dtype, SSM state f32)."""
-    if cfg.family == "ssm":
-        return D.init_cache(cfg, rows, max_seq, dtype=act_dtype,
-                            device=device)
+    ssm cache (conv state in the prefill's dtype, SSM state f32), or a
+    hybrid's (its KV bf16 and padded, its conv states in the prefill's
+    dtype, its SSM states f32)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return D.init_cache(cfg, rows, max_seq, device=device,
+                            conv_dtype=act_dtype)
     if D.uses_ring(cfg):
         dtype = torch.bfloat16 if cfg.kv_cache_dtype == "int8" \
             else act_dtype

@@ -336,14 +336,15 @@ def _wait(device: torch.device) -> None:
 def loop_cache(params, cfg, rows: int, max_seq: int,
                device=None) -> D.Cache:
     """A decode loop's zeroed cache (``init_cache``) on the weights' device,
-    bf16 as the reference's, except an ssm conv state, kept in the weights'
-    dtype: the reference's decode computes it in that dtype and hands back
-    a new array, so its loop's bf16 conv state becomes f32 after the first
-    step under f32 weights, where the port writes the state back in place."""
+    bf16 as the reference's, except a conv state (ssm, and the hybrid's
+    ``m_conv``), kept in the weights' dtype: the reference's decode
+    computes it in that dtype and hands back a new array, so its loop's
+    bf16 conv state becomes f32 after the first step under f32 weights,
+    where the port writes the state back in place."""
     embed = params["embed"]
-    dtype = embed.dtype if cfg.family == "ssm" else torch.bfloat16
-    return D.init_cache(cfg, rows, max_seq, dtype=dtype,
-                        device=embed.device if device is None else device)
+    return D.init_cache(cfg, rows, max_seq, dtype=torch.bfloat16,
+                        device=embed.device if device is None else device,
+                        conv_dtype=embed.dtype)
 
 
 def loop_step(params, cfg, cache, tokens: torch.Tensor, pos: torch.Tensor,

@@ -5,6 +5,7 @@ trace of arrivals and completions must give the same placement sequence in
 both. The port's executor and ``Cluster`` run real jobs on the CPU device.
 """
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -127,6 +128,31 @@ def test_failing_runner_crashes_job_with_its_error():
     assert h.status is JobStatus.CRASHED and ok.status is JobStatus.DONE
     assert "kernel launch failed" in h.job.error
     assert h.records[0].crashed and h.records[0].started
+
+
+def test_a_job_submitted_from_a_callback_is_inside_the_drain():
+    """A job's ``on_done`` runs before the job leaves the in-flight count
+    (ROADMAP C17), so a job it submits, even late, is one the same drain
+    waits for."""
+    with Cluster(TSCH.MGBAlg3Scheduler(1), devices=[CPU]) as cluster:
+        follow, submitted = [], threading.Event()
+
+        def then(handle):
+            time.sleep(0.2)
+            follow.append(cluster.submit(_job("then"),
+                                         runners=[lambda d: None]))
+            submitted.set()
+
+        first = cluster.submit(_job("first"), runners=[lambda d: None],
+                               on_done=then)
+        cluster.drain()
+        after_callback = submitted.is_set()
+        # the cluster shuts down only once the callback has submitted
+        assert submitted.wait(30)
+        assert after_callback, "the drain returned before the callback ran"
+        assert first.status is JobStatus.DONE
+        assert follow[0].status is JobStatus.DONE
+        assert cluster.stats()["completed"] == 2
 
 
 def test_never_feasible_task_crashes_at_submit():

@@ -28,7 +28,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from torch.utils._pytree import tree_leaves  # noqa: E402
+from torch.utils._pytree import tree_leaves, tree_map  # noqa: E402
 
 from repro.configs.base import ShapeConfig  # noqa: E402
 from repro.configs.registry import get_arch  # noqa: E402
@@ -44,6 +44,7 @@ from repro_torch.core.probe import trace_counts  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline, to_device  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.launch.specs import input_specs  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.optim import adamw as TA  # noqa: E402
 from repro_torch.train import checkpoint as CK  # noqa: E402
@@ -55,8 +56,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 # softcaps + window; QKV bias; Mamba-1 (the scan's backward); MoE, 4
-# experts top-2 with a window (the grouped matmul's backward, the aux loss)
-ARCHS = ["gemma2-9b", "qwen1.5-32b", "falcon-mamba-7b", "mixtral-8x7b"]
+# experts top-2 with a window (the grouped matmul's backward, the aux loss);
+# the zamba2 hybrid (Mamba-2's SSD and the scan across chunks, a shared
+# block whose gradient sums over groups)
+ARCHS = ["gemma2-9b", "qwen1.5-32b", "falcon-mamba-7b", "mixtral-8x7b",
+         "zamba2-2.7b"]
 LR = 1e-3
 B, S, STEPS = 2, 128, 3
 
@@ -476,11 +480,13 @@ def test_checkpoint_keeps_bf16_bits_and_the_references_layout(tmp_path):
     assert sorted(x.name for x in tmp_path.iterdir()) == ["step_00000008"]
 
 
-def test_a_jax_checkpoint_resumes_in_the_port(tmp_path):
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "zamba2-2.7b"])
+def test_a_jax_checkpoint_resumes_in_the_port(tmp_path, arch):
     """A checkpoint the reference's ``train/checkpoint.save`` wrote (after
     one JAX step) is read through ``convert`` into the port's state, equal
-    leaf for leaf to the converted tree, and the port trains on from it."""
-    cfg, tcfg, params, state, _, _ = _start("qwen1.5-32b")
+    leaf for leaf to the converted tree, and the port trains on from it
+    (the hybrid's groups stacked on [G] and [G, k-1] there)."""
+    cfg, tcfg, params, state, _, _ = _start(arch)
     step = jax.jit(jax_step(cfg, _opt(JA), attn_impl="flash"))
     pipe = JPipe(cfg, ShapeConfig("t", S, B, "train"), seed=0)
     params, state, _ = step(params, state,
@@ -565,7 +571,8 @@ def test_train_cuts_depth_at_full_width_and_reports_it():
 
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "mixtral-8x7b",
+                                  "zamba2-2.7b"])
 def test_probe_of_ssm_and_moe_train_steps_counts_the_backward(arch):
     """The probe of a train step of the families whose layers run the scan
     and the grouped matmul traces their backward ops (fakes and flop
@@ -581,3 +588,105 @@ def test_probe_of_ssm_and_moe_train_steps_counts_the_backward(arch):
     assert step["flops"] >= 2.5 * fwd["flops"]
     weights = sum(4 * int(np.prod(s.shape)) for s in tree_leaves(params))
     assert step["hbm_bytes"] >= 4 * weights
+
+
+# ---------------------------------------------------------------------------
+# the zamba2 hybrid
+# ---------------------------------------------------------------------------
+
+def test_hybrid_shared_block_gradient_sums_its_groups():
+    """Every group runs the one shared attention + MLP block, so the loss's
+    gradient of each shared weight is the sum over groups of the gradient
+    each group's use gives: the forward rebuilt with a copy of the shared
+    block per group gives per-group gradients that add up to the port's."""
+    _, tcfg, *_, params, _ = _start("zamba2-2.7b")
+    tcfg = dataclasses.replace(tcfg, remat_policy="full")
+    tok = np.random.default_rng(3).integers(0, tcfg.vocab, (B, S),
+                                            dtype=np.int32)
+    batch = to_device({"tokens": tok, "labels": np.roll(tok, -1, 1)}, "cpu")
+    shared = tree_leaves(params["shared"])
+    with torch.enable_grad():
+        for t in shared:
+            t.requires_grad_(True)
+        whole = torch.autograd.grad(TM.loss_fn(params, tcfg, batch), shared)
+        for t in shared:
+            t.requires_grad_(False)
+    g, _ = TM.hybrid_groups(tcfg)
+    copies = [tree_map(
+        lambda t: t.clone().requires_grad_(True), params["shared"])
+        for _ in range(g)]
+    with torch.enable_grad():
+        x = TM.embed_tokens(tcfg, params, batch)
+        positions = torch.arange(S)
+        for gi, gp in enumerate(params["groups"]):
+            x = TM._hybrid_group(gp, copies[gi], x, tcfg, gi, positions,
+                                 "flash_kernel", None)
+        hidden = TL.rms_norm(x, params["final_norm"])
+        loss = TM.chunked_softmax_xent(tcfg, params, hidden, batch["labels"])
+        per_group = torch.autograd.grad(
+            loss, [t for c in copies for t in tree_leaves(c)])
+    n = len(shared)
+    assert len(per_group) == g * n
+    for i, w in enumerate(whole):
+        parts = [per_group[gi * n + i] for gi in range(g)]
+        assert all(float(p.abs().max()) > 0 for p in parts)
+        torch.testing.assert_close(sum(parts), w, rtol=1e-5,
+                                   atol=1e-6 * float(w.abs().max()))
+
+
+def test_reference_rank_of_the_hybrid_tree_is_the_references():
+    """``reference_rank`` (one rank for each list that holds a leaf) gives
+    each leaf of the port's hybrid tree the rank of its leaf in the
+    reference's (``groups`` on [G], ``mamba`` and ``norm_m`` on [G, k-1],
+    ``shared`` unstacked), so AdamW decays the same leaves (C9); and the
+    other families' ranks are those of their stacked [L] leaves."""
+    from torch.utils._pytree import tree_flatten_with_path
+    for arch in ARCHS:
+        cfg, tcfg, params, _, tparams, _ = _start(arch)
+        ranks = {tuple(k.key for k in path): leaf.ndim for path, leaf in
+                 jax.tree_util.tree_flatten_with_path(params)[0]}
+        paths = [tuple(k.key for k in path if hasattr(k, "key"))
+                 for path, _ in tree_flatten_with_path(tparams)[0]]
+        got = TA.reference_rank(tparams)
+        assert len(got) == len(paths)
+        assert [ranks[p] for p in paths] == got, arch
+    _, tcfg, *_, tparams, _ = _start("zamba2-2.7b")
+    rank = dict(zip((tuple(k.key for k in path if hasattr(k, "key"))
+                     for path, _ in tree_flatten_with_path(tparams)[0]),
+                    TA.reference_rank(tparams)))
+    # the per-head dt_bias, A_log, D and the group norms are decayed there
+    assert rank[("groups", "mamba", "dt_bias")] == 3
+    assert rank[("groups", "norm_m")] == 3
+    assert rank[("groups", "norm_attn")] == 2
+    assert rank[("final_norm",)] == 1
+
+
+def test_hybrid_microbatches_compose_with_group_remat():
+    """zamba2's training options together (reduced widths): every group
+    under ``remat_policy="full"`` and a batch of 4 in 2 microbatches, 3
+    steps against the jitted JAX step with the same options (the module's
+    tolerances)."""
+    arch = "zamba2-2.7b"
+    cfg = dataclasses.replace(get_arch(arch).reduced(), remat_policy="full")
+    tcfg = dataclasses.replace(port_arch(arch).reduced(),
+                               remat_policy="full")
+    params = JM.init_params(cfg, jax.random.PRNGKey(0))
+    state = JA.init_state(_opt(JA), params)
+    tparams = convert.params_from_jax(_np(params), tcfg, "cpu")
+    tstate = convert.opt_state_from_jax(_np(state), tcfg, "cpu")
+    jstep = jax.jit(jax_step(cfg, _opt(JA), attn_impl="flash",
+                             num_microbatches=2))
+    tstep = make_train_step(tcfg, _opt(TA), num_microbatches=2)
+    jpipe = JPipe(cfg, ShapeConfig("t", S, 4, "train"), seed=0)
+    tpipe = TokenPipeline(tcfg, TShape("t", S, 4, "train"), seed=0)
+    for i in range(STEPS):
+        params, state, m = jstep(params, state, {
+            k: jnp.asarray(v) for k, v in jpipe.batch_at(i).items()})
+        tparams, tstate, tm = tstep(tparams, tstate,
+                                    to_device(tpipe.batch_at(i), "cpu"))
+        assert abs(float(tm["loss"]) - float(m["loss"])) <= 1e-4
+        assert abs(float(tm["grad_norm"]) - float(m["grad_norm"])) \
+            <= 1e-4 * float(m["grad_norm"])
+    _params_close(tparams, convert.params_from_jax(_np(params), tcfg, "cpu"))
+    _moments_close(tstate, convert.opt_state_from_jax(_np(state), tcfg,
+                                                      "cpu"))
