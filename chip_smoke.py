@@ -27,7 +27,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    paths' shapes and at edge cases (bf16 atol = rtol = 2e-2, f32 1e-4) and
    time kernel, plain version and, as a yardstick only, the PyTorch library
    call that computes the same function where there is one: device time of
-   a CUDA-graph replay, after warm-up. Flash attention has two routes, bf16
+   a CUDA-graph replay, after warm-up. RMSNorm's forward runs at every
+   row its main paths give it (``RMSNORM_ROWS``: static and continuous
+   prefills, decode steps and the continuous loop's 8 rows, training
+   rows; two calls must give the same bits), timed warm and, for prefill
+   and train rows, with its inputs cold in L2, beside ``F.rms_norm``
+   (``phase_rmsnorm``). Flash attention has two routes, bf16
    on the tensor cores (wgmma, TMA) and f32 on the CUDA cores, each held
    at its own cases; its yardsticks are SDPA at mixtral's shape (no
    softcap) and ``flex_attention`` (softcap as a score_mod, causal + window
@@ -227,7 +232,8 @@ PORT_KERNELS = ("rmsnorm_kernel", "flash_tc_kernel", "flash_fwd_kernel",
                 "gmm_f32_kernel", "flash_bwd_delta_kernel",
                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
                 "flash_bwd_tc_dkdv_kernel", "flash_bwd_tc_dq_kernel",
-                "rmsnorm_bwd_kernel", "rmsnorm_bwd_wide_kernel",
+                "rmsnorm_smem_kernel", "rmsnorm_bwd_kernel",
+                "rmsnorm_bwd_wide_kernel",
                 "rmsnorm_dscale_kernel", "mamba_scan_bwd_kernel",
                 "gmm_bwd_gate_kernel", "gmm_bwd_dx_kernel",
                 "gmm_bwd_dw_kernel", "gmm_bwd_gate_tma_kernel",
@@ -372,7 +378,6 @@ def phase_kernels(torch):
     returns {kernel: entry of the JSON table} for the main-path case."""
     import torch.nn.functional as F
     from repro_torch.kernels import mamba_scan as SC
-    from repro_torch.kernels import rmsnorm as RN
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     table = {}
@@ -381,68 +386,7 @@ def phase_kernels(torch):
         return (torch.randn(shape, generator=gen, device=dev) * scale) \
             .to(dtype)
 
-    # gemma2-9b's prefill and decode rows (d 3584), falcon-mamba-7b's
-    # (d 4096), nemotron-4-340b's (d 18432), zamba2-2.7b's (d 2560 and its
-    # gated norm's E 5120: prefill and decode rows in bf16, and the f32
-    # rows of a 1 x 1024 training microbatch), then a narrow edge case
-    for shape, dtype in [((4000, 3584), torch.bfloat16),
-                         ((4000, 3584), torch.float32),
-                         ((4096, 3584), torch.float32),
-                         ((4, 3584), torch.bfloat16),
-                         ((4, 3584), torch.float32),
-                         ((4096, 4096), torch.bfloat16),
-                         ((4096, 4096), torch.float32),
-                         ((4, 4096), torch.bfloat16),
-                         ((4, 4096), torch.float32),
-                         ((4096, 18432), torch.bfloat16),
-                         ((4096, 18432), torch.float32),
-                         ((4096, 5120), torch.bfloat16),
-                         ((4096, 5120), torch.float32),
-                         ((4096, 2560), torch.bfloat16),
-                         ((4096, 2560), torch.float32),
-                         ((4, 2560), torch.bfloat16),
-                         ((4, 2560), torch.float32),
-                         ((4, 5120), torch.bfloat16),
-                         ((4, 5120), torch.float32),
-                         ((1024, 2560), torch.float32),
-                         ((1024, 5120), torch.float32),
-                         ((1000, 512), torch.float32),
-                         ((1000, 512), torch.bfloat16)]:
-        x = randn(shape, dtype)
-        sc = randn(shape[-1:], dtype, 0.1)
-        out = RN.rmsnorm(x, sc)
-        torch.cuda.synchronize()
-        err = compare(torch, out, RN.rmsnorm_plain(x, sc), dtype,
-                      f"rmsnorm {shape} {dtype}")
-        ms = time_ms(torch, lambda: RN.rmsnorm(x, sc), 50)
-        plain_ms = time_ms(torch, lambda: RN.rmsnorm_plain(x, sc), 20)
-        w = 1.0 + sc
-        lib_ms = time_ms(torch, lambda: F.rms_norm(x, shape[-1:], w, 1e-5),
-                         50)
-        nbytes = 2 * x.numel() * x.element_size() + sc.numel() \
-            * sc.element_size()
-        flops = 4 * x.numel()
-        bound = max(nbytes / H100_HBM_BW, flops / H100_F32_FLOPS) * 1e3
-        print(f"[kernels] rmsnorm {shape} {str(dtype)[6:]}: max_abs_err "
-              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
-              f"{100 * bound / ms:.1f}% of the bound", flush=True)
-        if shape == (4000, 3584) and dtype == torch.bfloat16:
-            table["rmsnorm"] = dict(
-                name="rmsnorm", route="cuda",
-                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-                replaces="src/repro/kernels/rmsnorm.py:40", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-                library_ms=lib_ms)
-        elif shape == (4096, 18432) and dtype == torch.bfloat16:
-            table["rmsnorm"]["nemotron_case"] = dict(
-                shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, library_ms=lib_ms)
-        elif shape == (4096, 5120):
-            table["rmsnorm"][f"zamba2_case_{str(dtype)[6:]}"] = dict(
-                shape=list(shape), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, library_ms=lib_ms)
-
+    phase_rmsnorm(torch, randn, table)
     phase_flash(torch, randn, table)
 
     # the selective scan: edge cases (S = 1, S = 7, B*E*N off the block
@@ -553,6 +497,131 @@ def flex_library(torch, q, k, v, cap: float, win: int):
                                     logit_softcap=cap)
     err = float((out.float() - want.float()).abs().max())
     return (lambda q=q, k=k, v=v: fn(q, k, v, **kw)), err
+
+
+# RMSNorm's rows on the main paths: (shape, dtype, where). gemma2-9b (d
+# 3584), falcon-mamba-7b and mixtral-8x7b (d 4096), nemotron-4-340b (d
+# 18432), zamba2-2.7b (d 2560 and its gated norm's E 5120): static prefills
+# of 4 x ~1000 tokens and decode steps of 4 rows in bf16, continuous
+# prefills of 1 x ~1000 tokens and the continuous loop's steps of 8 rows in
+# bf16, f32 training batches of 4 x 1024 (zamba2: microbatches of 1 x
+# 1024); then a narrow edge case.
+RMSNORM_ROWS = (
+    ((4000, 3584), "bfloat16", "gemma2 static prefill"),
+    ((4000, 3584), "float32", "gemma2 f32 rows"),
+    ((4096, 3584), "float32", "gemma2 train"),
+    ((1000, 3584), "bfloat16", "gemma2 continuous prefill"),
+    ((4, 3584), "bfloat16", "gemma2 decode"),
+    ((4, 3584), "float32", "gemma2 f32 decode"),
+    ((8, 3584), "bfloat16", "gemma2 continuous loop"),
+    ((4096, 4096), "bfloat16", "falcon-mamba, mixtral static prefill"),
+    ((4096, 4096), "float32", "falcon-mamba, mixtral train"),
+    ((1024, 4096), "bfloat16", "falcon-mamba, mixtral continuous prefill"),
+    ((4, 4096), "bfloat16", "falcon-mamba, mixtral decode"),
+    ((4, 4096), "float32", "falcon-mamba f32 decode"),
+    ((8, 4096), "bfloat16", "falcon-mamba, mixtral continuous loop"),
+    ((4096, 18432), "bfloat16", "nemotron static prefill"),
+    ((4096, 18432), "float32", "nemotron f32 rows"),
+    ((4, 18432), "bfloat16", "nemotron decode"),
+    ((4096, 5120), "bfloat16", "zamba2 static prefill, gated norm"),
+    ((4096, 5120), "float32", "zamba2 f32 rows, gated norm"),
+    ((4096, 2560), "bfloat16", "zamba2 static prefill"),
+    ((4096, 2560), "float32", "zamba2 f32 rows"),
+    ((1024, 2560), "bfloat16", "zamba2 continuous prefill"),
+    ((1024, 5120), "bfloat16", "zamba2 continuous prefill, gated norm"),
+    ((1024, 2560), "float32", "zamba2 train microbatch"),
+    ((1024, 5120), "float32", "zamba2 train microbatch, gated norm"),
+    ((4, 2560), "bfloat16", "zamba2 decode"),
+    ((4, 2560), "float32", "zamba2 f32 decode"),
+    ((4, 5120), "bfloat16", "zamba2 decode, gated norm"),
+    ((4, 5120), "float32", "zamba2 f32 decode, gated norm"),
+    ((8, 2560), "bfloat16", "zamba2 continuous loop"),
+    ((8, 5120), "bfloat16", "zamba2 continuous loop, gated norm"),
+    ((1000, 512), "float32", "narrow rows"),
+    ((1000, 512), "bfloat16", "narrow rows"),
+)
+# rows of at least this many are prefill or train rows, also timed with
+# their inputs cold: rotated through a pool of more than COLD_POOL_BYTES,
+# twice the 50 MB L2
+COLD_ROWS = 1000
+COLD_POOL_BYTES = 100e6
+
+
+def time_cold_ms(torch, fn, x, iters: int) -> float:
+    """``time_ms`` of ``fn(x)`` with x cold in L2: each captured call reads
+    the next of enough copies of x to hold more than ``COLD_POOL_BYTES``,
+    so a copy is read again only after more than twice L2's bytes."""
+    nbytes = x.numel() * x.element_size()
+    pool = [x.clone() for _ in range(max(2, int(COLD_POOL_BYTES
+                                                // nbytes) + 1))]
+    calls = iter(range(1 << 30))
+    ms = time_ms(torch, lambda: fn(pool[next(calls) % len(pool)]), iters)
+    del pool
+    return ms
+
+
+def phase_rmsnorm(torch, randn, table) -> None:
+    """RMSNorm's forward at every main-path row (``RMSNORM_ROWS``): held
+    against its plain version, then the kernel, the plain version and
+    ``F.rms_norm`` timed warm (the same input every call, which at most
+    rows stays in L2) and, for prefill and train rows, the kernel and
+    ``F.rms_norm`` cold (``time_cold_ms``). Fills the JSON table's
+    ``rmsnorm`` entry: gemma2-9b's prefill row as its main case and every
+    row under ``rows``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as RN
+    rows = []
+    for shape, dname, where in RMSNORM_ROWS:
+        dtype = getattr(torch, dname)
+        x = randn(shape, dtype)
+        sc = randn(shape[-1:], dtype, 0.1)
+        out = RN.rmsnorm(x, sc)
+        torch.cuda.synchronize()
+        err = compare(torch, out, RN.rmsnorm_plain(x, sc), dtype,
+                      f"rmsnorm {shape} {dtype}")
+        if not torch.equal(out, RN.rmsnorm(x, sc)):
+            fail(f"rmsnorm {shape} {dtype}: two calls differ")
+        ms = time_ms(torch, lambda: RN.rmsnorm(x, sc), 50)
+        plain_ms = time_ms(torch, lambda: RN.rmsnorm_plain(x, sc), 20)
+        w = 1.0 + sc
+        lib_ms = time_ms(torch, lambda: F.rms_norm(x, shape[-1:], w, 1e-5),
+                         50)
+        nbytes = 2 * x.numel() * x.element_size() + sc.numel() \
+            * sc.element_size()
+        flops = 4 * x.numel()
+        bound = max(nbytes / H100_HBM_BW, flops / H100_F32_FLOPS) * 1e3
+        row = dict(shape=list(shape), dtype=dname, where=where,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by="bytes")
+        cold = ""
+        if shape[0] >= COLD_ROWS:
+            row["cold_ms"] = time_cold_ms(
+                torch, lambda t: RN.rmsnorm(t, sc), x, 50)
+            row["cold_library_ms"] = time_cold_ms(
+                torch, lambda t: F.rms_norm(t, shape[-1:], w, 1e-5), x, 50)
+            cold = (f"; cold: kernel {row['cold_ms']:.4f} ms "
+                    f"({100 * bound / row['cold_ms']:.1f}%), F.rms_norm "
+                    f"{row['cold_library_ms']:.4f} ms")
+        rows.append(row)
+        print(f"[kernels] rmsnorm {shape} {dname} ({where}): max_abs_err "
+              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.rms_norm {lib_ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+              f"{100 * bound / ms:.1f}% of the bound{cold}", flush=True)
+        case = {k: row[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "library_ms")}
+        if shape == (4000, 3584) and dname == "bfloat16":
+            table["rmsnorm"] = dict(
+                name="rmsnorm", route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm.py:40", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=lib_ms)
+        elif shape == (4096, 18432) and dname == "bfloat16":
+            table["rmsnorm"]["nemotron_case"] = case
+        elif shape == (4096, 5120):
+            table["rmsnorm"][f"zamba2_case_{dname}"] = case
+        del x, out
+    table["rmsnorm"]["rows"] = rows
 
 
 def phase_flash(torch, randn, table) -> None:

@@ -48,8 +48,12 @@ def _pair(rng, shape, dtype, scale=1.0):
 # rmsnorm
 # ---------------------------------------------------------------------------
 
+# then the main paths' widths at a few rows: zamba2-2.7b's 2560 and its gated
+# norm's 5120, gemma2-9b's 3584, falcon-mamba-7b's and mixtral-8x7b's 4096,
+# nemotron-4-340b's 18432 (each a row shape the card kernel takes its own way)
 @pytest.mark.parametrize("shape", [(8, 256), (4, 96, 256), (2, 3, 5, 128),
-                                   (1000, 512)])
+                                   (1000, 512), (4, 2560), (8, 5120),
+                                   (5, 3584), (2, 4096), (3, 18432)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_matches_pallas(shape, dtype):
     rng = np.random.default_rng(42)
@@ -668,6 +672,47 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card():
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                            atol=tol)
             assert torch.equal(got[1], again[1])
+
+
+@pytest.mark.gpu
+def test_rmsnorm_kernel_matches_plain_on_card():
+    """RMSNorm's forward kernel against its plain version for the four x /
+    scale dtype pairs at every row class it takes its own way: prefill rows
+    (zamba2-2.7b's [4096, 2560] and a ragged count, gemma2-9b's [4000,
+    3584]), decode and loop rows ([4, 2560], [8, 5120]), nemotron-4-340b's
+    [4096, 18432] (staged in shared memory), narrow rows ([1000, 512], a
+    warp a row), d = 100 (the scalar path in bf16), a 3-d input, and an
+    input whose pointer is off 16 bytes (the scalar path); two calls give
+    the same bits (bf16 atol = rtol = 2e-2, f32 1e-4, as chip_smoke holds
+    it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(4096, 2560), (4097, 2560), (4, 2560), (8, 5120),
+              (4000, 3584), (4096, 18432), (1000, 512), (7, 100),
+              (3, 5, 128), "off 16 bytes"]
+    for shape in shapes:
+        for xt, st in [(torch.float32, torch.float32),
+                       (torch.float32, torch.bfloat16),
+                       (torch.bfloat16, torch.float32),
+                       (torch.bfloat16, torch.bfloat16)]:
+            tol = 1e-4 if xt == torch.float32 else 2e-2
+            if shape == "off 16 bytes":
+                flat = torch.randn(64 * 2560 + 1, generator=gen, device=dev)
+                x = flat.to(xt)[1:].view(64, 2560)
+                assert x.is_contiguous() and x.data_ptr() % 16 != 0
+            else:
+                x = torch.randn(shape, generator=gen, device=dev).to(xt)
+            sc = (torch.randn(x.shape[-1:], generator=gen, device=dev)
+                  * 0.1).to(st)
+            got = RN.rmsnorm(x, sc)
+            again = RN.rmsnorm(x, sc)
+            want = RN.rmsnorm_plain(x, sc)
+            assert got.shape == x.shape and got.dtype == xt
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
