@@ -208,6 +208,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    memory margin per class, raw against corrected error, the device's
    occupancy, the SLO drift stream, a ``launch.top`` frame and the run
    replayed on the sim backend under MGB Algorithm 3 and SA.
+13. dist (``phase_dist``): the sharded control plane and the distributed
+   train step on the card, world size 1: an NCCL process group over a
+   ``FileStore`` in a temporary directory and a (1, 1) ``("data",
+   "model")`` mesh on cuda:0. gemma2-9b at every published width and 12 of
+   42 layers trains as in 10 (f32, batch 4 x 1024, remat full, 5 steps,
+   the same seed and lr) through ``launch.train.train(mesh_shape=(1, 1),
+   scheduler=ShardedScheduler(pods=1, rows=1, cols=1))``: a gang task
+   through the sharded wrapper and the gang executor path, parameters and
+   moments DTensors placed by ``param_specs``, the batch by
+   ``batch_specs``. Fails unless the losses and grad norms are within the
+   f32 train tolerances of 10's gemma2-9b run (whether the bits match is
+   printed), the flash and RMSNorm forward and backward launches are
+   exactly the formula's (the kernels, not the plain versions, ran under
+   DTensor dispatch), probe/observed >= 1.0 for one step alone and nothing
+   crashed. Then 4 steps of gemma2-9b at every width and 2 layers on the
+   same mesh through ``make_train_step(grad_compressor=...)`` with the
+   int8 compression's error feedback (``dist.compression``), one batch
+   repeated: the loss must fall; the compression's ms a step is printed
+   beside the step's.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -2751,6 +2770,10 @@ def train_depth(torch, arch: str, dev, free: int) -> int:
     return n
 
 
+# each train phase's result (``launch.train.train``), for ``phase_dist``
+TRAIN_RUNS = {}
+
+
 def phase_train(torch, arch: str) -> dict:
     """A training main path: ``arch`` at every published width, depth cut
     by ``train_depth``, f32, batch 4 x 1024, ``remat_policy="full"``,
@@ -2814,6 +2837,7 @@ def phase_train(torch, arch: str) -> dict:
     if res["steps"] != TRAIN_STEPS or not all(
             math.isfinite(x) for x in res["losses"] + res["grad_norms"]):
         fail(f"train {arch}: {res['steps']} steps, losses {res['losses']}")
+    TRAIN_RUNS[arch] = res
     # the probe traced the backward and the recompute too (the autograd
     # engine runs a card's backward on its own thread)
     fwd = forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -2869,6 +2893,169 @@ def phase_train(torch, arch: str) -> dict:
               f"{100 * ms / busy:.1f}% of the step's device busy time",
               flush=True)
     del params, state, batch
+    return launches
+
+
+DIST_ARCH = "gemma2-9b"
+DIST_COMPRESSED_LAYERS, DIST_COMPRESSED_STEPS = 2, 4
+
+
+def phase_dist(torch) -> dict:
+    """The sharded control plane and the distributed train step, world
+    size 1 (module docstring, 13). Returns the sharded run's launches."""
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.scheduler import ShardedScheduler
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.dist import compression as C
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch.mesh import init_file_group, make_mesh
+    from repro_torch.launch.serve import pool_reserve
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    init_file_group(os.path.join(store_dir, "store"), 0, 1)
+    try:
+        print(f"[dist] process group {dist.get_backend()} over a FileStore, "
+              f"world {dist.get_world_size()}; mesh (1, 1) (data, model) "
+              f"on {dev}", flush=True)
+        ref = TRAIN_RUNS[DIST_ARCH]
+        kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+                  n_layers=TRAIN_LAYERS, lr=TRAIN_LR, log_every=1,
+                  mesh_shape=(1, 1))
+
+        def sharded_scheduler():
+            free = torch.cuda.mem_get_info(dev)[0]
+            return ShardedScheduler(
+                pods=1, rows=1, cols=1,
+                hbm_per_chip=free - pool_reserve([dev], 1))
+        fresh_card(torch)
+        sched = sharded_scheduler()
+        for c in counters().values():
+            c.reset()
+        t0 = time.perf_counter()
+        res = train(DIST_ARCH, steps=TRAIN_STEPS, scheduler=sched, **kw)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        cfg = full_cfg(DIST_ARCH, TRAIN_LAYERS)
+        want = expected_train_launches(cfg, TRAIN_STEPS)
+        got = {k: counts[k] for k in want}
+        print(f"[launches] dist {DIST_ARCH}: counted {got}, expected "
+              f"{want}", flush=True)
+        if got != want:
+            fail("dist: launches differ from expected")
+        d_loss = max(abs(a - b) for a, b in zip(res["losses"],
+                                                ref["losses"]))
+        d_gn = max(abs(a - b) / b for a, b in zip(res["grad_norms"],
+                                                  ref["grad_norms"]))
+        bits = (res["losses"] == ref["losses"]
+                and res["grad_norms"] == ref["grad_norms"])
+        host, dms = res["step_ms"][1:], res["device_ms"][1:]
+        rhost, rdms = ref["step_ms"][1:], ref["device_ms"][1:]
+        stats = sched.queue_stats()
+        print(f"[dist] {DIST_ARCH}, every published width, "
+              f"{TRAIN_LAYERS} of 42 layers, f32, batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, remat full, {TRAIN_STEPS} steps on the (1, 1) "
+              f"mesh through ShardedScheduler -> gang executor: "
+              f"{res['status']}, probe chips {res['probe'].chips}, hbm "
+              f"{res['probe'].hbm_bytes} B; losses "
+              f"{[round(x, 6) for x in res['losses']]} (train phase "
+              f"{[round(x, 6) for x in ref['losses']]}, max diff "
+              f"{d_loss:.3e}), grad norm max rel diff {d_gn:.3e}, bits "
+              f"{'match' if bits else 'differ'}; steps 2-{TRAIN_STEPS}: "
+              f"host {sum(host) / len(host):.1f} ms, device "
+              f"{sum(dms) / len(dms):.1f} ms a step (train phase "
+              f"{sum(rhost) / len(rhost):.1f} ms, "
+              f"{sum(rdms) / len(rdms):.1f} ms); run {wall:.1f} s; "
+              f"stragglers {res['stragglers']}; scheduler steals "
+              f"{stats['steals']}, depth {stats['depth']}", flush=True)
+        if res["status"] != "done" or res["probe"].chips != 1 \
+                or d_loss > 1e-3 or d_gn > 1e-3 or not all(
+                    math.isfinite(x) for x in res["losses"]):
+            fail(f"dist: the sharded run disagrees with the train phase "
+                 f"(loss diff {d_loss}, grad norm rel diff {d_gn})")
+        launches = dict(got)
+        del res
+
+        left = fresh_card(torch)
+        alone = train(DIST_ARCH, steps=1, scheduler=sharded_scheduler(), **kw)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ratio = alone["probe"].hbm_bytes / peak
+        print(f"[dist] {DIST_ARCH} one sharded step alone: probe hbm "
+              f"{alone['probe'].hbm_bytes} B vs observed "
+              f"max_memory_allocated {peak} B ({left} B allocated before; "
+              f"probe/observed {ratio:.4f}); crashed 0", flush=True)
+        if ratio < 1.0:
+            fail(f"dist: the probe ({alone['probe'].hbm_bytes} B) is below "
+                 f"the observed peak ({peak} B)")
+        del alone
+
+        # int8 compression with error feedback in the step, on the mesh
+        fresh_card(torch)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        ccfg = full_cfg(DIST_ARCH, DIST_COMPRESSED_LAYERS)
+        opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+        params = init_params(ccfg, torch.Generator(device=dev).manual_seed(0),
+                             torch.float32, dev)
+        specs = SH.param_specs(ccfg, params, mesh)
+        params = SH.distribute(params, specs, mesh)
+        state = adamw.init_state(opt, params)
+        err, comp_ms = {}, []
+
+        def compressor(grads):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            if "e" not in err:
+                err["e"] = C.init_error_state(grads)
+            q, err["e"] = C.apply_with_error_feedback(grads, err["e"])
+            ev[1].record()
+            comp_ms.append(ev)
+            return q
+        step = make_train_step(ccfg, opt, grad_compressor=compressor)
+        pipe = TokenPipeline(ccfg, ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH,
+                                               "train"), seed=0)
+        batch = batch_to(pipe.batch_at(0), dev)
+        batch = SH.distribute(batch, SH.batch_specs(ccfg, batch, mesh), mesh)
+        losses, step_ms = [], []
+        with SH.activation_mesh(mesh):
+            for _ in range(DIST_COMPRESSED_STEPS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                params, state, m = step(params, state, batch)
+                ev[1].record()
+                losses.append(float(m["loss"]))
+                step_ms.append(ev)
+        torch.cuda.synchronize()
+        comp = [a.elapsed_time(b) for a, b in comp_ms]
+        steps = [a.elapsed_time(b) for a, b in step_ms]
+        n_el = sum(p.numel() for p in tree_leaves(params))
+        print(f"[dist] {DIST_ARCH}, every published width, "
+              f"{DIST_COMPRESSED_LAYERS} layers, f32, batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {DIST_COMPRESSED_STEPS} steps on one batch with "
+              f"int8 compression (blocks of {C.BLOCK}) and error feedback "
+              f"over {n_el} gradient values: losses "
+              f"{[round(x, 4) for x in losses]}; device ms a step "
+              f"{[round(x, 2) for x in steps]}, of which the compression "
+              f"{[round(x, 2) for x in comp]}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"dist: the compressed steps do not lower the loss "
+                 f"{losses}")
+        del params, state, batch, err
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"[dist] phase wall time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return launches
 
 
@@ -3494,6 +3681,7 @@ def main() -> None:
     for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b",
                  "zamba2-2.7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
+    by_path["dist"] = phase_dist(torch)
     by_path["preempt"] = phase_preempt(torch, gpu)
     by_path["obs"] = phase_obs(torch, gpu)
     for name, entry in table.items():

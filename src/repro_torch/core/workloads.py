@@ -1,9 +1,12 @@
 """Workload generation for the paper's evaluation (§V-A): the Rodinia half.
 
 Port of ``src/repro/core/workloads.py:1-214``, with the NN jobs
-(``:218-293``) and copies of the overload trace (``:383-452``,
-``_synthetic_job`` and ``overload_mix``) and of the calibration plane's
-drifting trace (``:455-495``, ``drifting_mix``), both framework-free. Rodinia-analogue
+(``:218-293``) and copies of the gang half (``:296-380`` and ``:498-539``:
+the v5e constants kept as they are, ``make_gang_job``, ``gang_mix``, whose
+probed singles are the port's, and ``split_gangs``), of the overload trace
+(``:383-452``, ``_synthetic_job`` and ``overload_mix``) and of the
+calibration plane's drifting trace (``:455-495``, ``drifting_mix``), all
+framework-free. Rodinia-analogue
 jobs: a library of kernel families with the same resource personalities as the
 paper's picks (backprop, srad v1/v2, lavaMD, needle, dwt2d, bfs), written
 as PyTorch functions on tensors. Each job's ResourceVector is obtained the
@@ -62,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -383,6 +386,97 @@ def nn_mix(seed: int, n_jobs: int = 128, device=None) -> List[Job]:
 
 
 # ---------------------------------------------------------------------------
+# Gang workloads — multi-chip tasks for the gang placement subsystem
+# ---------------------------------------------------------------------------
+# A gang job is one Task with resources.chips = k: a sharded train step (or
+# pipeline stage group) whose k shards run in lockstep on a contiguous device
+# group. Convention (matches GangScheduler): ``hbm_bytes`` is the TOTAL
+# footprint (charged per chip as hbm_bytes / chips), ``core_demand`` /
+# ``bw_demand`` are per-chip shares, ``collective_bytes`` is the per-link
+# ring payload its collectives move over the group's ICI links, and
+# ``est_seconds`` is the roofline max of compute and ICI-collective time.
+# Vectors are synthetic (seeded) rather than probed: a gang has no single
+# compiled artifact to probe yet — the per-shard executable exists, but the
+# group personality (collective share, lockstep duration) is a property of
+# the sharding, which these knobs model directly.
+
+# v5e-class peaks, for internally-consistent synthetic flops/bytes numbers
+_PEAK_FLOPS = 197e12
+_HBM_BW = 819e9
+_ICI_BW = 50e9
+
+
+def make_gang_job(rng: np.random.Generator, *, chips: int, name: str,
+                  per_chip_gb: Tuple[float, float] = (2.0, 6.0),
+                  seconds: Tuple[float, float] = TARGET_JOB_SECONDS,
+                  collective_share: Tuple[float, float] = (0.25, 0.6)) -> Job:
+    """One k-chip gang job: seeded per-chip footprint/demand, a compute
+    duration, and a collective payload sized so its steady ICI-link share
+    lands in ``collective_share`` (the knob link contention studies turn)."""
+    per_chip = rng.uniform(*per_chip_gb) * GB
+    compute_s = rng.uniform(*seconds)
+    share = rng.uniform(*collective_share)
+    demand = rng.uniform(0.4, 0.9)
+    # per-link ring payload that occupies `share` of a link for compute_s
+    collective_bytes = share * compute_s * _ICI_BW
+    est = max(compute_s, collective_bytes / _ICI_BW)  # = compute_s (share<=1)
+    vec = ResourceVector(
+        hbm_bytes=int(per_chip * chips),
+        flops=demand * compute_s * _PEAK_FLOPS * chips,
+        bytes_accessed=0.5 * demand * compute_s * _HBM_BW * chips,
+        collective_bytes=collective_bytes,
+        est_seconds=est, core_demand=demand, bw_demand=0.5 * demand,
+        chips=chips)
+    unit = UnitTask(fn=None, memobjs=frozenset({f"{name}/shards"}),
+                    resources=vec, name=name)
+    task = Task(units=[unit], name=name, gang_id=name)
+    return Job(tasks=[task], name=name, gang_id=name)
+
+
+def gang_mix(seed: int, *, n_singles: int = 12, n_gangs: int = 8,
+             chip_choices: Sequence[int] = (2, 4),
+             probe_singles: bool = True,
+             single_large_frac: float = 0.25,
+             per_chip_gb: Tuple[float, float] = (2.0, 6.0),
+             device=None) -> List[Job]:
+    """The mixed single-chip / multi-chip open-arrival scenario: W-mix-style
+    Rodinia jobs (``single_large_frac`` of them from the >4 GB families —
+    large residents are what fragments a mesh) interleaved with seeded
+    k-chip gangs, shuffled into one arrival order. ``probe_singles=False``
+    swaps the compiler-probed singles for synthetic ones (same
+    personalities, no probes) so smoke tests stay fast. The probed singles
+    are the port's (``make_rodinia_job`` on ``device``: the card unless
+    "cpu"), as the port's other mixes probe."""
+    rng = np.random.default_rng(seed)
+    jobs: List[Job] = []
+    for i in range(n_singles):
+        large = rng.random() < single_large_frac
+        if probe_singles:
+            jobs.append(make_rodinia_job(rng, large=large,
+                                         name=f"single{i:03d}",
+                                         device=device))
+        else:
+            lo, hi = LARGE_RANGE if large else SMALL_RANGE
+            vec = ResourceVector(
+                hbm_bytes=int(rng.uniform(lo, hi)), flops=1e12,
+                bytes_accessed=1e11,
+                est_seconds=rng.uniform(*TARGET_JOB_SECONDS),
+                core_demand=rng.uniform(0.2, 0.6),
+                bw_demand=rng.uniform(0.2, 0.5))
+            unit = UnitTask(fn=None, memobjs=frozenset({f"single{i}/ws"}),
+                            resources=vec, name=f"single{i:03d}")
+            jobs.append(Job(tasks=[Task(units=[unit], name=unit.name)],
+                            name=unit.name))
+    for i in range(n_gangs):
+        chips = int(rng.choice(chip_choices))
+        jobs.append(make_gang_job(rng, chips=chips,
+                                  name=f"gang{i:03d}x{chips}",
+                                  per_chip_gb=per_chip_gb))
+    order = rng.permutation(len(jobs))
+    return [jobs[i] for i in order]
+
+
+# ---------------------------------------------------------------------------
 # Overload workloads — the preemption subsystem's evaluation trace
 # ---------------------------------------------------------------------------
 # An OVERLOADED open-arrival scenario: long memory-heavy background jobs
@@ -499,3 +593,47 @@ def drifting_mix(seed: int, *, n_jobs: int = 120, n_classes: int = 4,
         rows.append({"t": t, "job": job, "priority": 0,
                      "deadline_s": None, "kind": f"class{c}"})
     return rows
+
+
+def split_gangs(jobs: Sequence[Job], *, dcn_bw: float = 12.5e9) -> List[Job]:
+    """The chips-OBLIVIOUS view of a gang trace: every k-chip gang becomes k
+    independent single-chip jobs, the way a flat scheduler sees today's
+    sharded workloads. Scattered shards lose the contiguity guarantee, so
+    their collectives cross slow inter-node paths: each shard's duration is
+    re-roofed at ``collective_bytes / dcn_bw`` (vs the gang's intra-slice
+    ICI time), and the logical job is only as fast as its LAST shard — the
+    two effects ``bench_gang.py`` quantifies against gang-aware placement."""
+    out: List[Job] = []
+    for job in jobs:
+        gangs = [t for t in job.tasks if t.resources.chips > 1]
+        if not gangs:
+            out.append(job)
+            continue
+        if len(job.tasks) > 1:
+            # shattering a multi-task job into concurrent shard-jobs would
+            # silently drop its sequential task ordering — refuse instead
+            raise ValueError(
+                f"split_gangs: job {job.name!r} has {len(job.tasks)} tasks; "
+                "only single-task gang jobs have a faithful chips-oblivious "
+                "split")
+        for t in job.tasks:
+            r = t.resources
+            k = max(r.chips, 1)
+            for j in range(k):
+                shard_vec = dataclasses.replace(
+                    r, hbm_bytes=r.hbm_bytes // k, chips=1,
+                    flops=r.flops / k, bytes_accessed=r.bytes_accessed / k,
+                    est_seconds=max(r.est_seconds,
+                                    r.collective_bytes / dcn_bw))
+                unit = UnitTask(fn=None,
+                                memobjs=frozenset({f"{t.name}/shard{j}"}),
+                                resources=shard_vec,
+                                name=f"{t.name}/shard{j}")
+                shard = Task(units=[unit], name=unit.name,
+                             gang_id=t.gang_id or t.name)
+                # the oblivious replay must keep the job's admission class
+                out.append(Job(tasks=[shard], name=unit.name,
+                               gang_id=t.gang_id or t.name,
+                               priority=job.priority,
+                               deadline_t=job.deadline_t))
+    return out

@@ -186,6 +186,9 @@ def _scan_bwd_flops(a, *args, **kwargs):
 
 def _setup(ctx, inputs, output):
     ctx.save_for_backward(inputs[0], output[0])
+    # an output no loss reached comes to the backward as None (autograd's
+    # zeros would be a plain tensor beside DTensor states)
+    ctx.set_materialize_grads(False)
 
 
 def _backward(ctx, dh_all, dh_last):

@@ -1,13 +1,27 @@
 """End-to-end training launcher under the compiler-guided scheduler: the whole
 run is ONE task whose resource vector is the probe of one train step over
 the run's state, admitted by MGB onto the card and executed there (data
-pipeline -> train loop with checkpointing).
+pipeline -> sharded train loop with checkpointing and straggler detection).
 
 Port of ``src/repro/launch/train.py``. Differences from the reference:
 
-  * the mesh arguments are gone: the port trains on one device
-    (distribution is ROADMAP A, "Distribution"), and with them the straggler
-    detector, which compares hosts (``train/straggler.py`` waits for it);
+  * ``mesh_shape`` defaults to None, the unsharded path on one device; a
+    shape (``(data, model)``, e.g. ``(1, 1)`` on one card) makes a
+    ``DeviceMesh`` over the default process group, which the caller sets
+    up (``launch.mesh.init_file_group``), places the parameters and the
+    moments by ``param_specs`` and each batch by ``batch_specs``, and runs
+    the steps under ``activation_mesh``, as the reference does. The task
+    is then a gang: its vector's ``chips`` is the mesh's size and its
+    ``hbm_bytes`` the probe of the unsharded step, the total the gang
+    convention asks for (``core/workloads.py``), and the default scheduler
+    is a ``GangScheduler`` over the mesh's devices; each rank submits the
+    task to its own scheduler and its runner trains on its own shards. A
+    sharded run keeps no checkpoints here (``ckpt_dir`` and ``resume``
+    raise) and is not evicted (the sharded and gang schedulers do not
+    preempt). Gradient compression stays a ``make_train_step`` argument,
+    as in the reference, whose launcher exposes none;
+  * the straggler detector records each step's host time, as the
+    reference's does, and the result carries its ``stragglers``;
   * the run goes through the paper's loop on every call: ``probe_fn`` of
     one step on ``TensorSpec``s of the state and the batch (nothing
     allocated) -> ``Cluster`` with MGB admission -> executor, whose runner
@@ -62,15 +76,18 @@ from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.cluster import Cluster, JobStatus
 from repro_torch.core.executor import ExecJob
 from repro_torch.core.probe import probe_fn
-from repro_torch.core.scheduler import MGBAlg3Scheduler
+from repro_torch.core.scheduler import GangScheduler, MGBAlg3Scheduler
 from repro_torch.core.scheduler.base import Scheduler
 from repro_torch.core.task import Job, Task, UnitTask
 from repro_torch.data.pipeline import Prefetcher, TokenPipeline, to_device
+from repro_torch.dist import sharding as SH
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.serve import pool_reserve, serving_devices
 from repro_torch.launch.specs import input_specs
 from repro_torch.models.model import ATTN_IMPLS, init_params
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as CK
+from repro_torch.train.straggler import StragglerDetector
 from repro_torch.train.train_step import abstract_train_state, make_train_step
 
 
@@ -116,6 +133,15 @@ class TrainRun:
         return out
 
 
+def _to_host(x):
+    """A copy on the host of a tensor (a DTensor made whole first)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if SH.is_dtensor(x):
+        x = x.full_tensor()
+    return x.to("cpu", copy=True)
+
+
 def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
               reduced: bool = True, n_layers: Optional[int] = None,
               device=None, ckpt_dir: Optional[str] = None,
@@ -124,14 +150,16 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
               log_every: int = 10,
               on_step: Optional[Callable[[int], None]] = None,
               keep_state: bool = False,
-              num_microbatches: Optional[int] = None) -> TrainRun:
+              num_microbatches: Optional[int] = None,
+              mesh=None) -> TrainRun:
     """The training run as one task, not yet submitted: its probe (one step
     on ``TensorSpec``s of the state on ``device``, nothing allocated) and
     its runner, which makes the state on the device it is given and trains
     there. ``on_step(k)`` is called on the runner's thread after step k
     (counted from 1) has finished. With ``keep_state`` the final parameters
     and optimizer state are kept, copied to the host, in ``out["params"]``
-    and ``out["opt_state"]``.
+    and ``out["opt_state"]``. With a ``mesh`` the task is a gang of the
+    mesh's size and the runner trains this rank's shards on ``device``.
 
     The runner is cooperative: at each step boundary it checks
     ``ej.preempted``. When evicted, it saves the last finished step through
@@ -160,6 +188,9 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         if n_layers != cfg.n_layers:
             cuts.append(f"depth {cfg.n_layers} -> {n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if mesh is not None and (ckpt_dir or resume):
+        raise ValueError("a sharded run keeps no checkpoints (ckpt_dir, "
+                         "resume)")
     dev = torch.device(device) if device is not None \
         else serving_devices(1, None)[0][0]
     shape = ShapeConfig("train", seq, batch, "train")
@@ -173,10 +204,13 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     p_spec, o_spec = abstract_train_state(cfg, opt_cfg, torch.float32,
                                           dev)
     vec = probe_fn(step_fn, p_spec, o_spec, input_specs(cfg, shape, dev))
+    if mesh is not None:
+        # a gang: hbm_bytes is the whole footprint, charged per chip
+        vec = dataclasses.replace(vec, chips=SH.abstract(mesh).size)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "reduced": cuts,
            "probe": vec, "losses": [], "grad_norms": [], "lrs": [],
            "step_ms": [], "device_ms": [], "tokens_per_s": [],
-           "start_step": 0}
+           "start_step": 0, "stragglers": []}
     ckpt = CK.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     task = Task(units=[UnitTask(fn=None, memobjs=frozenset({"train"}),
                                 resources=vec, name="train")], name="train")
@@ -185,6 +219,15 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     run.ej.on_preempt = lambda t: run.notices.append(time.monotonic())
 
     def runner(device) -> None:
+        if mesh is not None:
+            # a gang's runner is given every member device; this rank
+            # trains its own shards
+            device = dev
+            with SH.activation_mesh(mesh):
+                return train_steps(device)
+        return train_steps(device)
+
+    def train_steps(device) -> None:
         attempt = {"start": 0}
         run.attempts.append(attempt)
         # a re-dispatched attempt takes the step its run saved last, from
@@ -210,6 +253,9 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
             start = 0
             gen = torch.Generator(device=device).manual_seed(seed)
             params = init_params(cfg, gen, torch.float32, device)
+            if mesh is not None:
+                params = SH.distribute(
+                    params, SH.param_specs(cfg, params, mesh), mesh)
             opt_state = adamw.init_state(opt_cfg, params)
         attempt["start"] = start
         if len(run.attempts) == 1:
@@ -218,6 +264,7 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                              batch_override=batch, seq_override=seq)
         prefetch = Prefetcher(pipe)
         on_card = device.type == "cuda"
+        det = StragglerDetector(n_hosts=1)
         if on_card and run.ckpt is not None and len(run.attempts) == 1:
             # the host mirror an eviction copies into, pinned while the
             # first steps run
@@ -243,6 +290,8 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                           f"{run.ckpt.copy_s * 1e3:.1f} ms", flush=True)
                     return
                 b = to_device(next(prefetch), device)
+                if mesh is not None:
+                    b = SH.distribute(b, SH.batch_specs(cfg, b, mesh), mesh)
                 if on_card:
                     ev = [torch.cuda.Event(enable_timing=True)
                           for _ in range(2)]
@@ -253,6 +302,7 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                     ev[1].record()
                 loss = float(metrics["loss"])  # waits for the step
                 host_s = time.perf_counter() - t0
+                det.record_step(0, host_s)
                 dev_ms = ev[0].elapsed_time(ev[1]) if on_card else None
                 for col, val in (("losses", loss),
                                  ("grad_norms", float(metrics["grad_norm"])),
@@ -277,10 +327,9 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                 run.ckpt.wait()
             if keep_state:
                 out["params"], out["opt_state"] = tree_map(
-                    lambda x: x.to("cpu", copy=True)
-                    if isinstance(x, torch.Tensor) else x,
-                    (params, opt_state))
+                    _to_host, (params, opt_state))
         finally:
+            out["stragglers"] = det.stragglers()
             prefetch.close()
             attempt["t_exit"] = time.monotonic()
         if on_card:
@@ -299,7 +348,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           deadline_s: Optional[float] = None,
           scheduler: Optional[Scheduler] = None,
           keep_state: bool = False,
-          num_microbatches: Optional[int] = None) -> dict:
+          num_microbatches: Optional[int] = None,
+          mesh_shape=None) -> dict:
     """Train ``arch`` for ``steps`` steps as one scheduled task
     (``train_job``) at ``priority`` with ``deadline_s``, under
     ``scheduler`` (default: MGB Algorithm 3 over the memory free on the
@@ -309,19 +359,37 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     ended (``status``, ``error``), ``reduced`` (the cuts of the published
     configuration), ``attempts`` (one entry per attempt: an evicted one
     says where it saved), ``peak_allocated`` (a card's
-    ``max_memory_allocated`` after the run, 0 on the CPU) and, with
-    ``keep_state``, the final ``params`` and ``opt_state`` on the host."""
-    devices, hbm = serving_devices(1, device)
-    dev = devices[0]
+    ``max_memory_allocated`` after the run, 0 on the CPU), ``stragglers``
+    (the detector's hosts) and, with ``keep_state``, the final ``params``
+    and ``opt_state`` on the host.
+
+    ``mesh_shape`` (data, model) trains sharded on a mesh over the default
+    process group (module docstring); each rank calls ``train`` alike, on
+    ``cuda:<rank>`` (or the CPU with ``device="cpu"``), and its scheduler
+    (default: a ``GangScheduler`` of the mesh's size over the memory free
+    on this rank's card, less the pool's reserve) places the gang."""
+    mesh = None
+    if mesh_shape is None:
+        devices, hbm = serving_devices(1, device)
+        dev = devices[0]
+    else:
+        mesh = make_mesh(mesh_shape, ("data", "model"), device)
+        dev = (torch.device("cpu") if mesh.device_type == "cpu"
+               else torch.device("cuda", torch.cuda.current_device()))
+        hbm = (serving_devices(1, "cpu")[1] if dev.type == "cpu"
+               else torch.cuda.mem_get_info(dev)[0])
+        devices = [dev] * SH.abstract(mesh).size
     run = train_job(arch, steps=steps, batch=batch, seq=seq,
                     reduced=reduced, n_layers=n_layers, device=dev,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
                     seed=seed, attn_impl=attn_impl, lr=lr,
                     log_every=log_every, keep_state=keep_state,
-                    num_microbatches=num_microbatches)
+                    num_microbatches=num_microbatches, mesh=mesh)
     if scheduler is None:
-        scheduler = MGBAlg3Scheduler(
-            1, hbm_per_device=hbm - pool_reserve(devices, 1))
+        per_chip = hbm - pool_reserve(devices, 1)
+        scheduler = (MGBAlg3Scheduler(1, hbm_per_device=per_chip)
+                     if mesh is None else
+                     GangScheduler(1, 1, len(devices), hbm_per_chip=per_chip))
     cluster = Cluster(scheduler, workers=1, devices=devices)
     t0 = time.time()
     handle = cluster.submit(run.ej, priority=priority,

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
     Params, attn_decode_block, check_supported, hybrid_state_shapes,
@@ -87,7 +88,8 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     host, and a step over a tensor can be captured in a CUDA graph.
     Returns (logits [B, V] f32, the cache, updated in place)."""
     check_supported(cfg)
-    x = scale_embedding(cfg, params["embed"][tokens])  # [B, d]
+    x = constrain(params["embed"][tokens], "batch", None)  # [B, d]
+    x = scale_embedding(cfg, x)
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
             x = x + mamba1_decode_step(

@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain, replicated_like
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 
@@ -54,7 +55,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     freqs = rope_frequencies(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs  # [..., S, hd/2]
-    sin, cos = torch.sin(angles), torch.cos(angles)
+    sin, cos = (replicated_like(t, x) for t in (torch.sin(angles),
+                                                 torch.cos(angles)))
     xr = x.float().reshape(x.shape[:-1] + (half, 2))
     x1, x2 = xr[..., 0], xr[..., 1]
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -205,7 +207,12 @@ def decode_attention_q8(q, k_q, k_s, v_q, v_s, cache_len, *, window=0,
 # ---------------------------------------------------------------------------
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """x: [..., d]. p: {'wi': [d,f], 'wo': [f,d], optional 'wg': [d,f]}."""
+    """x: [..., d]. p: {'wi': [d,f], 'wo': [f,d], optional 'wg': [d,f]}.
+
+    Under a mesh the hidden activation is pinned to [batch->data, ...,
+    f->model], as the reference pins it, so the products are Megatron-TP
+    shaped in both passes."""
+    pin = ("batch",) + (None,) * (x.dim() - 2) + ("model",)
     if act == "silu_gated":
         h = F.silu(x @ p["wi"]) * (x @ p["wg"])
     elif act == "gelu_gated":
@@ -214,4 +221,5 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["wi"]))
     else:
         raise ValueError(f"unknown mlp act {act!r}")
+    h = constrain(h, *pin)
     return h @ p["wo"]

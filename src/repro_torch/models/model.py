@@ -50,6 +50,9 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (
+    constrain, in_current_mesh, is_dtensor, replicated, replicated_like,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -245,6 +248,11 @@ def _project_qkv(p: Params, x: torch.Tensor):
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
         v = v + p["bv"][None, :, None, :]
+    # pin heads on `model` so the seq-sharded residual's S->model sharding
+    # does not leak into attention (it forces unsharded w[qkv] gradients)
+    q = constrain(q, "batch", "model", None, None)
+    k = constrain(k, "batch", "model", None, None)
+    v = constrain(v, "batch", "model", None, None)
     return q, k, v
 
 
@@ -326,12 +334,19 @@ def _layer_window(cfg: ArchConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
+def _seq_axis(cfg: ArchConfig):
+    """The residual's sequence dim: on ``model`` where the config shards
+    activations by sequence (reference ``seq_ax``), else replicated."""
+    return "model" if cfg.seq_shard_activations else None
+
+
 def _attn_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, i: int,
                 positions: torch.Tensor, attn_impl: str,
                 cache: Optional[Dict[str, torch.Tensor]]):
     """One attention layer: x + attn(norm1(x)), then + ffn(norm2(.)).
     Returns (x, the MoE aux loss or None); writes layer i's K, V into
     ``cache`` when given (prefill)."""
+    x = constrain(x, "batch", _seq_axis(cfg), None)
     a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]), cfg,
                            positions=positions, window=_layer_window(cfg, i),
                            attn_impl=attn_impl, return_kv=True)
@@ -352,6 +367,7 @@ def _ssm_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig,
                return_state: bool):
     """One Mamba-1 layer: x + mamba(norm(x)), and with ``return_state``
     its decode state (prefill), else None."""
+    x = constrain(x, "batch", _seq_axis(cfg), None)
     out = SSM.mamba1_apply(lp["mamba"], L.rms_norm(x, lp["norm"]), cfg.ssm,
                            return_state=return_state)
     if return_state:
@@ -366,6 +382,7 @@ def _hybrid_group(gp: Params, shared: Params, x: torch.Tensor,
     layers ``x + mamba2(norm_m(x))``, then the shared block ``x +
     attn(norm_attn(x))``, ``+ mlp(norm_mlp(.))``. Writes group ``gi``'s
     Mamba-2 states and K, V into ``cache`` when given (prefill)."""
+    x = constrain(x, "batch", _seq_axis(cfg), None)
     for j, (mp, nm) in enumerate(zip(gp["mamba"], gp["norm_m"])):
         out = SSM.mamba2_apply(mp, L.rms_norm(x, nm), cfg.ssm,
                                return_state=cache is not None)
@@ -417,15 +434,19 @@ def _remat(fn, policy: str):
     outputs of its matrix products without batch dims stay saved and the
     rest is recomputed (``_dots_policy``), as the reference's
     ``checkpoint_dots_with_no_batch_dims``. No randomness runs in a layer,
-    so no RNG state is stashed."""
+    so no RNG state is stashed. The recompute runs under the activation
+    mesh of the forward (``in_current_mesh``): on a card autograd runs it
+    on a thread of its own."""
     if policy == "nothing":
         return fn
     if policy == "full":
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+        return lambda *args: checkpoint(in_current_mesh(fn), *args,
+                                        use_reentrant=False,
                                         preserve_rng_state=False)
     if policy == "dots":
         return lambda *args: checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            in_current_mesh(fn), *args, use_reentrant=False,
+            preserve_rng_state=False,
             context_fn=functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy))
     raise ValueError(f"unknown remat_policy {policy!r}")
@@ -437,11 +458,22 @@ def _remat(fn, policy: str):
 
 def embed_tokens(cfg: ArchConfig, params: Params,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The tokens' embeddings (or a frontend's ``embeds``), scaled as the
+    config asks: a gather whose backward sums repeated tokens in a fixed
+    order (indexing's accumulating backward does not, on the CPU). Under a
+    mesh the tokens are a DTensor and the table this rank's plain tensor,
+    made whole by ``loss_fn``: the gather runs on this rank's rows (the
+    reference's vocab-parallel gather is where its sharded step fails,
+    ROADMAP C2)."""
     if cfg.embedding_frontend_stub and "embeds" in batch:
         x = batch["embeds"]  # modality frontend stub: precomputed embeddings
+    elif is_dtensor(batch["tokens"]):
+        from torch.distributed.tensor import DTensor
+        tok = batch["tokens"]
+        x = DTensor.from_local(F.embedding(tok.to_local(), params["embed"]),
+                               tok.device_mesh, tok.placements,
+                               run_check=False)
     else:
-        # a gather whose backward sums repeated tokens in a fixed order
-        # (indexing's accumulating backward does not, on the CPU)
         x = F.embedding(batch["tokens"], params["embed"])
     return scale_embedding(cfg, x)
 
@@ -475,6 +507,7 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     it is ever live."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, batch)
+    x = constrain(x, "batch", None, None)  # pin batch->data in the residual
     bsz, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache: Optional[Dict[str, torch.Tensor]] = None
@@ -569,19 +602,11 @@ def _xent_chunk(cfg: ArchConfig, params: Params, h: torch.Tensor,
     return torch.sum(lse - gold)
 
 
-def chunked_softmax_xent(cfg: ArchConfig, params: Params,
-                         hidden: torch.Tensor, labels: torch.Tensor,
-                         chunk: int = XENT_CHUNK) -> torch.Tensor:
-    """Mean next-token cross-entropy without keeping [B, S, V] logits: the
-    sequence in chunks of ``chunk`` positions, each chunk's f32 logits
-    recomputed in the backward (a non-reentrant checkpoint) instead of
-    saved (2.1e9 B a chunk at vocab 256000 and batch 4). Port of the
-    reference's ``chunked_softmax_xent`` (``model.py:438``)."""
-    b, s, _ = hidden.shape
-    chunk = min(chunk, s)
-    if s % chunk:
-        raise ValueError(f"sequence {s} is not a multiple of the chunk "
-                         f"{chunk}")
+def _xent_sum(cfg: ArchConfig, params: Params, hidden: torch.Tensor,
+              labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The summed cross-entropy over the sequence in chunks of ``chunk``
+    positions, each chunk checkpointed under autograd."""
+    s = hidden.shape[1]
     grad = torch.is_grad_enabled() and hidden.requires_grad
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):
@@ -592,6 +617,69 @@ def chunked_softmax_xent(cfg: ArchConfig, params: Params,
         else:
             part = _xent_chunk(cfg, params, h, y)
         tot = tot + part
+    return tot
+
+
+def _row_sums(x: torch.Tensor) -> list:
+    """Placements of a sum over a DTensor's local rows: partial across the
+    mesh dims that split the rows, replicated across the others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return [Partial() if isinstance(pl, Shard) else Replicate()
+            for pl in x.placements]
+
+
+def _head_name(cfg: ArchConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _whole_on_rank(x: torch.Tensor, rows: list) -> torch.Tensor:
+    """A DTensor table whole, as this rank's plain tensor, whose gradient
+    (from this rank's rows) is a partial sum across ``rows``; its
+    gradients from several uses sum in it in place (autograd sums a
+    DTensor's gradients out of place)."""
+    return replicated(x).to_local(grad_placements=rows)
+
+
+def _xent_sum_on_local_rows(cfg: ArchConfig, params: Params,
+                            hidden: torch.Tensor, labels: torch.Tensor,
+                            chunk: int) -> torch.Tensor:
+    """``_xent_sum`` of DTensors: each rank sums its own rows (the batch's
+    shard, the sequence whole) against the head made whole, as plain
+    tensors, and the sums add up across the data ranks (a partial sum).
+    The head is one plain tensor for all the chunks, so their gradients
+    accumulate in it in place."""
+    from torch.distributed.tensor import DTensor
+    hidden = constrain(hidden, "batch", None, None)
+    labels = constrain(replicated_like(labels, hidden), "batch", None)
+    rows = _row_sums(hidden)
+    name = _head_name(cfg)
+    local = dict(params)
+    if is_dtensor(params[name]):
+        local[name] = _whole_on_rank(params[name], rows)
+    tot = _xent_sum(cfg, local, hidden.to_local(), labels.to_local(), chunk)
+    return DTensor.from_local(tot, hidden.device_mesh, rows, run_check=False)
+
+
+def chunked_softmax_xent(cfg: ArchConfig, params: Params,
+                         hidden: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Mean next-token cross-entropy without keeping [B, S, V] logits: the
+    sequence in chunks of ``chunk`` positions, each chunk's f32 logits
+    recomputed in the backward (a non-reentrant checkpoint) instead of
+    saved (2.1e9 B a chunk at vocab 256000 and batch 4). Port of the
+    reference's ``chunked_softmax_xent`` (``model.py:438``). Under a mesh
+    each rank computes its own rows' logits with the head whole
+    (``_xent_sum_on_local_rows``), where the reference pins the logits
+    vocab-parallel on ``model`` (``model.py:455``)."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the chunk "
+                         f"{chunk}")
+    if is_dtensor(hidden):
+        tot = _xent_sum_on_local_rows(cfg, params, hidden, labels, chunk)
+    else:
+        tot = _xent_sum(cfg, params, hidden, labels, chunk)
     return tot / (b * s)
 
 
@@ -599,7 +687,20 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             *, attn_impl: str = "flash_kernel",
             aux_weight: float = 0.01) -> torch.Tensor:
     """The training loss: chunked cross-entropy + ``aux_weight`` x the MoE
-    aux loss (reference ``loss_fn``, ``model.py:467``)."""
+    aux loss (reference ``loss_fn``, ``model.py:467``). Under a mesh the
+    embedding table (and an untied head) is made whole once, as this
+    rank's plain tensor, for the gather and the head alike: a tied table's
+    two gradients then sum in it in place (DTensor's out-of-place sum of
+    them cost 3.36e9 B at gemma2-9b's step on one card)."""
+    if is_dtensor(params["embed"]) and "tokens" in batch:
+        tokens = constrain(replicated_like(batch["tokens"], params["embed"]),
+                           "batch", None)
+        batch = {**batch, "tokens": tokens}
+        rows = _row_sums(tokens)
+        params = dict(params)
+        # one order on every rank: each table is gathered by a collective
+        for name in dict.fromkeys(("embed", _head_name(cfg))):
+            params[name] = _whole_on_rank(params[name], rows)
     hidden, aux = forward(params, cfg, batch, attn_impl=attn_impl)
     ce = chunked_softmax_xent(cfg, params, hidden, batch["labels"])
     return ce + aux_weight * aux

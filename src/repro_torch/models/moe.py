@@ -17,6 +17,14 @@ Every shape here is static: the dispatch uses a stable sort, a
 host read of the group sizes. So the probe's fake-tensor trace passes
 through it (charging the static worst case, every slot computed) and the
 decode step stays capturable into a CUDA graph.
+
+Under a mesh (DTensor inputs) the layer runs on replicas
+(``dist.sharding.on_replicas``): x and the expert weights are made whole
+on every rank and the dispatch and the kernels run on the local copies,
+so the grouped matmul sees all-replicated inputs. The reference instead
+pins its dispatched [E, G, C, d] tensor with experts on ``model``
+(``moe.py:76``), an all-to-all of the tokens onto the experts; expert
+parallelism is ROADMAP work.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.dist.sharding import on_replicas
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_gated
 
 
@@ -90,7 +99,14 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
               act: str, group_size: int = 512
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d]. p: {'router': [d,E], 'wi': [E,d,f], 'wg'?, 'wo':
-    [E,f,d]}. Returns (out [B,S,d] in x's dtype, aux loss f32 scalar)."""
+    [E,f,d]}. Returns (out [B,S,d] in x's dtype, aux loss f32 scalar);
+    DTensors are computed on replicas."""
+    return on_replicas(_moe_apply, p, x, cfg, act, group_size)
+
+
+def _moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: MoEConfig,
+               act: str, group_size: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     gs = min(group_size, s)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist.sharding import replicated_like
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models import layers as L
 
@@ -198,7 +199,8 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *,
     # intra-chunk (attention-like): masked to -inf before the exponential
     g = torch.einsum("bcln,bcsn->bcls", c_c, b_c)          # [B,nc,Lc,Lc]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]    # [B,nc,Lc,Lc,nh]
-    above = torch.ones(lc, lc, dtype=torch.bool, device=x.device).triu_(1)
+    above = replicated_like(
+        torch.ones(lc, lc, dtype=torch.bool, device=x.device).triu_(1), x)
     att = seg.masked_fill(above[:, :, None], float("-inf")).exp() \
         * g[..., None]
     del seg

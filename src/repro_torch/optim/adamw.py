@@ -15,7 +15,9 @@ about six temporaries that size. Here a step's transient memory is at most
 two temporaries the size of the largest parameter (f32 moments and
 parameters: one), and the gradients it is given are overwritten: the train
 step owns them. ``global_norm`` reduces each leaf without squaring it into
-a copy.
+a copy. Parameters, gradients and moments may be DTensors of one
+placement each (a sharded step): the update runs on the shards, and a
+leaf's norm is reduced across them.
 
 Weight decay follows the reference's own leaves: it decays a leaf whose
 rank is at least 2 in the reference's tree, where every per-layer leaf is
@@ -96,9 +98,16 @@ def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, reduced in f32, each leaf
     read once and never squared into a copy."""
     leaves = [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
-    norms = torch.stack([torch.linalg.vector_norm(x, dtype=torch.float32)
-                         for x in leaves])
+    norms = torch.stack([_whole(torch.linalg.vector_norm(
+        x, dtype=torch.float32)) for x in leaves])
     return torch.sqrt(torch.sum(torch.square(norms)))
+
+
+def _whole(n: torch.Tensor) -> torch.Tensor:
+    """A sharded leaf's norm reduced across its shards (a DTensor's
+    ``full_tensor``); a plain tensor's as is."""
+    from torch.distributed.tensor import DTensor
+    return n.full_tensor() if isinstance(n, DTensor) else n
 
 
 def _update(cfg: AdamWConfig, p: torch.Tensor, g: torch.Tensor,

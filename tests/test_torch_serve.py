@@ -243,7 +243,12 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.bench.table3_turnaround, "
             "repro_torch.bench.table4_slowdown, "
             "repro_torch.bench.fig4_alg2_vs_alg3, "
-            "repro_torch.bench.fig5_throughput; print('ok')")
+            "repro_torch.bench.fig5_throughput, repro_torch.dist, "
+            "repro_torch.dist.kernel_sharding, repro_torch.train.elastic, "
+            "repro_torch.launch.mesh, repro_torch.launch.train, "
+            "repro_torch.core.scheduler.sharded, "
+            "repro_torch.core.scheduler.slice; "
+            "repro_torch.dist.kernel_sharding.register(); print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
@@ -265,6 +270,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    rel = {os.path.relpath(f, PORT) for f in files}
+    assert {"dist/sharding.py", "dist/compression.py", "dist/pipeline.py",
+            "dist/kernel_sharding.py", "train/elastic.py", "launch/mesh.py",
+            "core/scheduler/sharded.py", "core/scheduler/slice.py"} <= rel
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
     assert bad == []
