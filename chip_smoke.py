@@ -227,6 +227,29 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    int8 compression's error feedback (``dist.compression``), one batch
    repeated: the loss must fall; the compression's ms a step is printed
    beside the step's.
+14. dryrun (``start_dryrun`` right after the build, ``phase_dryrun`` after
+   ``phase_dist``): the production-mesh dry run in processes of its own,
+   started together and run beside the earlier phases (they run on the
+   host and allocate no tensor on the card): ``python -m
+   repro_torch.launch.dryrun`` for gemma2-9b train_4k, dbrx-132b train_4k (E = 16 on the 16-wide
+   ``model`` axis: expert parallel) and zamba2-2.7b long_500k (batch 1,
+   a context-parallel cache) on the fake 16 x 16 "cuda" mesh, and
+   gemma2-9b decode_32k on the 2 x 16 x 16 one; each must end ``ok``,
+   and its three terms, dominant term, peak a device, fit against 80 GB
+   and collective bytes by kind and axis are printed. Fails if dbrx's
+   trace moves more than one expert's weights over ``model`` or
+   zamba2's carries a collective over the cache's sequence. Then the
+   dry run of the very step ``phase_train("gemma2-9b")`` measured (12
+   layers, f32, 4 x 1024, remat full) on a fake (1, 1) mesh: its peak
+   against that phase's probe and measured ``max_memory_allocated``, its
+   compute and memory terms against the measured device ms a step
+   (printed, not gated). Then mixtral-8x7b's experts (every width) split
+   over 2 and 4 simulated ``model`` ranks at a prefill's (4 x 1024) and a
+   decode step's (4 x 1) rows, bf16 and f32: each rank's share
+   (``models.moe.expert_slice_apply``, the hand grouped matmul on its
+   experts) summed must equal the whole layer within the grouped matmul's
+   tolerances (bf16 2e-2, f32 1e-4), its launches the kernels table's
+   ``dryrun`` path.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -2861,6 +2884,7 @@ def phase_train(torch, arch: str) -> dict:
     if ratio < 1.0:
         fail(f"train {arch}: the probe ({alone['probe'].hbm_bytes} B) is "
              f"below the observed peak ({peak} B)")
+    TRAIN_RUNS[arch]["alone"] = (alone["probe"].hbm_bytes, peak)
     del alone
 
     fresh_card(torch)
@@ -3057,6 +3081,205 @@ def phase_dist(torch) -> dict:
     print(f"[dist] phase wall time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+# the dry run's cells (``phase_dryrun``): (arch, shape, multi-pod)
+DRYRUN_CELLS = [("gemma2-9b", "train_4k", False),
+                ("dbrx-132b", "train_4k", False),
+                ("zamba2-2.7b", "long_500k", False),
+                ("gemma2-9b", "decode_32k", True)]
+# the very step ``phase_train("gemma2-9b")`` measures, dry-run on a fake
+# (1, 1) mesh: 12 layers, f32, batch 4 x 1024, remat full
+DRYRUN_ONE_CARD = f"""
+import dataclasses, json, torch
+from repro_torch.configs import registry as R
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import make_mesh
+DR.fake_group(1)
+DR.make_production_mesh = lambda multi_pod=False, device=None: make_mesh(
+    (1, 1), ("data", "model"), device)
+DR.get_arch = lambda name: dataclasses.replace(R.get_arch(name),
+                                               n_layers={TRAIN_LAYERS},
+                                               remat_policy="full")
+DR.get_shape = lambda name: ShapeConfig(name, {TRAIN_SEQ}, {TRAIN_BATCH},
+                                        "train")
+print(json.dumps(DR.lower_cell("gemma2-9b", "train_one_card",
+                               param_dtype=torch.float32)))
+"""
+DRYRUN_TIMEOUT_S = 900
+# mixtral-8x7b's rows through the experts of m simulated ``model`` ranks
+DRYRUN_EP_RANKS = (2, 4)
+DRYRUN_EP_ROWS = {"prefill": (4, 1024), "decode": (4, 1)}
+
+
+def start_dryrun(torch) -> dict:
+    """Start the dry run's processes (module docstring, 14): one
+    ``python -m repro_torch.launch.dryrun`` a cell of ``DRYRUN_CELLS`` on
+    the fake production mesh of ``"cuda"`` devices, and the dry run of
+    ``phase_train``'s gemma2-9b step on a fake (1, 1) mesh, all at once.
+    They run on the host and allocate no tensor on the card;
+    ``phase_dryrun`` reads them. Returns {cell: (process, its output files, start)}."""
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    cmds = {cell: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", cell[0], "--shape", cell[1]]
+            + (["--multi-pod"] if cell[2] else []) for cell in DRYRUN_CELLS}
+    cmds["one card"] = [sys.executable, "-c", DRYRUN_ONE_CARD]
+    procs = {}
+    for i, (cell, cmd) in enumerate(cmds.items()):
+        files = [open(os.path.join(out_dir, f"{i}.{k}"), "w+")
+                 for k in ("out", "err")]
+        procs[cell] = (subprocess.Popen(cmd, cwd=HERE, env=env,
+                                        stdout=files[0], stderr=files[1],
+                                        text=True),
+                       files, time.perf_counter())
+    print(f"[dryrun] started {len(procs)} dry-run processes", flush=True)
+    return procs
+
+
+def dryrun_result(cell, proc, files, t0) -> dict:
+    """A dry-run process's result; its failure fails the run."""
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                              - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"dryrun {cell}: past {DRYRUN_TIMEOUT_S} s")
+    out, err = (f.seek(0) or f.read() for f in files)
+    for f in files:
+        f.close()
+    if proc.returncode:
+        fail(f"dryrun {cell}: exit {proc.returncode}: {err[-3000:]}")
+    res = json.loads(out[out.index("{"):])
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_dryrun(torch, procs: dict) -> dict:
+    """The production-mesh dry run and the H100 roofline (module
+    docstring, 14); returns the launches of the expert-slice path."""
+    import math
+    from repro_torch.configs.registry import get_arch
+    t_phase = time.perf_counter()
+    gb = 1e9
+    for cell in DRYRUN_CELLS:
+        r = dryrun_result(cell, *procs[cell])
+        rl, mem = r["roofline"], r["memory"]
+        print(f"[dryrun] {cell[0]} {cell[1]} on {r['mesh']} ({r['chips']} "
+              f"ranks, {r['device']} mesh, fake group): {r['status']}; "
+              f"compute {rl['compute_s']:.4f} s, memory "
+              f"{rl['memory_s']:.4f} s, collective {rl['collective_s']:.4f}"
+              f" s, dominant {rl['dominant']}; peak a device "
+              f"{mem['peak_per_device'] / gb:.3f} GB (arguments "
+              f"{mem['argument_bytes'] / gb:.3f}), fits 80 GB "
+              f"{mem['fits_80GB']}; collective bytes by kind "
+              f"{ {k: round(v) for k, v in rl['coll_breakdown'].items()} }, "
+              f"by axis { {a: round(sum(v.values())) for a, v in r['collectives_by_axis'].items()} }"
+              f"; {r['traces']} traces, {r['microbatches']} microbatches, "
+              f"counted in {r['lower_s']} s, "
+              f"wall {r['wall_s']:.1f} s; CUDA initialised "
+              f"{r['cuda_initialized']}", flush=True)
+        if r["status"] != "ok" or r["device"] != "cuda":
+            fail(f"dryrun {cell}: {r['status']} on {r['device']}")
+        cfg = get_arch(cell[0])
+        if cfg.moe is not None:
+            one = 3 * cfg.d_model * cfg.d_ff * 2  # wi, wg, wo in bf16
+            print(f"[dryrun] {cell[0]}: expert weights in collectives over "
+                  f"model {r['expert_bytes_over_model']} B (one expert's "
+                  f"weights {one} B; E {cfg.moe.num_experts} on a 16-wide "
+                  f"model axis: expert parallel)", flush=True)
+            if r["expert_bytes_over_model"] > one:
+                fail(f"dryrun {cell}: expert weights gathered over model")
+        if cell[1] == "long_500k":
+            print(f"[dryrun] {cell[0]} {cell[1]}: bytes of collectives over "
+                  f"a cache's sequence {r['cache_bytes_in_collectives']}; "
+                  f"largest collective by axis {r['largest_collective']}",
+                  flush=True)
+            if r["cache_bytes_in_collectives"]:
+                fail(f"dryrun {cell}: a cache-sized tensor in a collective")
+    # the roofline of phase_train's gemma2-9b step against the card
+    r = dryrun_result("one card", *procs["one card"])
+    rl, mem = r["roofline"], r["memory"]
+    run = TRAIN_RUNS.get("gemma2-9b")
+    if run is not None:
+        dms = run["device_ms"][1:]
+        step_ms = sum(dms) / len(dms)
+        bound_ms = 1e3 * max(rl["compute_s"], rl["memory_s"])
+        probe, peak = run["alone"]
+        print(f"[dryrun] gemma2-9b, {TRAIN_LAYERS} layers, f32, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat full, on a fake (1, 1) "
+              f"mesh: peak a device {mem['peak_per_device']:.0f} B against "
+              f"the train phase's probe {probe} B and measured "
+              f"max_memory_allocated {peak} B (dry run / measured "
+              f"{mem['peak_per_device'] / peak:.4f}); compute "
+              f"{1e3 * rl['compute_s']:.1f} ms (f32 peak), memory "
+              f"{1e3 * rl['memory_s']:.1f} ms, against the measured "
+              f"{step_ms:.1f} ms device a step: roofline fraction "
+              f"{bound_ms / step_ms:.4f}; traced flops "
+              f"{rl['hlo_flops_per_device']:.4e}, analytic "
+              f"{rl['analytic_flops_global']:.4e}; wall {r['wall_s']:.1f} s",
+              flush=True)
+    # the expert slices with the hand kernel: mixtral-8x7b's experts split
+    # over m simulated ``model`` ranks, each rank's share summed
+    from repro_torch.models.model import init_params
+    from repro_torch.models.moe import expert_slice_apply, moe_apply
+    fresh_card(torch)
+    dev = torch.device("cuda", 0)
+    cfg = full_cfg("mixtral-8x7b", 1)
+    e = cfg.moe.num_experts
+    checks, counted = [], dict.fromkeys(
+        ("moe_gmm", "moe_gmm_gated"), 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dtype, dev)["layers"][0]["moe"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        for what, (b, s) in DRYRUN_EP_ROWS.items():
+            x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+            whole, _ = moe_apply(p, x, cfg.moe, cfg.mlp_act)
+            for m in DRYRUN_EP_RANKS:
+                for c in counters().values():
+                    c.reset()
+                share = e // m
+                total = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+                for r_ in range(m):
+                    lo = r_ * share
+                    local = {"router": p["router"],
+                             **{k: p[k][lo:lo + share]
+                                for k in ("wi", "wg", "wo")}}
+                    total += expert_slice_apply(local, x, cfg.moe,
+                                                cfg.mlp_act, lo, lo + share)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                got = {k: counts[k] for k in counted}
+                if got != {"moe_gmm": 2 * m, "moe_gmm_gated": m}:
+                    fail(f"dryrun expert slices: launches {got} for {m} "
+                         f"ranks")
+                for k in counted:
+                    counted[k] += got[k]
+                err = (total.to(dtype).float() - whole.float()).abs()
+                bad = (err > tol + tol * whole.float().abs()).sum().item()
+                checks.append((str(dtype).split(".")[-1], what, m,
+                               float(err.max()), bad))
+                if bad or not math.isfinite(float(err.max())):
+                    fail(f"dryrun expert slices: {m} ranks, {what}, {dtype}:"
+                         f" {bad} elements past {tol}")
+        del p
+    print(f"[dryrun] mixtral-8x7b's experts ({e}) split over 2 and 4 "
+          f"simulated model ranks (expert_slice_apply, the hand grouped "
+          f"matmul on each rank's experts), the shares summed against the "
+          f"whole layer: (dtype, rows, ranks, max abs err, elements past "
+          f"tolerance) {checks}; launches {counted}", flush=True)
+    print(f"[dryrun] phase wall time {time.perf_counter() - t_phase:.1f} s "
+          f"(the dry-run processes ran beside the earlier phases)",
+          flush=True)
+    return {k: counted.get(k, 0) for k in
+            ("rmsnorm", "flash_attention", "mamba_scan", "moe_gmm",
+             "moe_gmm_gated") + BWD_KERNELS}
 
 
 def ssd_einsum_ms(prof) -> float:
@@ -3638,6 +3861,7 @@ def main() -> None:
           f", CUDA {torch.version.cuda}", flush=True)
     gpu = card_line()
     phase_build(torch)
+    dryrun = start_dryrun(torch)
     phase_paper(torch, gpu)
     phase_paper_nn(torch, gpu)
     phase_twin(torch)
@@ -3682,6 +3906,7 @@ def main() -> None:
                  "zamba2-2.7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
     by_path["dist"] = phase_dist(torch)
+    by_path["dryrun"] = phase_dryrun(torch, dryrun)
     by_path["preempt"] = phase_preempt(torch, gpu)
     by_path["obs"] = phase_obs(torch, gpu)
     for name, entry in table.items():

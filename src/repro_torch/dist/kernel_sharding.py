@@ -20,8 +20,10 @@ version. The reference needs no such table: GSPMD partitions its jnp code.
   * the scan (``mamba_scan``, ``mamba_scan_bwd``): batch or channel dim
     sharded, the time dim replicated.
   * the grouped matmul (``moe_gmm``, ``moe_gmm_gated`` and their
-    backwards): all inputs replicated. Expert parallelism needs a token
-    all-to-all, which this slice does not have.
+    backwards): all inputs replicated. The MoE layer reaches the kernel
+    through plain tensors under a mesh (``models.moe._moe_sharded``: each
+    ``model`` rank's own experts, ``expert_slice_apply``), so this strategy
+    serves only a DTensor caller of the op itself.
 
 ``register()`` registers them once; ``dist.sharding`` calls it before any
 DTensor is made.
@@ -114,7 +116,8 @@ def _register() -> None:
                 ([Shard(0)] * 2, [Shard(0)] * 4),
                 ([Shard(2)] * 2, [Shard(2)] * 3 + [Shard(1)])]
 
-    # -- the grouped matmul: replicated only (expert parallelism: ROADMAP)
+    # -- the grouped matmul: replicated only (the MoE layer's expert
+    # parallelism runs the kernel on each rank's plain tensors)
     @register_sharding(ops.moe_gmm.default)
     def _gmm(x, w, group_sizes):
         return [([R], [R, R, R])]

@@ -32,6 +32,15 @@ of a 512-device mesh are computed without 512 ranks.
 shardings: it redistributes a DTensor to the resolved placements. It is the
 identity unless an ``activation_mesh`` context is active with more than one
 device, and for a plain tensor, so the same model code runs unsharded.
+
+Work a rank does on its own shards goes through a few helpers: ``placed``
+wraps a shard as a DTensor (nothing sent), ``empty_placed`` allocates one
+(a prefill's cache, placed by ``cache_specs``), ``write_into`` copies into
+a DTensor's own shard (DTensor cannot redistribute an in-place op's
+target), ``local_map`` runs a function shard by shard, ``row_block`` cuts a
+microbatch from each rank's own rows, and ``local_shape_and_offset`` gives
+a shard's shape and offset from the mesh coordinate in plain ints (what
+the dry run's steps on fake tensors need).
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import threading
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_map, tree_map_with_path
+from torch.utils._pytree import tree_map, tree_map_with_path
 
 from repro_torch.configs.base import ArchConfig
 
@@ -184,6 +193,35 @@ def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     # as a view, which a permuted product's layout (the projections'
     # einsums) cannot take in the backward
     return x.contiguous()
+
+
+def grad_to(x: torch.Tensor, *logical_axes) -> torch.Tensor:
+    """``x`` as it is, its gradient brought to the placements of
+    ``logical_axes`` under the active mesh (``_PinGrad``): where a block's
+    output joins a sequence-sharded residual, the gradient it hands back
+    arrives split on the sequence, and a product's backward would flatten
+    [B, S] split on two mesh dims, which DTensor refuses (torch 2.11)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x) or abstract(mesh).size == 1 \
+            or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _PinGrad.apply(x, to_placements(
+        _spec_for(abstract(mesh), x.shape, logical_axes), mesh))
+
+
+class _PinGrad(torch.autograd.Function):
+    """The identity, whose gradient is brought to ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and list(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad, None
 
 
 # ---------------------------------------------------------------------------
@@ -379,20 +417,138 @@ def replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
-def on_replicas(fn, *args):
-    """``fn(*args)`` with every DTensor in ``args`` made whole on each rank
-    and passed as its local tensor, and every tensor ``fn`` returns made a
-    replicated DTensor again: a layer whose ops DTensor has no strategies
-    for runs on each rank's full copy (the same work on every rank). Both
-    conversions are differentiable. Without DTensors, plain ``fn(*args)``."""
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= int(n)
+    return tuple(reversed(stride))
+
+
+def placed(local: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
+    """A DTensor of global ``shape`` whose shard on this rank is ``local``
+    (nothing sent)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def local_shape_and_offset(shape, mesh, placements):
+    """This rank's shard of a tensor of global ``shape`` under
+    ``placements``: (its shape, the global index of its first element).
+    A dim split over several mesh dims is split in mesh order, as DTensor
+    splits it (``torch.chunk``'s sizes). Plain ints from the mesh's
+    coordinate: no tensor is made or read for it, which a step run on
+    fake tensors (the dry run) could not read."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    shape, off = list(shape), [0] * len(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            d, n = pl.dim, mesh.size(i)
+            size = -(-shape[d] // n)
+            start = min(coord[i] * size, shape[d])
+            off[d] += start
+            shape[d] = min(size, shape[d] - start)
+    return tuple(shape), tuple(off)
+
+
+def empty_placed(shape, dtype: torch.dtype, spec: tuple, mesh
+                 ) -> torch.Tensor:
+    """An uninitialised DTensor of global ``shape`` placed by ``spec``:
+    only this rank's shard is allocated."""
+    placements = to_placements(spec, mesh)
+    local, _ = local_shape_and_offset(shape, mesh, placements)
+    return placed(torch.empty(local, dtype=dtype, device=mesh.device_type),
+                  mesh, placements, shape)
+
+
+def local_map(fn, t: torch.Tensor, shapes):
+    """``fn`` on a DTensor's own shard, each tensor it returns (one, or a
+    tuple for a tuple of ``shapes``) placed as ``t`` is, with the global
+    shape given; ``fn(t)`` for a plain tensor. For work that a shard does
+    alone (a ring's roll along a dim that is whole, a quantization along
+    the last dim): nothing is sent."""
+    if not is_dtensor(t):
+        return fn(t)
+    out = fn(t.to_local())
+    if not isinstance(out, tuple):
+        return placed(out, t.device_mesh, t.placements, shapes)
+    return tuple(placed(o, t.device_mesh, t.placements, s)
+                 for o, s in zip(out, shapes))
+
+
+def row_block(t: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """The i-th of n blocks of ``t``'s rows (a microbatch). Of a DTensor
+    whose rows are split over ranks, the i-th block of each rank's own
+    rows: the blocks of all ranks make the i-th microbatch, which keeps the
+    batch's placements, and nothing is sent (slicing the global rows would
+    gather them). A different choice of rows than the unsharded split's;
+    the microbatches' gradients sum to the same."""
+    from torch.distributed.tensor import Shard
+    b = t.shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} does not split into {n} microbatches")
+    if not (is_dtensor(t) and any(isinstance(p, Shard) and p.dim == 0
+                                  for p in t.placements)):
+        return t[i * (b // n):(i + 1) * (b // n)]
+    loc = t.to_local()
+    if loc.shape[0] % n:
+        raise ValueError(f"a rank's {loc.shape[0]} rows do not split into "
+                         f"{n} microbatches")
+    m = loc.shape[0] // n
+    return placed(loc[i * m:(i + 1) * m], t.device_mesh, t.placements,
+                  (b // n,) + tuple(t.shape[1:]))
+
+
+def write_into(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``; into a DTensor ``dst`` (a cache, or a view of
+    one) through its own shard, ``src`` first brought to ``dst``'s
+    placements (a plain ``src`` is taken as replicated). DTensor cannot
+    redistribute the target of an in-place op, so a cache keeps the
+    placements it was made with."""
+    if not is_dtensor(dst):
+        return dst.copy_(src)
     from torch.distributed.tensor import DTensor, Replicate
-    found = [x for x in tree_flatten(args)[0] if isinstance(x, DTensor)]
-    if not found:
-        return fn(*args)
-    mesh = found[0].device_mesh
-    local = tree_map(lambda x: replicated(x).to_local()
-                     if isinstance(x, DTensor) else x, args)
-    out = fn(*local)
-    return tree_map(lambda y: DTensor.from_local(
-        y, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        if isinstance(y, torch.Tensor) else y, out)
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(mesh, dst.placements)
+    dst.to_local().copy_(src.to_local())
+    return dst
+
+
+def on_rows(fn, params, *tensors):
+    """``fn(params, *tensors)`` on each rank's rows: the DTensors of
+    ``tensors`` brought to their rows as the first one places its dim 0
+    (split where it is, whole elsewhere) and passed as this rank's plain
+    tensors, every DTensor of ``params`` made whole (its gradient a
+    partial sum over the axes that split the rows); each tensor ``fn``
+    returns (leading dim the rows) placed back as those rows. For a block
+    whose ops DTensor cannot shard on its torch (the Mamba blocks: a
+    reshape of split channels, torch 2.11): the block's work is split by
+    rows only."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    first = next(t for t in tensors if is_dtensor(t))
+    mesh = first.device_mesh
+    rows = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in first.placements]
+    grads = [Partial() if isinstance(pl, Shard) else Replicate()
+             for pl in rows]
+
+    def local(t):
+        if not is_dtensor(t):
+            return t
+        if list(t.placements) != rows:
+            t = t.redistribute(mesh, rows)
+        return t.to_local()
+
+    out = fn(tree_map(lambda t: replicated(t).to_local(grad_placements=grads)
+                      if is_dtensor(t) else t, params),
+             *map(local, tensors))
+    return tree_map(lambda y: placed(y, mesh, rows, (first.shape[0],)
+                                     + tuple(y.shape[1:]))
+                    if isinstance(y, torch.Tensor) else y, out)

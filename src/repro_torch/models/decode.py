@@ -18,7 +18,11 @@ group), never int8: the reference does not quantize a hybrid's KV cache.
 
 The port updates caches IN PLACE (``decode_step``, ``cache_insert``,
 ``cache_clear_row``) where the reference returns updated copies, so one
-cache stays resident per task or decode loop.
+cache stays resident per task or decode loop. Under a mesh ``decode_step``
+takes DTensor parameters and a cache placed by ``dist.sharding.
+cache_specs``, context-parallel too: the KV writes and the attention run
+on each rank's shard (``models.model.attn_decode_block``), the states'
+in-place updates keep the cache's placements.
 """
 from __future__ import annotations
 
@@ -31,8 +35,8 @@ from repro_torch.dist.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.model import (
     Params, attn_decode_block, check_supported, hybrid_state_shapes,
-    kv_shape, logits_from_hidden, scale_embedding, ssm_state_shapes,
-    _layer_window,
+    kv_shape, logits_from_hidden, lookup_rows, scale_embedding,
+    ssm_state_shapes, _layer_window,
 )
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.ssm import mamba1_decode_step, mamba2_decode_step
@@ -88,7 +92,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Cache,
     host, and a step over a tensor can be captured in a CUDA graph.
     Returns (logits [B, V] f32, the cache, updated in place)."""
     check_supported(cfg)
-    x = constrain(params["embed"][tokens], "batch", None)  # [B, d]
+    x = constrain(lookup_rows(params["embed"], tokens), "batch", None)
     x = scale_embedding(cfg, x)
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):

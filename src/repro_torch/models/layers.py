@@ -131,26 +131,49 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0):
 
 
 def _decode_valid_mask(smax: int, cache_len, window: int,
-                       device) -> torch.Tensor:
-    """[B or 1, Smax] bool mask of attendable cache slots. ``cache_len`` is
+                       device, offset: int = 0) -> torch.Tensor:
+    """[B or 1, Smax] bool mask of attendable cache slots, the slots being
+    positions ``offset ..`` (a shard of a longer cache). ``cache_len`` is
     an int (the whole batch at one position) or a [B] device tensor (each
     row of a continuous batch at its own position), never read on the
     host, so a step over a tensor can be captured in a CUDA graph."""
     cl = torch.as_tensor(cache_len, device=device).reshape(-1, 1)
-    k_pos = torch.arange(smax, device=device)[None, :]
+    k_pos = offset + torch.arange(smax, device=device)[None, :]
     valid = k_pos < cl
     if window and window > 0:
         valid = valid & (k_pos >= cl - window)
     return valid
 
 
+def _decode_out(s, v_of, q, seq_reduce):
+    """Softmax of the masked scores s [B, Hkv, G, Smax] against values
+    (``v_of(p)`` -> [B, Hkv, G, D] f32): [B, Hq, 1, D] in q's dtype. With
+    ``seq_reduce`` (``t, op -> t`` reduced over the ranks that hold the
+    other slots of the sequence) the max and the sum of the exponentials
+    are the whole sequence's, so each rank's probabilities are the global
+    ones, rounded as the unsharded step rounds them, and its partial
+    output is summed across the ranks: only [B, H]-sized statistics and
+    [B, H, 1, D] partial outputs cross ranks."""
+    b, hq, _, d = q.shape
+    if seq_reduce is None:
+        p = torch.softmax(s, dim=-1)
+        return v_of(p).reshape(b, hq, 1, d).to(q.dtype)
+    top = seq_reduce(s.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(s - top)
+    p = e / seq_reduce(e.sum(dim=-1, keepdim=True), "sum")
+    return seq_reduce(v_of(p), "sum").reshape(b, hq, 1, d).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
-                     logit_softcap=0.0):
+                     logit_softcap=0.0, k_offset=0, seq_reduce=None):
     """One-token decode. q: [B, Hq, 1, D]; caches: [B, Hkv, Smax, D]. The new
     token's K/V must already sit at slot cache_len - 1; ``cache_len`` is an
     int or a [B] tensor (``_decode_valid_mask``). GQA is contracted
     grouped (q as [B, Hkv, G, D]) with f32 accumulation, as the reference's
-    ``preferred_element_type=f32`` einsums."""
+    ``preferred_element_type=f32`` einsums. The caches may be a shard of
+    the sequence whose first slot is position ``k_offset``, the softmax
+    then taken across the shards through ``seq_reduce`` (``_decode_out``).
+    """
     b, hq, _, d = q.shape
     hkv, smax = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -158,13 +181,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0,
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()) \
         * (1.0 / math.sqrt(d))
     s = softcap(s, logit_softcap)
-    valid = _decode_valid_mask(smax, cache_len, window, q.device)
+    valid = _decode_valid_mask(smax, cache_len, window, q.device, k_offset)
     s = torch.where(valid[:, None, None, :], s,
                     torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    return _decode_out(s, lambda p: torch.einsum(
+        "bhgk,bhkd->bhgd", p.to(v_cache.dtype).float(), v_cache.float()),
+        q, seq_reduce)
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +204,11 @@ def quantize_kv(x: torch.Tensor, scale_dtype=torch.bfloat16):
 
 
 def decode_attention_q8(q, k_q, k_s, v_q, v_s, cache_len, *, window=0,
-                        logit_softcap=0.0):
+                        logit_softcap=0.0, k_offset=0, seq_reduce=None):
     """One-token decode over an int8 cache. q: [B, Hq, 1, D]; k_q/v_q: int8
     [B, Hkv, Smax, D]; k_s/v_s: [B, Hkv, Smax]. The scales factor out of the
-    contractions: ``q.k = (q.k_q) k_s`` and ``sum p v = sum (p v_s) v_q``."""
+    contractions: ``q.k = (q.k_q) k_s`` and ``sum p v = sum (p v_s) v_q``.
+    ``k_offset`` and ``seq_reduce`` as ``decode_attention``'s."""
     b, hq, _, d = q.shape
     hkv, smax = k_q.shape[1], k_q.shape[2]
     g = hq // hkv
@@ -193,13 +216,12 @@ def decode_attention_q8(q, k_q, k_s, v_q, v_s, cache_len, *, window=0,
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_q.float())
     s = s * k_s[:, :, None, :].float() * (1.0 / math.sqrt(d))
     s = softcap(s, logit_softcap)
-    valid = _decode_valid_mask(smax, cache_len, window, q.device)
+    valid = _decode_valid_mask(smax, cache_len, window, q.device, k_offset)
     s = torch.where(valid[:, None, None, :], s,
                     torch.full((), NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    pv = (p * v_s[:, :, None, :].float()).to(q.dtype)
-    out = torch.einsum("bhgk,bhkd->bhgd", pv.float(), v_q.float())
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    return _decode_out(s, lambda p: torch.einsum(
+        "bhgk,bhkd->bhgd", (p * v_s[:, :, None, :].float()).to(q.dtype)
+        .float(), v_q.float()), q, seq_reduce)
 
 
 # ---------------------------------------------------------------------------

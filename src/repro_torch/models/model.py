@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import math
+from types import SimpleNamespace
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -50,8 +51,10 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.sharding import (
-    constrain, in_current_mesh, is_dtensor, replicated, replicated_like,
+    constrain, grad_to, in_current_mesh, is_dtensor, replicated,
+    replicated_like, write_into,
 )
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -240,10 +243,37 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # Blocks
 # ---------------------------------------------------------------------------
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, h, k] -> [B, h, S, k], the reference's einsum.
+    Under a mesh whose ``model`` axis does not divide h (gemma2-9b's 8 KV
+    heads, qwen1.5-32b's 40 heads on a 16-wide axis) the heads are
+    replicated there and each rank multiplies its own rows by w made whole
+    (``_einsum_heads``): DTensor would split the einsum's flattened h·k on
+    ``model`` and then cannot unflatten it, in the forward or in the
+    gradient."""
+    return _einsum_heads("bsd,dhk->bhsk", x, w, w.shape[1])
+
+
+def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o [B, h, S, k] @ w [h, k, d] -> [B, S, d], as ``_heads``."""
+    return _einsum_heads("bhsk,hkd->bsd", o, w, w.shape[0])
+
+
+def _einsum_heads(eq: str, x: torch.Tensor, w: torch.Tensor,
+                  heads: int) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)``; on each rank's rows with w whole
+    (``dist.sharding.on_rows``) under a mesh whose ``model`` axis does
+    not divide ``heads``."""
+    if is_dtensor(x) and heads % SH.abstract(x.device_mesh).shape.get(
+            "model", 1):
+        return SH.on_rows(lambda wl, xl: torch.einsum(eq, xl, wl), w, x)
+    return torch.einsum(eq, x, w)
+
+
 def _project_qkv(p: Params, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
+    q = _heads(x, p["wq"])
+    k = _heads(x, p["wk"])
+    v = _heads(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
@@ -273,7 +303,7 @@ def attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         o = L.naive_attention(q, k, v, **kwargs)
     else:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    out = _heads_out(o, p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -297,32 +327,116 @@ def attn_decode_block(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     sliding-window archs, Smax = the window) ``pos % Smax``, where the
     overwrite enforces the window and no window mask is applied: one
     indexed scatter, the reference's one-hot ``where`` without rewriting
-    the whole cache. Returns the attention output [B, 1, d]."""
+    the whole cache. Caches that are DTensors (under a mesh, placed by
+    ``cache_specs``) are written and read shard by shard
+    (``_decode_sharded``). Returns the attention output [B, 1, d]."""
     q, k, v = _project_qkv(p, x)  # [B, H, 1, hd]
-    b, smax = x.shape[0], kcache.shape[2]
+    caches = (kcache, vcache, kscale, vscale)
+    if is_dtensor(kcache):
+        o = _decode_sharded(q, k, v, pos, caches, cfg, window, ring)
+    else:
+        o = _decode_local(q, k, v, pos, caches, cfg, window, ring,
+                          kcache.shape[2])
+    return _heads_out(o, p["wo"])
+
+
+def _decode_local(q, k, v, pos, caches, cfg: ArchConfig, window: int,
+                  ring: bool, smax: int, offset: int = 0, seq_reduce=None):
+    """``attn_decode_block``'s cache write and attention on plain tensors:
+    the caches hold slots [offset, offset + their depth) of ``smax``; a
+    row whose slot lies outside writes nothing (``where`` over the slot it
+    reads back, so every rank runs the same ops, shapes static). The
+    softmax spans the ranks that split the sequence through
+    ``seq_reduce`` (``layers.decode_attention``)."""
+    kcache, vcache, kscale, vscale = caches
+    b, depth = q.shape[0], kcache.shape[2]
     posv = pos.reshape(-1).expand(b)
     slot = (posv % smax if ring else posv.clamp(max=smax - 1)).long()
     cache_len = (posv + 1).clamp(max=smax)
-    at = (torch.arange(b, device=x.device), slice(None), slot)
     q = L.apply_rope(q, posv[:, None, None], cfg.rope_theta)
     k = L.apply_rope(k, posv[:, None, None], cfg.rope_theta)
     window = 0 if ring else window
+    split = depth != smax
+    if split:
+        inside = (slot >= offset) & (slot < offset + depth)
+        slot = (slot - offset).clamp(0, depth - 1)
+    at = (torch.arange(b, device=q.device), slice(None), slot)
+
+    def put(cache, new):
+        if split:
+            keep = inside.reshape((b,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new, cache[at])
+        cache[at] = new
+
+    kw = dict(window=window, logit_softcap=cfg.attn_logit_softcap,
+              k_offset=offset, seq_reduce=seq_reduce)
     if kscale is not None:
         k_q, k_s = L.quantize_kv(k, kscale.dtype)
         v_q, v_s = L.quantize_kv(v, vscale.dtype)
-        kcache[at] = k_q[:, :, 0]
-        vcache[at] = v_q[:, :, 0]
-        kscale[at] = k_s[:, :, 0]
-        vscale[at] = v_s[:, :, 0]
-        o = L.decode_attention_q8(q, kcache, kscale, vcache, vscale,
-                                  cache_len, window=window,
-                                  logit_softcap=cfg.attn_logit_softcap)
-    else:
-        kcache[at] = k[:, :, 0].to(kcache.dtype)
-        vcache[at] = v[:, :, 0].to(vcache.dtype)
-        o = L.decode_attention(q, kcache, vcache, cache_len, window=window,
-                               logit_softcap=cfg.attn_logit_softcap)
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+        put(kcache, k_q[:, :, 0])
+        put(vcache, v_q[:, :, 0])
+        put(kscale, k_s[:, :, 0])
+        put(vscale, v_s[:, :, 0])
+        return L.decode_attention_q8(q, kcache, kscale, vcache, vscale,
+                                     cache_len, **kw)
+    put(kcache, k[:, :, 0].to(kcache.dtype))
+    put(vcache, v[:, :, 0].to(vcache.dtype))
+    return L.decode_attention(q, kcache, vcache, cache_len, **kw)
+
+
+def _decode_sharded(q, k, v, pos, caches, cfg: ArchConfig, window: int,
+                    ring: bool) -> torch.Tensor:
+    """``attn_decode_block`` over DTensor caches [B, Hkv, Smax, D] (each a
+    layer of a stack placed by ``cache_specs``): q, k and v are brought to
+    the caches' batch and head placements, replicated along the mesh axes
+    that split the cache's sequence (``context_parallel``), and each rank
+    writes and attends over its own shard as plain tensors
+    (``_decode_local``), at its own slot offset. Where the sequence is
+    split, the ranks' partial attentions are merged with their softmax
+    statistics (``layers.decode_attention``'s ``seq_reduce``): only [B,
+    H]-sized statistics and [B, H, 1, D] partial outputs cross ranks,
+    never the cache."""
+    from torch.distributed.tensor import Replicate, Shard
+    kcache = caches[0]
+    mesh = kcache.device_mesh
+    want = [pl if isinstance(pl, Shard) and pl.dim in (0, 1) else Replicate()
+            for pl in kcache.placements]
+    seq_dims = [i for i, pl in enumerate(kcache.placements)
+                if isinstance(pl, Shard) and pl.dim == 2]
+    q, k, v = (t.redistribute(mesh, want).to_local() for t in (q, k, v))
+    _, off = SH.local_shape_and_offset(kcache.shape, mesh,
+                                       kcache.placements)
+    if is_dtensor(pos):
+        pos = pos.full_tensor()
+    if pos.dim() and pos.shape[0] == kcache.shape[0] > q.shape[0]:
+        pos = pos[off[0]:off[0] + q.shape[0]]  # this rank's rows
+    local = tuple(c.to_local() if c is not None else None for c in caches)
+    o = _decode_local(q, k, v, pos, local, cfg, window, ring,
+                      kcache.shape[2], off[2],
+                      _seq_allreduce(mesh, seq_dims) if seq_dims else None)
+    return SH.placed(o, mesh, want, _global_shape(o.shape, mesh, want))
+
+
+def _seq_allreduce(mesh, dims):
+    """``t, op -> t`` all-reduced (``op`` "max" or "sum") over the mesh
+    dims ``dims``, those that split a cache's sequence."""
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(t, op):
+        for d in dims:
+            t = funcol.all_reduce(t, op, (mesh, d))
+        return t
+    return reduce
+
+
+def _global_shape(local, mesh, placements) -> tuple:
+    """The global shape of an even shard ``local`` under ``placements``."""
+    from torch.distributed.tensor import Shard
+    out = list(local)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            out[pl.dim] *= mesh.size(i)
+    return tuple(out)
 
 
 def _layer_window(cfg: ArchConfig, layer_idx: int) -> int:
@@ -340,6 +454,27 @@ def _seq_axis(cfg: ArchConfig):
     return "model" if cfg.seq_shard_activations else None
 
 
+def _gathered(h: torch.Tensor) -> torch.Tensor:
+    """A block's normed input with its sequence whole: where the residual
+    is sequence-sharded on ``model`` it is all-gathered at the block's
+    entry, and the block's output is reduce-scattered back by the residual
+    add (Megatron sequence parallelism, as the reference's config states
+    it). A product over a residual split on two mesh dims would flatten
+    [B, S] split on both, which DTensor refuses on torch 2.11."""
+    return constrain(h, "batch", None, None)
+
+
+def _block_out(y: torch.Tensor) -> torch.Tensor:
+    """A block's output on its way into the residual: the gradient handed
+    back to the block is brought to its rows, the sequence whole
+    (``dist.sharding.grad_to``; where the residual is sequence-sharded,
+    Megatron's all-gather of the backward), so the block's products see
+    their rows whole: DTensor may otherwise hand it back split along the
+    sequence, which a product's backward cannot flatten with the batch on
+    torch 2.11."""
+    return grad_to(y, "batch", None, None)
+
+
 def _attn_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, i: int,
                 positions: torch.Tensor, attn_impl: str,
                 cache: Optional[Dict[str, torch.Tensor]]):
@@ -347,20 +482,21 @@ def _attn_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig, i: int,
     Returns (x, the MoE aux loss or None); writes layer i's K, V into
     ``cache`` when given (prefill)."""
     x = constrain(x, "batch", _seq_axis(cfg), None)
-    a, (k, v) = attn_block(lp["attn"], L.rms_norm(x, lp["norm1"]), cfg,
-                           positions=positions, window=_layer_window(cfg, i),
-                           attn_impl=attn_impl, return_kv=True)
+    a, (k, v) = attn_block(lp["attn"], _gathered(L.rms_norm(x, lp["norm1"])),
+                           cfg, positions=positions,
+                           window=_layer_window(cfg, i), attn_impl=attn_impl,
+                           return_kv=True)
     if cache is not None:
-        cache["k"][i].copy_(k)
-        cache["v"][i].copy_(v)
+        write_into(cache["k"][i], k)
+        write_into(cache["v"][i], v)
     del k, v
-    x = x + a
-    hn = L.rms_norm(x, lp["norm2"])
+    x = x + _block_out(a)
+    hn = _gathered(L.rms_norm(x, lp["norm2"]))
     if cfg.moe is not None:
         m, aux_l = MOE.moe_apply(lp["moe"], hn, cfg.moe, cfg.mlp_act)
     else:
         m, aux_l = L.mlp_apply(lp["mlp"], hn, cfg.mlp_act), None
-    return x + m, aux_l
+    return x + _block_out(m), aux_l
 
 
 def _ssm_layer(lp: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -388,8 +524,8 @@ def _hybrid_group(gp: Params, shared: Params, x: torch.Tensor,
                                return_state=cache is not None)
         if cache is not None:
             out, st = out
-            cache["m_conv"][gi, j].copy_(st["conv"])
-            cache["m_ssm"][gi, j].copy_(st["ssm"])
+            write_into(cache["m_conv"][gi, j], st["conv"])
+            write_into(cache["m_ssm"][gi, j], st["ssm"])
             del st
         x = x + out
     a, (k, v) = attn_block(shared["attn"], L.rms_norm(x, gp["norm_attn"]),
@@ -397,12 +533,13 @@ def _hybrid_group(gp: Params, shared: Params, x: torch.Tensor,
                            window=cfg.sliding_window, attn_impl=attn_impl,
                            return_kv=True)
     if cache is not None:
-        cache["k"][gi].copy_(k)
-        cache["v"][gi].copy_(v)
+        write_into(cache["k"][gi], k)
+        write_into(cache["v"][gi], v)
     del k, v
-    x = x + a
-    return x + L.mlp_apply(shared["mlp"], L.rms_norm(x, gp["norm_mlp"]),
-                           cfg.mlp_act)
+    x = x + _block_out(a)
+    return x + _block_out(L.mlp_apply(shared["mlp"],
+                                      L.rms_norm(x, gp["norm_mlp"]),
+                                      cfg.mlp_act))
 
 
 # the matrix products without batch dims, which "dots" saves: JAX's
@@ -461,21 +598,51 @@ def embed_tokens(cfg: ArchConfig, params: Params,
     """The tokens' embeddings (or a frontend's ``embeds``), scaled as the
     config asks: a gather whose backward sums repeated tokens in a fixed
     order (indexing's accumulating backward does not, on the CPU). Under a
-    mesh the tokens are a DTensor and the table this rank's plain tensor,
-    made whole by ``loss_fn``: the gather runs on this rank's rows (the
-    reference's vocab-parallel gather is where its sharded step fails,
+    mesh (``lookup_rows``) the gather runs on this rank's rows against the
+    table made whole (``loss_fn`` makes it whole once for the train step;
+    the reference's vocab-parallel gather is where its sharded step fails,
     ROADMAP C2)."""
     if cfg.embedding_frontend_stub and "embeds" in batch:
         x = batch["embeds"]  # modality frontend stub: precomputed embeddings
-    elif is_dtensor(batch["tokens"]):
-        from torch.distributed.tensor import DTensor
-        tok = batch["tokens"]
-        x = DTensor.from_local(F.embedding(tok.to_local(), params["embed"]),
-                               tok.device_mesh, tok.placements,
-                               run_check=False)
     else:
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = lookup_rows(params["embed"], batch["tokens"])
     return scale_embedding(cfg, x)
+
+
+def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` as ``F.embedding``. Under a mesh (DTensor tokens,
+    or a DTensor table) each rank looks up its own tokens in the table made
+    whole (the vocab-parallel gather fails under a batch-sharded index,
+    ROADMAP C18), and the rows come back placed as the tokens are."""
+    if not is_dtensor(tokens) and not is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor
+    if not is_dtensor(tokens):
+        tokens = constrain(replicated_like(tokens, table), "batch",
+                           *(None,) * (tokens.dim() - 1))
+    if is_dtensor(table):
+        table = replicated(table).to_local()
+    return DTensor.from_local(F.embedding(tokens.to_local(), table),
+                              tokens.device_mesh, tokens.placements,
+                              run_check=False)
+
+
+def _cache_buffers(cfg: ArchConfig, x: torch.Tensor, shapes: dict) -> dict:
+    """Uninitialised cache stacks {name: (shape, dtype)} on x's device; a
+    DTensor x (under a mesh) gets DTensors placed by ``cache_specs``, each
+    rank allocating its own shard (the reference pins the prefill's
+    output cache so, ``launch/dryrun.py:82-85``)."""
+    if not is_dtensor(x):
+        return {k: torch.empty(shp, dtype=dt, device=x.device)
+                for k, (shp, dt) in shapes.items()}
+    mesh = x.device_mesh
+    # shapes only: a tensor made here, even on the meta device, would be
+    # counted as a cache-sized allocation by the dry run
+    # (``launch/dryrun.py``)
+    specs = SH.cache_specs(cfg, {k: SimpleNamespace(shape=shp)
+                                 for k, (shp, _) in shapes.items()}, mesh)
+    return {k: SH.empty_placed(shp, dt, specs[k], mesh)
+            for k, (shp, dt) in shapes.items()}
 
 
 def scale_embedding(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -504,7 +671,8 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     ``{"m_conv": [G, k-1, B, W-1, E+2N], "m_ssm": [G, k-1, B, nh, P, N]
     f32, "k", "v": [G, B, Hkv, S, hd]}``. The cache is
     written layer by layer into preallocated stacks, so no second copy of
-    it is ever live."""
+    it is ever live; under a mesh the stacks are DTensors placed by
+    ``cache_specs`` (``_cache_buffers``), each rank holding its shard."""
     check_supported(cfg)
     x = embed_tokens(cfg, params, batch)
     x = constrain(x, "batch", None, None)  # pin batch->data in the residual
@@ -516,28 +684,23 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     if cfg.family == "ssm":
         if collect_cache:
             conv, ssm = ssm_state_shapes(cfg, bsz)
-            cache = {"conv": torch.empty(conv, dtype=x.dtype,
-                                         device=x.device),
-                     "ssm": torch.empty(ssm, dtype=torch.float32,
-                                        device=x.device)}
+            cache = _cache_buffers(cfg, x, {"conv": (conv, x.dtype),
+                                            "ssm": (ssm, torch.float32)})
         body = _remat(_ssm_layer, cfg.remat_policy) if grad else _ssm_layer
         for i, lp in enumerate(params["layers"]):
             x, st = body(lp, x, cfg, cache is not None)
             if cache is not None:
-                cache["conv"][i].copy_(st["conv"])
-                cache["ssm"][i].copy_(st["ssm"])
+                write_into(cache["conv"][i], st["conv"])
+                write_into(cache["ssm"][i], st["ssm"])
             del st
     elif cfg.family == "hybrid":
         positions = torch.arange(s, device=x.device)
         if collect_cache:
             conv, ssm = hybrid_state_shapes(cfg, bsz)
             shape = kv_shape(cfg, bsz, s)
-            cache = {"m_conv": torch.empty(conv, dtype=x.dtype,
-                                           device=x.device),
-                     "m_ssm": torch.empty(ssm, dtype=torch.float32,
-                                          device=x.device),
-                     "k": torch.empty(shape, dtype=x.dtype, device=x.device),
-                     "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+            cache = _cache_buffers(cfg, x, {
+                "m_conv": (conv, x.dtype), "m_ssm": (ssm, torch.float32),
+                "k": (shape, x.dtype), "v": (shape, x.dtype)})
         body = _remat(_hybrid_group, cfg.remat_policy) if grad \
             else _hybrid_group
         for gi, gp in enumerate(params["groups"]):
@@ -547,8 +710,8 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
         positions = torch.arange(s, device=x.device)
         if collect_cache:
             shape = kv_shape(cfg, bsz, s)
-            cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
-                     "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+            cache = _cache_buffers(cfg, x, {"k": (shape, x.dtype),
+                                            "v": (shape, x.dtype)})
         body = _remat(_attn_layer, cfg.remat_policy) if grad \
             else _attn_layer
         for i, lp in enumerate(params["layers"]):

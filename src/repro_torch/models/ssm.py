@@ -40,6 +40,13 @@ outside any Pallas kernel. Differences:
   * an S that is not a multiple of ``min(chunk, S)`` raises ``ValueError``
     (the reference asserts); a prompt is never padded;
   * ``mamba2_decode_step`` updates its state IN PLACE, as Mamba-1's does.
+
+Under a mesh (DTensor inputs) each block, and each decode step, runs on
+each rank's rows with its weights made whole (``dist.sharding.on_rows``),
+where the reference shards the channels on ``model``: DTensor on the
+card's torch (2.11) cannot pad or reshape split channels. A decode step's
+states are gathered on those rows and written back into the cache's
+shards.
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.sharding import replicated_like
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.models import layers as L
@@ -65,6 +73,22 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
         xi = F.pad(x, (0, 0, shift, 0))[:, :s]
         out = out + xi * w[:, i]
     return out + b
+
+
+def _step_on_rows(step, p: dict, x_t: torch.Tensor,
+                  state: Dict[str, torch.Tensor], cfg: SSMConfig):
+    """A decode ``step`` of DTensors on each rank's rows
+    (``dist.sharding.on_rows``): the states, whole on those rows, are
+    updated there and written back into the cache's shards."""
+    keys = list(state)
+
+    def run(pl, xl, *sts):
+        local = dict(zip(keys, sts))
+        return (step(pl, xl, local, cfg),) + tuple(local[k] for k in keys)
+    out, *sts = SH.on_rows(run, p, x_t, *(state[k] for k in keys))
+    for k, v in zip(keys, sts):
+        SH.write_into(state[k], v)
+    return out
 
 
 def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
@@ -98,6 +122,9 @@ def mamba1_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *,
                  return_state: bool = False):
     """Mamba-1 block. x: [B, S, d] -> [B, S, d]; with ``return_state`` also
     the decode state ``{"conv": [B, W-1, E], "ssm": [B, E, N] f32}``."""
+    if SH.is_dtensor(x):
+        return SH.on_rows(lambda pl, xl: mamba1_apply(
+            pl, xl, cfg, return_state=return_state), p, x)
     n = cfg.state_dim
     xs, z = (x @ p["in_proj"]).chunk(2, dim=-1)  # [B, S, E] each
     conv_tail = xs[:, -(cfg.conv_width - 1):].clone()
@@ -123,6 +150,8 @@ def mamba1_decode_step(p: dict, x_t: torch.Tensor,
                        cfg: SSMConfig) -> torch.Tensor:
     """x_t: [B, d]; state: ``{"conv": [B, W-1, E], "ssm": [B, E, N] f32}``,
     both updated IN PLACE. Returns the block output [B, d]."""
+    if SH.is_dtensor(x_t):
+        return _step_on_rows(mamba1_decode_step, p, x_t, state, cfg)
     n = cfg.state_dim
     xs, z = (x_t @ p["in_proj"]).chunk(2, dim=-1)
     xs = F.silu(conv1d_step(xs, state["conv"], p["conv_w"], p["conv_b"]))
@@ -176,6 +205,9 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: SSMConfig, *,
     """Mamba-2 (SSD) block, chunked. x: [B, S, d] -> [B, S, d]; with
     ``return_state`` also the decode state ``{"conv": [B, W-1, E+2N],
     "ssm": [B, nh, P, N] f32}``."""
+    if SH.is_dtensor(x):
+        return SH.on_rows(lambda pl, xl: mamba2_apply(
+            pl, xl, cfg, return_state=return_state), p, x)
     bsz, s, _ = x.shape
     lc = min(cfg.chunk, s)
     if s % lc:
@@ -228,6 +260,8 @@ def mamba2_decode_step(p: dict, x_t: torch.Tensor,
                        cfg: SSMConfig) -> torch.Tensor:
     """x_t: [B, d]; state: ``{"conv": [B, W-1, E+2N], "ssm": [B, nh, P, N]
     f32}``, both updated IN PLACE. Returns the block output [B, d]."""
+    if SH.is_dtensor(x_t):
+        return _step_on_rows(mamba2_decode_step, p, x_t, state, cfg)
     bsz = x_t.shape[0]
     z, xbc, dt, e, n, nh = _split_m2(p, x_t, cfg)
     xbc = F.silu(conv1d_step(xbc, state["conv"], p["conv_w"], p["conv_b"]))

@@ -10,7 +10,15 @@ compiled loop, so a step costs no host time per kernel. A
 ``GreedyDecoder`` keeps its buffers and its graph between batches of one
 shape, so a static server's pool worker captures once. A static server's
 prefill is captured the same way (``PrefillGraph``), once per pool worker
-and prompt shape, and replayed for every batch.
+and prompt shape, and replayed for every batch. ``make_serve_step`` is the
+plain one-token step the dry run traces (``launch/dryrun.py``), and
+``abstract_cache`` its cache as ``TensorSpec``s, nothing allocated.
+
+Under a mesh both steps take DTensor parameters (``dist.sharding.
+param_specs``): the prefill's cache comes out placed by ``cache_specs``
+(the reference pins it, ``launch/dryrun.py:82-85``), and the decode step
+takes a cache placed by ``cache_specs``, context-parallel too
+(``models/model.py::attn_decode_block``).
 
 Ring-cache hand-off: pure sliding-window archs (mixtral) decode over a ring
 of ``window`` slots, position p at slot ``p % window``. After a prefill of S
@@ -20,6 +28,7 @@ window (reference ``serve/decode.py:37-59``).
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -27,6 +36,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.probe import TensorSpec
+from repro_torch.dist.sharding import local_map
 from repro_torch.kernels.build import LaunchCounter
 from repro_torch.models import decode as D
 from repro_torch.models.layers import quantize_kv
@@ -43,33 +54,75 @@ def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "flash_kernel"):
     the f32 temporaries stay one layer big; a hybrid's KV cache is never
     quantized, as the reference's is not. An ssm cache (conv and SSM
     states) is returned as it is, and so are a hybrid's Mamba-2 states.
+    Sequence-sharded activations are off in a prefill, as the reference
+    turns them off (``serve/decode.py:30-32``): nothing is saved for a
+    backward, so they would only add collectives under a mesh.
     """
+    if cfg.seq_shard_activations:
+        cfg = dataclasses.replace(cfg, seq_shard_activations=False)
+
     def prefill(params, batch: Dict[str, torch.Tensor]):
         hidden, _, cache = forward(params, cfg, batch, attn_impl=attn_impl,
                                    collect_cache=True)
         logits = logits_from_hidden(cfg, params, hidden[:, -1:])[:, 0]
         if D.uses_ring(cfg) and "k" in cache:
+            w = cfg.sliding_window
             for name in ("k", "v"):
-                cache[name] = ring_from_prefill(cache.pop(name),
-                                                cfg.sliding_window)
+                t = cache.pop(name)
+                cache[name] = local_map(
+                    lambda x: ring_from_prefill(x, w), t,
+                    t.shape[:3] + (w,) + t.shape[4:])
         if cfg.kv_cache_dtype == "int8" and "k" in cache \
                 and cfg.family != "hybrid":
             q8 = {}
             for name in ("k", "v"):
                 t = cache.pop(name)
-                codes = torch.empty(t.shape, dtype=torch.int8, device=t.device)
-                scales = torch.empty(t.shape[:-1], dtype=torch.bfloat16,
-                                     device=t.device)
-                for i in range(t.shape[0]):
-                    c, s = quantize_kv(t[i])
-                    codes[i].copy_(c)
-                    scales[i].copy_(s)
+                q8[name], q8[name + "_s"] = local_map(
+                    quantize_stack, t, (t.shape, t.shape[:-1]))
                 del t
-                q8[name], q8[name + "_s"] = codes, scales
             cache = q8
         return logits, cache
 
     return prefill
+
+
+def quantize_stack(t: torch.Tensor):
+    """(int8 codes, bf16 scales) of a KV stack ``[L, ...]``, one layer at a
+    time so the f32 temporaries stay one layer big."""
+    codes = torch.empty(t.shape, dtype=torch.int8, device=t.device)
+    scales = torch.empty(t.shape[:-1], dtype=torch.bfloat16, device=t.device)
+    for i in range(t.shape[0]):
+        c, s = quantize_kv(t[i])
+        codes[i].copy_(c)
+        scales[i].copy_(s)
+    return codes, scales
+
+
+def make_serve_step(cfg: ArchConfig):
+    """serve_step(params, cache, tokens [B], pos) -> (logits [B, V] f32,
+    cache): one token against the cache, updated in place
+    (``models.decode.decode_step``). The ``decode_*``/``long_*`` shapes of
+    the dry run trace this function (reference ``serve/decode.py:71-81``);
+    the static and continuous servers replay the same step from a CUDA
+    graph (``GreedyDecoder``, ``serve.engine``)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return D.decode_step(params, cfg, cache, tokens, pos)
+
+    return serve_step
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device=torch.device("cpu")) -> Dict[str, TensorSpec]:
+    """``models.decode.init_cache``'s cache as ``TensorSpec``s on
+    ``device``: shapes and dtypes only, nothing allocated (made on the meta
+    device), as ``train_step.abstract_train_state`` gives the state
+    (reference ``serve/decode.py:108-111``)."""
+    device = torch.device(device)
+    meta = D.init_cache(cfg, batch, max_seq, dtype, device="meta")
+    return {k: TensorSpec(tuple(t.shape), t.dtype, device)
+            for k, t in meta.items()}
 
 
 def ring_from_prefill(t: torch.Tensor, window: int) -> torch.Tensor:

@@ -36,7 +36,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.probe import TensorSpec
-from repro_torch.dist.sharding import is_dtensor
+from repro_torch.dist.sharding import is_dtensor, row_block
 from repro_torch.models.model import TRAIN_FAMILIES, init_params, loss_fn
 from repro_torch.optim import adamw
 
@@ -64,7 +64,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). With ``num_microbatches`` n > 1 the batch's rows are split
     into n consecutive blocks whose gradients are summed in f32
-    accumulators and divided by n, as the reference's scan does.
+    accumulators and divided by n, as the reference's scan does (under a
+    mesh, blocks of each rank's own rows: ``dist.sharding.row_block``).
     ``grad_compressor`` (e.g. ``dist.compression``) maps the gradient tree
     before the optimizer, as in the reference."""
     if cfg.family not in TRAIN_FAMILIES:
@@ -77,16 +78,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         n = num_microbatches or 1
         if n <= 1:
             return _grads(cfg, params, batch, attn_impl)
-        b = batch["tokens"].shape[0]
-        if b % n:
-            raise ValueError(f"batch {b} does not split into {n} "
-                             f"microbatches")
-        m = b // n
         acc = [torch.zeros_like(p, dtype=torch.float32)
                for p in tree_flatten(params)[0]]
         tot = None
         for i in range(n):
-            micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            micro = {k: row_block(v, i, n) for k, v in batch.items()}
             loss, grads = _grads(cfg, params, micro, attn_impl)
             for a, g in zip(acc, grads):
                 a.add_(g)

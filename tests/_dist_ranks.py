@@ -32,6 +32,8 @@ from repro_torch.dist.pipeline import (  # noqa: E402
 )
 from repro_torch.launch.mesh import init_file_group, make_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.serve import decode as TS  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.elastic import (  # noqa: E402
@@ -90,14 +92,101 @@ def case_step(rank, mesh, workdir):
         p = convert.params_from_jax(params, cfg, "cpu")
         o = convert.opt_state_from_jax(state, cfg, "cpu")
         bs = [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
-        seen = set()
-        with recording_constrain(seen):
+        seen, experts = set(), set()
+        with recording_constrain(seen), recording_experts(experts):
             metrics, p, o = sharded_steps(cfg, mesh, p, o, bs)
         placements = sorted({names(x.placements) for x in tree_leaves(p)
                              if isinstance(x, DTensor)})
         out[case] = (metrics, whole(p), whole({"mu": o["mu"],
                                                 "nu": o["nu"]}), o["step"],
                      placements, sorted(seen))
+        if cfg.moe is not None:
+            out[case + ":experts"] = (sorted(experts),
+                                      traced_expert_bytes(cfg, mesh))
+    return out
+
+
+class recording_experts:
+    """The shapes of the expert weights the FFN takes (``wi``) while the
+    block runs, added to ``seen``."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __enter__(self):
+        self.orig = MOE.expert_ffn
+
+        def rec(p, rows, group_sizes, act):
+            self.seen.add(tuple(p["wi"].shape))
+            return self.orig(p, rows, group_sizes, act)
+        MOE.expert_ffn = rec
+
+    def __exit__(self, *exc):
+        MOE.expert_ffn = self.orig
+
+
+def traced_expert_bytes(cfg, mesh) -> int:
+    """The sharded train step of ``cfg`` on ``mesh`` run on fake shards
+    (``launch.dryrun.count_local``: nothing allocated, no collective
+    runs): the bytes of expert weights in its collectives over
+    ``model``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.specs import input_specs
+    from repro_torch.train.train_step import abstract_train_state
+    params, opt = abstract_train_state(cfg, opt_cfg(), torch.float32)
+    batch = input_specs(cfg, ShapeConfig("t", 64, 8, "train"))
+    psp = SH.param_specs(cfg, params, mesh)
+    step = make_train_step(cfg, opt_cfg())
+
+    def body(t):
+        return step(t["params"], {"mu": t["mu"], "nu": t["nu"], "step": 0},
+                    t["batch"])[2]["loss"]
+    counts, _, _ = DR.count_local(
+        body, {"params": params, "mu": opt["mu"], "nu": opt["nu"],
+               "batch": batch},
+        {"params": psp, "mu": psp, "nu": psp,
+         "batch": SH.batch_specs(cfg, batch, mesh)}, mesh)
+    return DR._expert_bytes_over_model(counts.collectives, cfg, mesh)
+
+
+def case_serve(rank, mesh, workdir):
+    """For each case of ``serve.pkl``: the sharded prefill (parameters
+    converted from JAX, placed by ``param_specs``; the batch by
+    ``batch_specs``), its cache's placements, then the cache padded for
+    decode (``serve.decode.decode_cache`` of the whole cache), placed by
+    ``cache_specs`` (context-parallel where asked) and the decode steps on
+    the reference's greedy tokens. Returns the logits, whole."""
+    with open(os.path.join(workdir, "serve.pkl"), "rb") as f:
+        start = pickle.load(f)
+    out = {}
+    for case, (arch, kv, cp, params, tok, feed, max_seq) in start.items():
+        cfg = get_arch(arch).reduced()
+        if kv:
+            cfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        p = convert.params_from_jax(params, cfg, "cpu")
+        p = SH.distribute(p, SH.param_specs(cfg, p, mesh), mesh)
+        batch = {"tokens": torch.from_numpy(tok)}
+        batch = SH.distribute(batch, SH.batch_specs(cfg, batch, mesh), mesh)
+        with SH.activation_mesh(mesh):
+            logits, cache = TS.make_prefill_step(cfg)(p, batch)
+        pinned = {k: (names(v.placements), names(SH.to_placements(
+            SH.cache_specs(cfg, {k: v}, mesh)[k], mesh)))
+            for k, v in cache.items()}
+        cache = TS.decode_cache(cfg, whole(cache), max_seq)
+        cache = SH.distribute(cache, SH.cache_specs(
+            cfg, cache, mesh, context_parallel=cp), mesh)
+        placed = {k: names(v.placements) for k, v in cache.items()}
+        steps = []
+        for i, nxt in enumerate(feed):
+            t = {"tokens": torch.from_numpy(nxt)}
+            t = SH.distribute(t, SH.batch_specs(cfg, t, mesh), mesh)
+            with SH.activation_mesh(mesh):
+                lg, cache = TS.make_serve_step(cfg)(
+                    p, cache, t["tokens"],
+                    torch.tensor(tok.shape[1] + i, dtype=torch.int32))
+            steps.append(lg.full_tensor())
+        out[case] = (logits.full_tensor(), steps, pinned, placed)
     return out
 
 
@@ -265,7 +354,8 @@ def case_one(rank, mesh, workdir):
             "status": res["status"], "chips": res["probe"].chips}
 
 
-CASES = {"step": case_step, "misc": case_misc, "one": case_one}
+CASES = {"step": case_step, "misc": case_misc, "one": case_one,
+         "serve": case_serve}
 
 
 def main():

@@ -35,7 +35,20 @@ package.
         ``(None, None)``), DTensor compression in global blocks, ``constrain``,
         4 compressed steps with error feedback (the loss falls, sharded as
         unsharded), and ``launch.train.train(mesh_shape=(2, 2))`` under the
-        ``ShardedScheduler`` against the unsharded launcher.
+        ``ShardedScheduler`` against the unsharded launcher;
+      - the sharded prefill and 4 decode steps on (2, 2) (``SERVE_CASES``:
+        gemma2-9b with its int8 KV cache and with a bf16 one,
+        falcon-mamba-7b, mixtral-8x7b expert-parallel, zamba2-2.7b, and
+        gemma2-9b and zamba2-2.7b at batch 1 with a context-parallel
+        cache, ``reduced()``) from parameters converted from JAX, the
+        tokens fed the reference's greedy ones, against the unsharded
+        jitted JAX ``make_prefill_step``/``make_serve_step``: logits within
+        2e-3 (``tests/test_torch_model.py``'s tolerance), the prefill's
+        cache placed by ``cache_specs``;
+      - mixtral-8x7b's train steps (and ``+seq``) run expert-parallel:
+        each rank's FFN takes [E/2, d, f] expert weights, and the rank's
+        program of the step, counted on fake shards, moves no expert
+        weight over ``model``.
 """
 import dataclasses
 import os
@@ -62,6 +75,7 @@ from repro.launch import mesh as JMESH  # noqa: E402
 from repro.models import decode as JD  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.optim import adamw as JA  # noqa: E402
+from repro.serve import decode as JS  # noqa: E402
 from repro.train.train_step import make_train_step as jax_step  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.registry import get_arch as port_arch  # noqa: E402
@@ -79,6 +93,15 @@ MESHES = [((1, 1), ("data", "model")), ((2, 2), ("data", "model")),
 # "+seq": the reduced config with the residual's sequence on ``model``
 STEP_CASES = ["qwen1.5-32b", "falcon-mamba-7b", "mixtral-8x7b", "gemma2-9b",
               "gemma2-9b+seq", "mixtral-8x7b+seq"]
+# (arch, KV cache dtype override, batch, context-parallel cache)
+SERVE_CASES = {"gemma2-9b": ("gemma2-9b", "", 2, False),
+               "gemma2-9b+bf16": ("gemma2-9b", "bfloat16", 2, False),
+               "falcon-mamba-7b": ("falcon-mamba-7b", "", 2, False),
+               "mixtral-8x7b": ("mixtral-8x7b", "", 2, False),
+               "zamba2-2.7b": ("zamba2-2.7b", "", 2, False),
+               "gemma2-9b+cp": ("gemma2-9b", "", 1, True),
+               "zamba2-2.7b+cp": ("zamba2-2.7b", "", 1, True)}
+SERVE_S, SERVE_PAD, SERVE_STEPS = 64, 8, 4
 LR, STEPS, WORLD = 1e-3, 2, 4
 SPAWN_TIMEOUT_S = 240
 
@@ -273,9 +296,45 @@ def _wait(procs, case, workdir):
         return pickle.load(f)
 
 
+def _serve_cfg(case):
+    arch, kv, _, _ = SERVE_CASES[case]
+    cfg = get_arch(arch).reduced()
+    return dataclasses.replace(cfg, kv_cache_dtype=kv) if kv else cfg
+
+
+def _jax_serve(case):
+    """The unsharded jitted JAX prefill and ``SERVE_STEPS`` greedy decode
+    steps: (start entry for the ranks, (prefill logits, step logits))."""
+    cfg = _serve_cfg(case)
+    b = SERVE_CASES[case][2]
+    params = JM.init_params(cfg, jax.random.PRNGKey(0))
+    tok = np.random.default_rng(5).integers(0, cfg.vocab, (b, SERVE_S),
+                                            dtype=np.int32)
+    logits, cache = jax.jit(JS.make_prefill_step(cfg, attn_impl="flash_jnp"))(
+        params, {"tokens": jnp.asarray(tok)})
+    if cfg.family != "ssm" and not JD.uses_ring(cfg):
+        # the KV padded as the port's ``decode_cache`` pads it (states kept)
+        kv = {k: v for k, v in cache.items() if k in ("k", "v", "k_s", "v_s")}
+        empty = JD.init_cache(cfg, b, SERVE_S + SERVE_PAD)
+        cache = {**cache, **JD.cache_insert({k: empty[k] for k in kv}, kv, 0)}
+    serve = jax.jit(JS.make_serve_step(cfg))
+    feed, steps = [], []
+    nxt = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    for i in range(SERVE_STEPS):
+        feed.append(np.asarray(nxt))
+        lg, cache = serve(params, cache, nxt, jnp.asarray(SERVE_S + i,
+                                                          jnp.int32))
+        steps.append(np.asarray(lg))
+        nxt = jnp.argmax(lg, axis=-1).astype(jnp.int32)
+    start = (SERVE_CASES[case][0], SERVE_CASES[case][1],
+             SERVE_CASES[case][3], _np(params), tok, feed,
+             SERVE_S + SERVE_PAD)
+    return start, (np.asarray(logits), steps)
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """Both spawns, started together; while they run, the reference's
+    """The spawns, started together; while they run, the reference's
     unsharded jitted steps from the same states on the same batches."""
     workdir = str(tmp_path_factory.mktemp("dist"))
     start, want = {}, {}
@@ -291,7 +350,12 @@ def ranks(tmp_path_factory):
         start[case] = (_np(params), _np(state), batches)
     with open(os.path.join(workdir, "start.pkl"), "wb") as f:
         pickle.dump(start, f)
-    procs = {case: _launch(case, workdir) for case in ("step", "misc")}
+    serve = {case: _jax_serve(case) for case in SERVE_CASES}
+    with open(os.path.join(workdir, "serve.pkl"), "wb") as f:
+        pickle.dump({case: st for case, (st, _) in serve.items()}, f)
+    want["serve"] = {case: w for case, (_, w) in serve.items()}
+    procs = {case: _launch(case, workdir)
+             for case in ("step", "misc", "serve")}
     procs["one"] = _launch("one", workdir, world=1)
     try:
         for case, (params, state, batches) in start.items():
@@ -336,6 +400,37 @@ def test_sharded_step_matches_the_unsharded_jitted_jax_step(ranks, arch):
     # the residual's sequence went onto ``model`` exactly where asked
     seq = (("Shard", 0), ("Shard", 1))
     assert (seq in residual) == arch.endswith("+seq"), residual
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mixtral-8x7b+seq"])
+def test_mixtral_steps_run_expert_parallel(ranks, arch):
+    """E = 4 on a 2-wide ``model`` axis: each rank's FFN takes its 2
+    experts' weights whole in d (gathered over ``data`` only), and the
+    rank's counted program of the step (``launch.dryrun.count_local``)
+    carries no expert weight in a collective over ``model``."""
+    shapes, moved = ranks[0]["step"][arch + ":experts"]
+    cfg = _step_cfg(port_arch, arch)
+    e = cfg.moe.num_experts
+    assert shapes == [(e // 2, cfg.d_model, cfg.d_ff)]
+    assert moved == 0
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_CASES))
+def test_sharded_prefill_and_decode_match_the_unsharded_jax_steps(ranks,
+                                                                   case):
+    logits, steps, pinned, placed = ranks[0]["serve"][case]
+    want_logits, want_steps = ranks[1]["serve"][case]
+    np.testing.assert_allclose(logits, want_logits, rtol=2e-3, atol=2e-3)
+    assert len(steps) == len(want_steps) == SERVE_STEPS
+    for got, want in zip(steps, want_steps):
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    # the prefill's cache came out placed by ``cache_specs``
+    for key, (have, spec) in pinned.items():
+        assert have == spec, key
+    if SERVE_CASES[case][3]:  # the KV's sequence on ``data``
+        assert placed["k"][0] == ("Shard", 3), placed
+    elif "k" in placed:
+        assert placed["k"][0] == ("Shard", 1), placed
 
 
 @pytest.mark.parametrize("n_micro", [4, 8])
