@@ -226,7 +226,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    same mesh through ``make_train_step(grad_compressor=...)`` with the
    int8 compression's error feedback (``dist.compression``), one batch
    repeated: the loss must fall; the compression's ms a step is printed
-   beside the step's.
+   beside the step's. Then (a) checkpointed sharded training:
+   falcon-mamba-7b at every published width and 2 of 64 layers (f32,
+   batch 4 x 1024, remat full, the seed and lr of 10) trains 4 steps
+   uninterrupted on the (1, 1) mesh, then 2 steps of the same 4-step
+   schedule (``total_steps=4``) with a checkpoint at step 2 (gathered
+   leaf by leaf, written by rank 0), resumed to 4 steps on the mesh and
+   again, from the same directory, unsharded. Fails unless both resumed
+   runs' losses, grad norms and final parameters are within the f32 train
+   tolerances of the uninterrupted run's (whether the bits match is
+   printed), the scan and RMSNorm launches of the resumed steps are
+   exactly the formula's, probe/observed >= 1.0 over each resumed run
+   (the restore, its steps and its save) and nothing crashed; prints the
+   bytes written, the gather, copy and write seconds and each restore's.
+   (b) A one-stage pipeline (``dist.pipeline`` on a (1,) mesh, no
+   transfer): gemma2-9b's first 2 layers at every published width,
+   stacked as the stage's slice, the port's attention layer over it, f32,
+   batch 4 x 1024 in 4 microbatches, the loss the mean of the outputs'
+   squares. Fails unless the gradients of the stage params and of x are
+   within 1e-3 of their largest magnitude of autograd through the same
+   layers without the pipeline and the flash and RMSNorm forward and
+   backward launches are exactly the formula's (a forward, a recompute and
+   a backward a microbatch); prints both device ms.
 14. dryrun (``start_dryrun`` right after the build, ``phase_dryrun`` after
    ``phase_dist``): the production-mesh dry run in processes of its own,
    started together and run beside the earlier phases (they run on the
@@ -2922,11 +2943,187 @@ def phase_train(torch, arch: str) -> dict:
 
 DIST_ARCH = "gemma2-9b"
 DIST_COMPRESSED_LAYERS, DIST_COMPRESSED_STEPS = 2, 4
+# the checkpointed sharded run: falcon-mamba-7b at every width and 2 of 64
+# layers (about 0.5e9 parameters, 6e9 B of f32 state a checkpoint), 4 steps
+# uninterrupted against 2, a checkpoint, and 2 resumed
+DIST_CKPT_ARCH, DIST_CKPT_LAYERS = "falcon-mamba-7b", 2
+DIST_CKPT_STEPS, DIST_CKPT_AT = 4, 2
+# the one-stage pipeline: gemma2-9b's first 2 layers in 4 microbatches
+DIST_PIPE_LAYERS, DIST_PIPE_MICRO = 2, 4
+
+
+def params_close(got, want, lr: float):
+    """(max abs diff / lr, elements beyond 1e-2 lr, elements) of two
+    parameter trees on the host, leaf by leaf."""
+    from torch.utils._pytree import tree_leaves
+    top, far, n = 0.0, 0, 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        e = (a.float() - b.float()).abs()
+        top = max(top, float(e.max()))
+        far += int((e > 1e-2 * lr).sum())
+        n += e.numel()
+    return top / lr, far, n
+
+
+def dist_checkpoints(torch, sharded_scheduler) -> dict:
+    """Leg (a) of ``phase_dist``: checkpointed sharded training on the
+    (1, 1) mesh (module docstring, 13). Returns the resumed runs' launches."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import train
+    dev = torch.device("cuda", 0)
+    arch, steps, at = DIST_CKPT_ARCH, DIST_CKPT_STEPS, DIST_CKPT_AT
+    cfg = full_cfg(arch, DIST_CKPT_LAYERS)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+              n_layers=DIST_CKPT_LAYERS, lr=TRAIN_LR, log_every=1,
+              total_steps=steps)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    launches = {}
+    try:
+        fresh_card(torch)
+        full = train(arch, steps=steps, mesh_shape=(1, 1), keep_state=True,
+                     scheduler=sharded_scheduler(), **kw)
+        del full["opt_state"]
+        fresh_card(torch)
+        part = train(arch, steps=at, mesh_shape=(1, 1), ckpt_dir=ckpt_dir,
+                     ckpt_every=at, scheduler=sharded_scheduler(), **kw)
+        ck = part["checkpoint"]
+        print(f"[dist] checkpoint of {arch}, every published width, "
+              f"{DIST_CKPT_LAYERS} of 64 layers, at step {at} on the (1, 1) "
+              f"mesh: {ck['nbytes']} B written by rank 0; gather "
+              f"{ck['gather_s']:.3f} s, copy to the host {ck['copy_s']:.3f} "
+              f"s (the gather included), write {ck['write_s']:.3f} s",
+              flush=True)
+        for name, mesh_shape in (("mesh", (1, 1)), ("unsharded", None)):
+            if name == "unsharded":
+                # the mesh's resumed run committed step 4 beside step 2
+                shutil.rmtree(os.path.join(ckpt_dir, f"step_{steps:08d}"))
+            left = fresh_card(torch)
+            for c in counters().values():
+                c.reset()
+            more = {"scheduler": sharded_scheduler()} if mesh_shape else {}
+            res = train(arch, steps=steps, mesh_shape=mesh_shape,
+                        ckpt_dir=ckpt_dir, resume=True, keep_state=True,
+                        **more, **kw)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated(dev)
+            want = expected_train_launches(cfg, steps - at)
+            got = {k: counts[k] for k in want}
+            launches[name] = got
+            d_loss = max(abs(a - b) for a, b in zip(
+                res["losses"], full["losses"][at:]))
+            d_gn = max(abs(a - b) / b for a, b in zip(
+                res["grad_norms"], full["grad_norms"][at:]))
+            top, far, n = params_close(res["params"], full["params"],
+                                       TRAIN_LR)
+            bits = (res["losses"] == full["losses"][at:]
+                    and res["grad_norms"] == full["grad_norms"][at:]
+                    and top == 0.0)
+            ratio = res["probe"].hbm_bytes / peak
+            print(f"[dist] {arch} resumed from step "
+                  f"{res['start_step']} to {steps} "
+                  + ("on the (1, 1) mesh" if mesh_shape else "unsharded")
+                  + f": {res['status']}; restore "
+                  f"{res['attempts'][0].get('restore_s', float('nan')):.3f} "
+                  f"s; losses {[round(x, 6) for x in res['losses']]} "
+                  f"(uninterrupted {[round(x, 6) for x in full['losses']]}, "
+                  f"max diff {d_loss:.3e}), grad norm max rel diff "
+                  f"{d_gn:.3e}, parameters max diff {top:.3e} lr with {far} "
+                  f"of {n} beyond 1e-2 lr; bits "
+                  f"{'match' if bits else 'differ'}; probe hbm "
+                  f"{res['probe'].hbm_bytes} B vs observed "
+                  f"max_memory_allocated {peak} B over the run ({left} B "
+                  f"allocated before; probe/observed {ratio:.4f}); "
+                  f"launches {got} (expected {want}); crashed 0", flush=True)
+            if res["status"] != "done" or res["start_step"] != at \
+                    or got != want or d_loss > 1e-3 or d_gn > 1e-3 \
+                    or top > 1.0 or far > 1e-3 * n or ratio < 1.0 \
+                    or not all(math.isfinite(x) for x in res["losses"]):
+                fail(f"dist: the run resumed {name} disagrees with the "
+                     f"uninterrupted one, or its launches or probe are off")
+            del res
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {k: launches["mesh"][k] + launches["unsharded"][k]
+            for k in launches["mesh"]}
+
+
+def dist_pipeline(torch) -> dict:
+    """Leg (b) of ``phase_dist``: gemma2-9b's first 2 layers as the one
+    stage of ``dist.pipeline`` on a (1,) mesh, forward and backward
+    (module docstring, 13). Returns its launches."""
+    from torch.utils._pytree import tree_leaves, tree_map
+    from repro_torch.dist.pipeline import (make_pipeline_forward,
+                                           stack_stage_params)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params
+    dev = torch.device("cuda", 0)
+    fresh_card(torch)
+    cfg = full_cfg("gemma2-9b", DIST_PIPE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    layers = tree_map(lambda *ls: torch.stack(ls), *params["layers"])
+    del params
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model, generator=gen,
+                    device=dev)
+    positions = torch.arange(TRAIN_SEQ, device=dev)
+
+    def attn_layers(sp, h):
+        for j in range(len(sp["norm1"])):
+            h, _ = M._attn_layer(tree_map(lambda t: t[j], sp), h, cfg, j,
+                                 positions, "flash_kernel", None)
+        return h
+
+    def grads(fn, w):
+        w = tree_map(lambda t: t.detach().requires_grad_(), w)
+        h = x.clone().requires_grad_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = (fn(w, h) ** 2).mean()
+        loss.backward()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return (tree_map(lambda t: t.grad, w), h.grad,
+                ev[0].elapsed_time(ev[1]))
+    grads(attn_layers, layers)  # warm-up, not counted
+    pipe = make_pipeline_forward(attn_layers, make_mesh((1,), ("stage",)),
+                                 n_micro=DIST_PIPE_MICRO)
+    for c in counters().values():
+        c.reset()
+    g_w, g_x, pipe_ms = grads(pipe, stack_stage_params(layers, 1))
+    counts = read_counts()
+    r_w, r_x, plain_ms = grads(attn_layers, layers)
+    n, m = DIST_PIPE_LAYERS, DIST_PIPE_MICRO
+    # per microbatch: a forward, a recompute, a backward; per layer two
+    # RMSNorms and one flash attention
+    want = dict.fromkeys(expected_train_launches(cfg, 0), 0)
+    want.update(rmsnorm=2 * m * 2 * n, flash_attention=2 * m * n,
+                rmsnorm_bwd=m * 2 * n, flash_attention_bwd=m * n)
+    got = {k: counts[k] for k in want}
+    worst = max(float((a[0] - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(tree_leaves(g_w), tree_leaves(r_w)))
+    d_x = float((g_x - r_x).abs().max()) / float(r_x.abs().max())
+    print(f"[dist] pipeline of one stage on a (1,) mesh: gemma2-9b's first "
+          f"{n} layers, every published width, f32, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {m} microbatches, loss mean(y^2): gradients "
+          f"against autograd through the same layers unpipelined: stage "
+          f"params max diff {worst:.3e}, x {d_x:.3e} of the largest; "
+          f"device ms forward and backward {pipe_ms:.1f} (unpipelined "
+          f"{plain_ms:.1f}); launches {got} (expected {want})", flush=True)
+    if got != want or worst > 1e-3 or d_x > 1e-3 \
+            or not bool(torch.isfinite(g_x).all()):
+        fail("dist: the pipeline's gradients or launches are off")
+    del layers, g_w, g_x, r_w, r_x, x
+    return got
 
 
 def phase_dist(torch) -> dict:
     """The sharded control plane and the distributed train step, world
-    size 1 (module docstring, 13). Returns the sharded run's launches."""
+    size 1 (module docstring, 13). Returns the launches of its paths: the
+    sharded run, the checkpointed runs and the pipeline."""
     import dataclasses
     import math
     import shutil
@@ -3075,12 +3272,22 @@ def phase_dist(torch) -> dict:
             fail(f"dist: the compressed steps do not lower the loss "
                  f"{losses}")
         del params, state, batch, err
+
+        t_leg = time.perf_counter()
+        paths = {"dist": launches,
+                 "dist checkpoint": dist_checkpoints(torch,
+                                                     sharded_scheduler)}
+        t_ckpt = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
+        paths["dist pipeline"] = dist_pipeline(torch)
+        print(f"[dist] the checkpointed runs took {t_ckpt:.1f} s, the "
+              f"pipeline {time.perf_counter() - t_leg:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store_dir, ignore_errors=True)
     print(f"[dist] phase wall time {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return launches
+    return paths
 
 
 # the dry run's cells (``phase_dryrun``): (arch, shape, multi-pod)
@@ -3905,7 +4112,7 @@ def main() -> None:
     for arch in ("gemma2-9b", "falcon-mamba-7b", "mixtral-8x7b",
                  "zamba2-2.7b"):
         by_path[f"{arch} train"] = phase_train(torch, arch)
-    by_path["dist"] = phase_dist(torch)
+    by_path.update(phase_dist(torch))
     by_path["dryrun"] = phase_dryrun(torch, dryrun)
     by_path["preempt"] = phase_preempt(torch, gpu)
     by_path["obs"] = phase_obs(torch, gpu)

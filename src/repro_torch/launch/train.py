@@ -16,10 +16,24 @@ Port of ``src/repro/launch/train.py``. Differences from the reference:
     convention asks for (``core/workloads.py``), and the default scheduler
     is a ``GangScheduler`` over the mesh's devices; each rank submits the
     task to its own scheduler and its runner trains on its own shards. A
-    sharded run keeps no checkpoints here (``ckpt_dir`` and ``resume``
-    raise) and is not evicted (the sharded and gang schedulers do not
+    sharded run checkpoints as the reference's does (``ckpt_every``, the
+    final save): each DTensor leaf is gathered whole (``full_tensor``, a
+    collective every rank joins, one leaf at a time: the largest leaf
+    whole is the transient on the card, within the gang's probe, which
+    charges the unsharded step) and rank 0 of the default group writes an
+    unsharded run's checkpoint (``train/checkpoint.py``); every rank then
+    waits at a barrier until it is committed. ``resume`` places the
+    parameters and both moments by ``param_specs`` on the current mesh,
+    each rank reading its shard's slice of each leaf, so a checkpoint
+    resumes on any mesh and unsharded, and an unsharded one on a mesh. A
+    sharded run is not evicted (the sharded and gang schedulers do not
     preempt). Gradient compression stays a ``make_train_step`` argument,
     as in the reference, whose launcher exposes none;
+  * ``total_steps`` (default ``steps``) is the length of the learning
+    rate's schedule, which the reference ties to ``steps``: a run of 4
+    steps with ``total_steps=6`` is the first 4 steps of a 6-step run, as
+    a crash after step 4 would leave it, so its resumed run can equal the
+    uninterrupted one;
   * the straggler detector records each step's host time, as the
     reference's does, and the result carries its ``stragglers``;
   * the run goes through the paper's loop on every call: ``probe_fn`` of
@@ -69,6 +83,7 @@ import time
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from repro_torch.configs.base import ShapeConfig
@@ -128,6 +143,7 @@ class TrainRun:
                    attempts=self.attempts, notices=self.notices)
         if self.ckpt is not None:
             out["checkpoint"] = {"nbytes": self.ckpt.nbytes,
+                                 "gather_s": self.ckpt.gather_s,
                                  "copy_s": self.ckpt.copy_s,
                                  "write_s": self.ckpt.write_s}
         return out
@@ -151,7 +167,7 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
               on_step: Optional[Callable[[int], None]] = None,
               keep_state: bool = False,
               num_microbatches: Optional[int] = None,
-              mesh=None) -> TrainRun:
+              mesh=None, total_steps: Optional[int] = None) -> TrainRun:
     """The training run as one task, not yet submitted: its probe (one step
     on ``TensorSpec``s of the state on ``device``, nothing allocated) and
     its runner, which makes the state on the device it is given and trains
@@ -188,14 +204,12 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         if n_layers != cfg.n_layers:
             cuts.append(f"depth {cfg.n_layers} -> {n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    if mesh is not None and (ckpt_dir or resume):
-        raise ValueError("a sharded run keeps no checkpoints (ckpt_dir, "
-                         "resume)")
     dev = torch.device(device) if device is not None \
         else serving_devices(1, None)[0][0]
     shape = ShapeConfig("train", seq, batch, "train")
-    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
-                                total_steps=steps,
+    total = steps if total_steps is None else total_steps
+    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, total // 5 + 1),
+                                total_steps=total,
                                 moment_dtype=cfg.optimizer_moment_dtype)
     step_fn = make_train_step(cfg, opt_cfg, attn_impl=attn_impl,
                               num_microbatches=num_microbatches)
@@ -211,7 +225,10 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
            "probe": vec, "losses": [], "grad_norms": [], "lrs": [],
            "step_ms": [], "device_ms": [], "tokens_per_s": [],
            "start_step": 0, "stragglers": []}
-    ckpt = CK.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    # on a mesh rank 0 writes what every rank gathers
+    writer = mesh is None or dist.get_rank() == 0
+    ckpt = CK.AsyncCheckpointer(ckpt_dir, writer=writer) if ckpt_dir \
+        else None
     task = Task(units=[UnitTask(fn=None, memobjs=frozenset({"train"}),
                                 resources=vec, name="train")], name="train")
     run = TrainRun(ExecJob(job=Job(tasks=[task], name="train"), runners=[]),
@@ -237,9 +254,15 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         if saved or (len(run.attempts) == 1 and resume and ckpt_dir
                      and CK.latest_step(ckpt_dir) is not None):
             t0 = time.perf_counter()
-            # the state's storage, filled from the checkpoint in place
-            params = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
-                                                    device=device), p_spec)
+            # the state's storage, filled from the checkpoint in place: on a
+            # mesh each rank's shards, placed by ``param_specs``
+            if mesh is None:
+                params = tree_map(lambda s: torch.empty(
+                    s.shape, dtype=s.dtype, device=device), p_spec)
+            else:
+                params = SH.zip_map(
+                    lambda s, sp: SH.empty_placed(s.shape, s.dtype, sp, mesh),
+                    p_spec, SH.param_specs(cfg, p_spec, mesh))
             state = {"params": params,
                      "opt": adamw.init_state(opt_cfg, params)}
             start, state = (run.ckpt.restore_into(state) if saved
@@ -269,6 +292,7 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
             # the host mirror an eviction copies into, pinned while the
             # first steps run
             run.ckpt.reserve({"params": p_spec, "opt": o_spec})
+        saved_at = None
         try:
             for step in range(start, steps):
                 if run.ej.preempted.is_set():
@@ -320,11 +344,18 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                 if ckpt_dir and (step + 1) % ckpt_every == 0:
                     run.ckpt.save(step + 1, {"params": params,
                                              "opt": opt_state})
+                    saved_at = step + 1
                 if on_step is not None:
                     on_step(step + 1)
             if ckpt_dir:
-                run.ckpt.save(steps, {"params": params, "opt": opt_state})
+                # the final save, unless ``ckpt_every`` just saved this step
+                if saved_at != steps:
+                    run.ckpt.save(steps, {"params": params,
+                                          "opt": opt_state})
                 run.ckpt.wait()
+                if mesh is not None:
+                    # no rank reads ``latest_step`` before the write commits
+                    dist.barrier()
             if keep_state:
                 out["params"], out["opt_state"] = tree_map(
                     _to_host, (params, opt_state))
@@ -349,7 +380,7 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           scheduler: Optional[Scheduler] = None,
           keep_state: bool = False,
           num_microbatches: Optional[int] = None,
-          mesh_shape=None) -> dict:
+          mesh_shape=None, total_steps: Optional[int] = None) -> dict:
     """Train ``arch`` for ``steps`` steps as one scheduled task
     (``train_job``) at ``priority`` with ``deadline_s``, under
     ``scheduler`` (default: MGB Algorithm 3 over the memory free on the
@@ -367,7 +398,12 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     process group (module docstring); each rank calls ``train`` alike, on
     ``cuda:<rank>`` (or the CPU with ``device="cpu"``), and its scheduler
     (default: a ``GangScheduler`` of the mesh's size over the memory free
-    on this rank's card, less the pool's reserve) places the gang."""
+    on this rank's card, less the pool's reserve) places the gang. Its
+    checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``) are an
+    unsharded run's and resume on any mesh. ``total_steps`` (default
+    ``steps``) is the length of the learning rate's schedule. With
+    ``ckpt_dir`` the result's ``checkpoint`` has the last save's
+    ``nbytes``, ``gather_s``, ``copy_s`` and ``write_s``."""
     mesh = None
     if mesh_shape is None:
         devices, hbm = serving_devices(1, device)
@@ -384,7 +420,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
                     seed=seed, attn_impl=attn_impl, lr=lr,
                     log_every=log_every, keep_state=keep_state,
-                    num_microbatches=num_microbatches, mesh=mesh)
+                    num_microbatches=num_microbatches, mesh=mesh,
+                    total_steps=total_steps)
     if scheduler is None:
         per_chip = hbm - pool_reserve(devices, 1)
         scheduler = (MGBAlg3Scheduler(1, hbm_per_device=per_chip)

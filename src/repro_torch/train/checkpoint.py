@@ -15,6 +15,15 @@ without reading the disk. ``restore_into`` copies a
 checkpoint into a state that already exists, leaf by leaf, so a resumed
 task holds one copy of its state and a leaf's host staging, not two.
 
+A sharded run (a state of DTensors on a mesh) keeps the same layout:
+``AsyncCheckpointer`` gathers each DTensor leaf whole (``full_tensor``, a
+collective every rank joins, one leaf at a time) and one rank (``writer``)
+copies it to the host and writes it, so its checkpoint is an unsharded
+run's, where the reference's docstring speaks of each host writing its own
+shards; ``restore_into`` fills a DTensor leaf's local shard from its
+slice of the stored leaf (read from a memory map, so only the slice is
+read), which places the state on whatever mesh the resumed run has.
+
 The port's tree flattens in ``torch.utils._pytree`` order (dicts in
 insertion order), the reference's in JAX's (keys sorted, layers stacked on
 [L]); ``repro_torch.convert.train_state_from_jax_leaves`` reads a checkpoint
@@ -53,18 +62,23 @@ def _to_storable(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _host_tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A stored leaf as a host tensor over ``arr``'s memory (bf16 from its
+    uint16 bits)."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _from_storable(arr: np.ndarray, dtype: str, like) -> Any:
     """A stored leaf back in the kind of ``like``: a tensor on like's
     device, or a host int."""
     if not isinstance(like, torch.Tensor):
         return int(arr)
-    if dtype == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
     # a copy in torch's own allocation: CPU matrix products may take
     # another summation path for numpy's less aligned buffers
-    return t.to(like.device, copy=True)
+    return _host_tensor(np.ascontiguousarray(arr), dtype).to(like.device,
+                                                              copy=True)
 
 
 def save(ckpt_dir: str, step: int, state: Any) -> str:
@@ -102,11 +116,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_leaves(ckpt_dir: str, step: Optional[int] = None
-                   ) -> Tuple[int, List[np.ndarray], dict]:
+def restore_leaves(ckpt_dir: str, step: Optional[int] = None,
+                   mmap: bool = False) -> Tuple[int, List[np.ndarray], dict]:
     """(step, the stored leaves as numpy arrays in flatten order with bf16
     as uint16 bits, the manifest) of a committed checkpoint (the newest
-    when ``step`` is None), whichever package wrote it."""
+    when ``step`` is None), whichever package wrote it; with ``mmap`` the
+    leaves are read-only memory maps, read where they are indexed."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -114,7 +129,8 @@ def restore_leaves(ckpt_dir: str, step: Optional[int] = None
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
-    leaves = [np.load(os.path.join(d, _leaf_path(i)))
+    leaves = [np.load(os.path.join(d, _leaf_path(i)),
+                      mmap_mode="r" if mmap else None)
               for i in range(manifest["n_leaves"])]
     return step, leaves, manifest
 
@@ -141,8 +157,10 @@ def restore_into(ckpt_dir: str, state: Any, step: Optional[int] = None
                  ) -> Tuple[int, Any]:
     """Restore a committed checkpoint (the newest when ``step`` is None)
     into the tensors of ``state`` in place, one leaf at a time; host ints
-    are replaced. Returns (step, the state)."""
-    step, arrays, manifest = restore_leaves(ckpt_dir, step)
+    are replaced. A DTensor leaf takes its local shard's slice of the
+    stored leaf. Returns (step, the state)."""
+    from repro_torch.dist import sharding as SH
+    step, arrays, manifest = restore_leaves(ckpt_dir, step, mmap=True)
     leaves, treedef = tree_flatten(state)
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
@@ -154,11 +172,17 @@ def restore_into(ckpt_dir: str, state: Any, step: Optional[int] = None
             continue
         if arr.shape != tuple(ref.shape):
             raise ValueError(f"leaf {i}: {arr.shape} != {tuple(ref.shape)}")
-        host = _from_storable(arr, manifest["dtypes"][i],
-                              torch.empty(0, device="cpu"))
+        dst = ref
+        if SH.is_dtensor(ref):
+            shape, off = SH.local_shape_and_offset(
+                ref.shape, ref.device_mesh, ref.placements)
+            arr = arr[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+            dst = ref.to_local()
+        # read from the memory map: the leaf's (or the shard's) bytes only
+        host = _host_tensor(np.array(arr), manifest["dtypes"][i])
         if host.dtype != ref.dtype:
             raise ValueError(f"leaf {i}: {host.dtype} != {ref.dtype}")
-        ref.copy_(host)
+        dst.copy_(host)
         out.append(ref)
     return step, tree_unflatten(out, treedef)
 
@@ -204,16 +228,24 @@ class AsyncCheckpointer:
     (``restore_into``; the write reads the same buffers, and the next save
     waits for the write before it copies over them), then commits the
     write, which runs beside its training.
+
+    A state of DTensors is gathered leaf by leaf (``full_tensor``) on every
+    rank that saves it; only the ``writer`` (one rank of the mesh) copies
+    the whole leaves to the host and writes them, and the others keep no
+    host copy (``gather_s`` is the gathers' seconds, ``copy_s`` the whole
+    save's on the step's thread).
     """
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    def __init__(self, ckpt_dir: str, keep: int = 3, writer: bool = True):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         self.last_committed: Optional[int] = None
         # the last save's host bytes, seconds of its copy to the host and
         # seconds of its write (set when the write commits)
         self.nbytes = 0
+        self.gather_s = 0.0
         self.copy_s = 0.0
         self.write_s = 0.0
         self._pinned: List[Optional[torch.Tensor]] = []
@@ -226,6 +258,8 @@ class AsyncCheckpointer:
         """Make the pinned buffers for a state shaped like ``like`` (tensors
         or ``TensorSpec``s: shape, dtype, device) on a thread of its own, so
         that the first save only copies; the save waits for them."""
+        if not self.writer:
+            return
         leaves = tree_flatten(like)[0]
 
         def make():
@@ -239,26 +273,37 @@ class AsyncCheckpointer:
     def _to_host(self, leaves) -> list:
         """Host copies of ``leaves``: a card's tensors through the pinned
         buffers (made, or remade where a shape changed), the rest as they
-        are or copied."""
+        are or copied; a DTensor gathered whole first, one leaf at a time.
+        Off the writer a tensor's copy is None."""
         if self._reserving is not None:
             self._reserving.join()
             self._reserving = None
-        if len(self._pinned) != len(leaves) or any(
+        if self.writer and (len(self._pinned) != len(leaves) or any(
                 b is not None and (b.shape != x.shape or b.dtype != x.dtype)
-                for b, x in zip(self._pinned, leaves)):
+                for b, x in zip(self._pinned, leaves))):
             self._pinned = [
                 torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
                 if _on_card(x) else None for x in leaves]
+        from repro_torch.dist.sharding import is_dtensor
+        self.gather_s = 0.0
         out, streams = [], set()
-        for buf, x in zip(self._pinned, leaves):
-            if buf is not None:
-                buf.copy_(x.detach(), non_blocking=True)
-                streams.add(torch.cuda.current_stream(x.device))
-                out.append(buf)
-            elif isinstance(x, torch.Tensor):
-                out.append(x.detach().to("cpu", copy=True))
-            else:
+        for i, x in enumerate(leaves):
+            if is_dtensor(x):
+                t0 = time.perf_counter()
+                x = x.full_tensor()  # a collective: every rank joins
+                if x.is_cuda:
+                    torch.cuda.current_stream(x.device).synchronize()
+                self.gather_s += time.perf_counter() - t0
+            if not isinstance(x, torch.Tensor):
                 out.append(x)
+            elif not self.writer:
+                out.append(None)
+            elif self._pinned[i] is not None:
+                self._pinned[i].copy_(x.detach(), non_blocking=True)
+                streams.add(torch.cuda.current_stream(x.device))
+                out.append(self._pinned[i])
+            else:
+                out.append(x.detach().to("cpu", copy=True))
         for s in streams:
             s.synchronize()
         return out
@@ -270,9 +315,10 @@ class AsyncCheckpointer:
         leaves, treedef = tree_flatten(state)
         host = tree_unflatten(self._to_host(leaves), treedef)
         self.copy_s = time.perf_counter() - t0
-        self.nbytes = sum(x.numel() * x.element_size()
-                          for x in tree_flatten(host)[0]
+        self.nbytes = sum(x.numel() * x.element_size() for x in leaves
                           if isinstance(x, torch.Tensor))
+        if not self.writer:
+            return
 
         def _write():
             t1 = time.perf_counter()

@@ -212,8 +212,71 @@ class recording_constrain:
         M.constrain = self.orig
 
 
-def case_misc(rank, mesh, workdir):
+def pipeline_grads(pipe, w, x, loss, dtensor_mesh=None):
+    """y, the stage params' gradient and x's through ``pipe`` on this
+    rank, for ``loss(y)``: ``w`` a tree of stacked stage params (placed
+    as DTensors sharded on the stage dim of ``dtensor_mesh`` when given;
+    their gradient is then this rank's local shard)."""
+    if dtensor_mesh is not None:
+        w = tree_map(lambda t: SH.distribute(
+            t, ("stage",) + (None,) * (t.dim() - 1), dtensor_mesh), w)
+    w = tree_map(lambda t: t.detach().requires_grad_(), w)
+    x = x.clone().requires_grad_()
+    y = pipe(w, x)
+    loss(y).backward()
+    gw = tree_map(lambda t: t.grad.to_local() if isinstance(t.grad, DTensor)
+                  else t.grad, w)
+    return y.detach(), gw, x.grad
+
+
+def case_pipe(rank, workdir):
+    """The pipeline's forward and backward on the inputs of ``pipe.pkl``:
+    4 stages of tanh layers (8 layers, d 32) at 4 and 8 microbatches with
+    plain and DTensor stage params, and reduced gemma2-9b's 4 attention
+    layers on 2 stages (a (2, 2) ("stage", "rep") mesh: two pipelines of
+    2 stages). Every rank's y, stage params' gradient and x's gradient, by
+    rank."""
+    with open(os.path.join(workdir, "pipe.pkl"), "rb") as f:
+        inp = pickle.load(f)
     out = {}
+    stages = make_mesh((4,), ("stage",), "cpu")
+    w, x = torch.from_numpy(inp["w"]), torch.from_numpy(inp["x"])
+
+    def tanh_layers(sp, h):
+        for wl in sp:
+            h = torch.tanh(h @ wl)
+        return h
+    for n_micro in (4, 8):
+        pipe = make_pipeline_forward(tanh_layers, stages, n_micro=n_micro)
+        sw = stack_stage_params(w, 4)
+        out[f"tanh{n_micro}"] = pipeline_grads(
+            pipe, sw, x, lambda y: (y ** 2).sum())
+        out[f"tanh{n_micro}_dtensor"] = pipeline_grads(
+            pipe, sw, x, lambda y: (y ** 2).sum(), dtensor_mesh=stages)
+
+    cfg = dataclasses.replace(get_arch("gemma2-9b").reduced(), n_layers=4)
+    params = convert.params_from_jax(inp["gemma_params"], cfg, "cpu")
+    layers = tree_map(lambda *ls: torch.stack(ls), *params["layers"])
+    h = torch.from_numpy(inp["gemma_x"])
+    positions = torch.arange(h.shape[1])
+
+    def attn_layers(sp, h):
+        for j in range(len(sp["norm1"])):
+            h, _ = M._attn_layer(tree_map(lambda t: t[j], sp), h, cfg, j,
+                                 positions, "flash_kernel", None)
+        return h
+    two = make_mesh((2, 2), ("stage", "rep"), "cpu")
+    pipe = make_pipeline_forward(attn_layers, two, n_micro=2, axis="stage")
+    out["gemma"] = pipeline_grads(pipe, stack_stage_params(layers, 2), h,
+                                  lambda y: (y ** 2).mean())
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, tree_map(
+        lambda t: t.numpy() if isinstance(t, torch.Tensor) else t, out))
+    return by_rank
+
+
+def case_misc(rank, mesh, workdir):
+    out = {"pipe": case_pipe(rank, workdir)}
     # -- the pipeline: 4 stages, 8 layers, against the sequential stack
     stages = make_mesh((4,), ("stage",), "cpu")
     gen = torch.Generator().manual_seed(0)
@@ -354,8 +417,44 @@ def case_one(rank, mesh, workdir):
             "status": res["status"], "chips": res["probe"].chips}
 
 
+CKPT_ARCH, CKPT_BATCH, CKPT_SEQ = "qwen1.5-32b", 4, 32
+CKPT_STEPS, CKPT_AT = 6, 4
+
+
+def case_ckpt(rank, mesh, workdir):
+    """Checkpoints of a sharded run through ``launch.train.train``: 6 steps
+    uninterrupted on (2, 2); the first 4 of them (``total_steps=6``) with a
+    checkpoint at step 4 (copied, by rank 0, to ``ckpt_b`` and ``ckpt_c``
+    before anything resumes); resumed to 6 steps on (2, 2) from ``ckpt_a``
+    and on (4, 1) from ``ckpt_b``. Each run's losses, grad norms and final
+    parameters (whole, on the host)."""
+    import shutil
+    from repro_torch.launch.train import train
+    kw = dict(batch=CKPT_BATCH, seq=CKPT_SEQ, device="cpu", lr=LR,
+              log_every=100, keep_state=True, total_steps=CKPT_STEPS)
+    dirs = {k: os.path.join(workdir, f"ckpt_{k}") for k in "abc"}
+
+    def run(**more):
+        res = train(CKPT_ARCH, **kw, **more)
+        return {"losses": res["losses"], "gnorms": res["grad_norms"],
+                "start": res["start_step"], "params": res["params"],
+                "status": res["status"]}
+    out = {"full": run(steps=CKPT_STEPS, mesh_shape=(2, 2)),
+           "part": run(steps=CKPT_AT, mesh_shape=(2, 2),
+                       ckpt_dir=dirs["a"], ckpt_every=CKPT_AT)}
+    if rank == 0:
+        for k in "bc":
+            shutil.copytree(dirs["a"], dirs[k])
+    dist.barrier()
+    out["same"] = run(steps=CKPT_STEPS, mesh_shape=(2, 2),
+                      ckpt_dir=dirs["a"], resume=True)
+    out["other"] = run(steps=CKPT_STEPS, mesh_shape=(4, 1),
+                       ckpt_dir=dirs["b"], resume=True)
+    return out
+
+
 CASES = {"step": case_step, "misc": case_misc, "one": case_one,
-         "serve": case_serve}
+         "serve": case_serve, "ckpt": case_ckpt}
 
 
 def main():

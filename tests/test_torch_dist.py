@@ -48,7 +48,30 @@ package.
       - mixtral-8x7b's train steps (and ``+seq``) run expert-parallel:
         each rank's FFN takes [E/2, d, f] expert weights, and the rank's
         program of the step, counted on fake shards, moves no expert
-        weight over ``model``.
+        weight over ``model``;
+      - the pipeline's backward against ``jax.grad`` through the
+        reference's ``make_pipeline_forward`` on an Auto mesh of 4 host
+        devices (``_jax_pipeline.py``, a subprocess started beside the
+        ranks): the reference's own setup (4 stages, L = 8, d = 32, x [8,
+        16, 32], w and x drawn with numpy from a seed) at 4 and 8
+        microbatches, stage params plain and as DTensors, y and both
+        gradients on every rank within 1e-5; reduced gemma2-9b's 4
+        attention layers on 2 stages (two pipelines on a (2, 2) ("stage",
+        "rep") mesh) against the reference's layers under the same
+        pipeline, within 2e-3 of each tensor's largest magnitude (the
+        reduced model's f32 parity, ``tests/test_torch_model.py``); and
+        ROADMAP C23, the reference's gradient refused on ``jax.make_mesh``'s
+        default Explicit mesh;
+      - checkpoints of a sharded run (reduced qwen1.5-32b, batch 4 x 32,
+        the reference's ``test_train_resume_matches_uninterrupted``):
+        ``launch.train.train(mesh_shape=(2, 2), ckpt_dir=..., ckpt_every=4,
+        steps=4, total_steps=6)``, then resumed to 6 steps on (2, 2) (bit
+        for bit the uninterrupted 6-step (2, 2) run), on (4, 1) and in
+        this process unsharded (within the f32 parity tolerances), all
+        three within ``case_step``'s tolerances of 6 steps of the
+        unsharded jitted JAX ``make_train_step`` from the same start; the
+        checkpoint has an unsharded run's manifest, and its leaves are
+        within the f32 tolerances of an unsharded port run's at step 4.
 """
 import dataclasses
 import os
@@ -104,6 +127,9 @@ SERVE_CASES = {"gemma2-9b": ("gemma2-9b", "", 2, False),
 SERVE_S, SERVE_PAD, SERVE_STEPS = 64, 8, 4
 LR, STEPS, WORLD = 1e-3, 2, 4
 SPAWN_TIMEOUT_S = 240
+# the sharded checkpoints' runs (``_dist_ranks.case_ckpt``)
+CKPT_ARCH, CKPT_BATCH, CKPT_SEQ, CKPT_STEPS, CKPT_AT = (
+    "qwen1.5-32b", 4, 32, 6, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -332,12 +358,75 @@ def _jax_serve(case):
     return start, (np.asarray(logits), steps)
 
 
+def _pipeline_inputs(workdir):
+    """The pipeline cases' inputs (``pipe.pkl``), drawn with numpy from a
+    seed: the tanh stack's w [8, 32, 32] and x [8, 16, 32]; reduced
+    gemma2-9b's parameters at 4 layers (JAX's ``init_params``) and hidden
+    states [4, 128, d]."""
+    rng = np.random.default_rng(0)
+    cfg = dataclasses.replace(get_arch("gemma2-9b").reduced(), n_layers=4)
+    inp = {"w": (rng.standard_normal((8, 32, 32)) * 0.1).astype(np.float32),
+           "x": rng.standard_normal((8, 16, 32)).astype(np.float32),
+           "gemma_params": _np(JM.init_params(cfg, jax.random.PRNGKey(0))),
+           "gemma_x": rng.standard_normal(
+               (4, 128, cfg.d_model)).astype(np.float32)}
+    with open(os.path.join(workdir, "pipe.pkl"), "wb") as f:
+        pickle.dump(inp, f)
+
+
+def _jax_layout(params):
+    """A dense model's port parameters (numpy) in the reference's tree: the
+    per-layer dicts stacked on [L]."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = jax.tree_util.tree_map(lambda *ls: np.stack(ls),
+                                           *params["layers"])
+    return out
+
+
+def _ckpt_opt(mod):
+    """The launcher's AdamW for a run of ``CKPT_STEPS`` steps."""
+    return mod.AdamWConfig(lr=LR, warmup_steps=min(20, CKPT_STEPS // 5 + 1),
+                           total_steps=CKPT_STEPS)
+
+
+def _jax_ckpt_run():
+    """``CKPT_STEPS`` steps of the unsharded jitted JAX step from the
+    port launcher's start (``init_params`` at seed 0, moved to the
+    reference's tree) on the launcher's batches."""
+    from repro.configs.base import ShapeConfig
+    from repro.data.pipeline import TokenPipeline as JPipe
+    cfg, tcfg = get_arch(CKPT_ARCH).reduced(), port_arch(CKPT_ARCH).reduced()
+    start = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                           torch.float32, torch.device("cpu"))
+    params = _jax_layout(jax.tree_util.tree_map(
+        lambda t: t.numpy(), start))
+    state = JA.init_state(_ckpt_opt(JA), params)
+    step = jax.jit(jax_step(cfg, _ckpt_opt(JA), attn_impl="flash"))
+    pipe = JPipe(cfg, ShapeConfig("train", CKPT_SEQ, CKPT_BATCH, "train"),
+                 seed=0, batch_override=CKPT_BATCH, seq_override=CKPT_SEQ)
+    metrics = []
+    for i in range(CKPT_STEPS):
+        params, state, m = step(params, state, {
+            k: jnp.asarray(v) for k, v in pipe.batch_at(i).items()})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, convert.params_from_jax(_np(params), tcfg, "cpu")
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The spawns, started together; while they run, the reference's
-    unsharded jitted steps from the same states on the same batches."""
+    """The spawns and the reference's pipeline gradients, started
+    together; while they run, the reference's unsharded jitted steps from
+    the same states on the same batches."""
     workdir = str(tmp_path_factory.mktemp("dist"))
-    start, want = {}, {}
+    start, want = {}, {"workdir": workdir}
+    _pipeline_inputs(workdir)
+    jax_pipe = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "_jax_pipeline.py"),
+         os.path.join(workdir, "pipe.pkl"),
+         os.path.join(workdir, "jax_pipe.pkl")],
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                 XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     for case in STEP_CASES:
         cfg = _step_cfg(get_arch, case)
         params = JM.init_params(cfg, jax.random.PRNGKey(0))
@@ -355,9 +444,10 @@ def ranks(tmp_path_factory):
         pickle.dump({case: st for case, (st, _) in serve.items()}, f)
     want["serve"] = {case: w for case, (_, w) in serve.items()}
     procs = {case: _launch(case, workdir)
-             for case in ("step", "misc", "serve")}
+             for case in ("step", "misc", "serve", "ckpt")}
     procs["one"] = _launch("one", workdir, world=1)
     try:
+        want["ckpt"] = _jax_ckpt_run()
         for case, (params, state, batches) in start.items():
             cfg = _step_cfg(get_arch, case)
             step = jax.jit(jax_step(cfg, _opt(JA), attn_impl="flash"))
@@ -370,6 +460,7 @@ def ranks(tmp_path_factory):
             want[case] = (metrics, _np(p), _np(s))
     finally:
         out = {case: _wait(ps, case, workdir) for case, ps in procs.items()}
+        out["jax_pipe"] = _wait([jax_pipe], "jax_pipe", workdir)
     return out, want
 
 
@@ -491,3 +582,175 @@ def test_one_device_mesh_gives_the_unsharded_bits(ranks):
     assert got["status"] == "done" and got["chips"] == 1
     assert got["losses"] == got["plain"]
     assert got["gnorms"] == got["plain_gnorms"]
+
+
+# ---------------------------------------------------------------------------
+# the pipeline's backward against jax.grad through the reference's pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_micro", [4, 8])
+@pytest.mark.parametrize("kind", ["plain", "dtensor"])
+def test_pipeline_gradients_match_jax_grad_through_the_reference(
+        ranks, n_micro, kind):
+    """y, the stage params' gradient and x's on every rank: plain stage
+    params get the whole [S, L/S, d, d] gradient, DTensors their own
+    stage's slice as the local shard; x's is stage 0's on every rank."""
+    want_y, want_w, want_x = ranks[0]["jax_pipe"][f"tanh{n_micro}"]
+    key = f"tanh{n_micro}" + ("_dtensor" if kind == "dtensor" else "")
+    per_rank = ranks[0]["misc"]["pipe"]
+    assert len(per_rank) == WORLD
+    for rank, out in enumerate(per_rank):
+        y, gw, gx = out[key]
+        np.testing.assert_allclose(y, want_y, rtol=0, atol=1e-5)
+        w = want_w[rank:rank + 1] if kind == "dtensor" else want_w
+        assert gw.shape == w.shape
+        np.testing.assert_allclose(gw, w, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(gx, want_x, rtol=0, atol=1e-5)
+
+
+def test_pipeline_gradient_through_gemma2_layers_matches_the_reference(ranks):
+    """Reduced gemma2-9b's 4 attention layers (local and global windows,
+    softcaps) on 2 stages of 2 layers, 2 microbatches, the loss the mean of
+    the outputs' squares: y, every stacked layer weight's gradient and x's
+    on every rank, against ``jax.grad`` through the reference's pipeline
+    over the reference's layers."""
+    want = ranks[0]["jax_pipe"]["gemma"]
+    for out in ranks[0]["misc"]["pipe"]:
+        got = out["gemma"]
+        flat_got = jax.tree_util.tree_leaves_with_path(got)
+        flat_want = jax.tree_util.tree_leaves_with_path(want)
+        assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+        for (path, g), (_, w) in zip(flat_got, flat_want):
+            scale = float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-3 * scale,
+                                       err_msg=str(path))
+
+
+def test_reference_pipeline_gradient_refuses_the_default_explicit_mesh(
+        ranks):
+    """ROADMAP C23: on jax 0.9.0 ``jax.make_mesh`` makes Explicit axes, and
+    ``jax.grad`` through the reference's pipeline on it raises; on an Auto
+    mesh (above) it gives the sequential stack's gradient."""
+    err = ranks[0]["jax_pipe"]["explicit_error"]
+    assert err is not None and "Length of device assignment 1" in err \
+        and "jax.set_mesh" in err, err
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a sharded run
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def unsharded_ckpt(ranks, tmp_path_factory):
+    """In this process, unsharded: the first 4 steps of the 6-step run with
+    a checkpoint at step 4, and the sharded run's checkpoint (a copy of
+    ``ckpt_c``) resumed to 6 steps."""
+    import shutil
+    from repro_torch.launch.train import train
+    kw = dict(batch=CKPT_BATCH, seq=CKPT_SEQ, device="cpu", lr=LR,
+              log_every=100, keep_state=True, total_steps=CKPT_STEPS)
+    tmp = tmp_path_factory.mktemp("unsharded_ckpt")
+    part = train(CKPT_ARCH, steps=CKPT_AT, ckpt_dir=str(tmp / "part"),
+                 ckpt_every=CKPT_AT, **kw)
+    shutil.copytree(os.path.join(ranks[1]["workdir"], "ckpt_c"),
+                    tmp / "resumed")
+    resumed = train(CKPT_ARCH, steps=CKPT_STEPS, ckpt_dir=str(tmp / "resumed"),
+                    resume=True, **kw)
+    return str(tmp / "part"), part, resumed
+
+
+def _ckpt_params_close(got, want):
+    errs = np.concatenate([np.abs(np.asarray(g, np.float32)
+                                  - np.asarray(w, np.float32)).ravel()
+                           for g, w in zip(tree_leaves(got),
+                                           tree_leaves(want))])
+    assert errs.max() <= LR
+    assert (errs > 1e-2 * LR).sum() <= 1e-3 * errs.size
+
+
+def test_a_sharded_checkpoint_resumes_bit_equal_on_its_mesh(ranks):
+    got = ranks[0]["ckpt"]
+    full, part, same = got["full"], got["part"], got["same"]
+    assert full["status"] == part["status"] == same["status"] == "done"
+    assert same["start"] == CKPT_AT and part["start"] == 0
+    assert part["losses"] + same["losses"] == full["losses"]
+    assert part["gnorms"] + same["gnorms"] == full["gnorms"]
+    for a, b in zip(tree_leaves(same["params"]), tree_leaves(full["params"])):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["other", "unsharded"])
+def test_a_sharded_checkpoint_resumes_on_another_mesh_and_unsharded(
+        ranks, unsharded_ckpt, where):
+    """Resumed on (4, 1), or in one process without a mesh, from the (2,
+    2) run's step 4: the uninterrupted run's last losses, grad norms and
+    parameters within the f32 parity tolerances."""
+    full = ranks[0]["ckpt"]["full"]
+    res = (ranks[0]["ckpt"]["other"] if where == "other" else
+           {"losses": unsharded_ckpt[2]["losses"],
+            "gnorms": unsharded_ckpt[2]["grad_norms"],
+            "start": unsharded_ckpt[2]["start_step"],
+            "params": tree_map_np(unsharded_ckpt[2]["params"])})
+    assert res["start"] == CKPT_AT
+    np.testing.assert_allclose(res["losses"], full["losses"][CKPT_AT:],
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res["gnorms"], full["gnorms"][CKPT_AT:],
+                               rtol=1e-4)
+    _ckpt_params_close(res["params"], full["params"])
+
+
+def tree_map_np(tree):
+    """A tree of tensors as numpy, in the port's leaf order."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.numpy(), tree)
+
+
+@pytest.mark.parametrize("run", ["full", "same", "other", "unsharded"])
+def test_sharded_checkpoint_runs_match_the_unsharded_jitted_jax_steps(
+        ranks, unsharded_ckpt, run):
+    """Each run's losses and grad norms (the part before the checkpoint,
+    then the resumed steps) and final parameters against 6 steps of the
+    unsharded jitted JAX step from the same start: ``case_step``'s
+    tolerances."""
+    got = ranks[0]["ckpt"]
+    want_m, want_p = ranks[1]["ckpt"]
+    if run == "full":
+        losses, gnorms, params = (got["full"]["losses"],
+                                  got["full"]["gnorms"],
+                                  got["full"]["params"])
+    elif run == "unsharded":
+        res = unsharded_ckpt[2]
+        losses = got["part"]["losses"] + res["losses"]
+        gnorms = got["part"]["gnorms"] + res["grad_norms"]
+        params = tree_map_np(res["params"])
+    else:
+        losses = got["part"]["losses"] + got[run]["losses"]
+        gnorms = got["part"]["gnorms"] + got[run]["gnorms"]
+        params = got[run]["params"]
+    assert len(losses) == CKPT_STEPS
+    for gl, gn, (wl, wn) in zip(losses, gnorms, want_m):
+        assert abs(gl - wl) <= 1e-4
+        assert abs(gn - wn) <= 1e-4 * wn
+    _ckpt_params_close(params, tree_map_np(want_p))
+
+
+def test_a_sharded_checkpoint_has_an_unsharded_runs_layout(ranks,
+                                                           unsharded_ckpt):
+    """The (2, 2) run's checkpoint at step 4 (rank 0 wrote it after the
+    gathers) against the unsharded run's at the same step: the same
+    manifest (tree, leaf order, shapes, dtypes) and leaves within the f32
+    tolerances."""
+    from repro_torch.train import checkpoint as CK
+    sharded = os.path.join(ranks[1]["workdir"], "ckpt_c")
+    step, leaves, manifest = CK.restore_leaves(sharded)
+    ustep, uleaves, umanifest = CK.restore_leaves(unsharded_ckpt[0])
+    assert step == ustep == CKPT_AT
+    assert manifest == umanifest
+    assert os.listdir(sharded) == [f"step_{CKPT_AT:08d}"]
+    n = len(leaves) - 1  # the optimizer's step, an int, comes last
+    assert int(leaves[n]) == int(uleaves[n]) == CKPT_AT
+    params = leaves[:n // 3]
+    _ckpt_params_close(params, uleaves[:n // 3])
+    for a, b in zip(leaves[n // 3:n], uleaves[n // 3:n]):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * float(np.abs(b).max()) + 1e-30)
