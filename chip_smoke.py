@@ -99,19 +99,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    after, every kernel's count checked exactly. Each pool worker keeps one
    decoder (``serve.decode.GreedyDecoder``: the padded cache, buffers and
    the step captured in a CUDA graph on its stream at its first batch), and
-   every later step of every batch is a replay; each worker also captures
-   its prefill once (``serve.decode.PrefillGraph``) and replays it for
-   every batch. The counters see the warm-up and the capture of each
+   every later step of every batch is a replay; the prefill is captured
+   once for the card (``serve.decode.PrefillGraph``, on a stream of its
+   own) and replayed for every batch, the workers taking turns. The
+   counters see the warm-up and the capture of each
    graph, so the check takes them as two steps (or prefills) a captured
    graph, checks the capture and replay counts, and adds replays x
    launches per step (or prefill) to the reported launches.
    - gemma2-9b, full width and depth, bf16: 32 requests in 8 batches of 4,
      prompt 1000, 32 generated tokens; flash attention 42 launches per
      prefill, RMSNorm 85 per prefill and per decode step. Then one batch
-     alone (the batch's probe, its prefill, plus what its worker keeps,
-     the decoder, against ``torch.cuda.max_memory_allocated``: fails below
-     1.0), and the same 32 requests with four pool workers sharing the
-     card, their tokens/s beside one worker's (fails below it), with the
+     alone (the batch's probe, plus what its worker keeps, the decoder,
+     and what the card keeps, the captured prefill, against
+     ``torch.cuda.max_memory_allocated``: fails below 1.0), and the same
+     32 requests with four pool workers sharing the card, their tokens/s
+     beside one worker's (fails below it), with the
      per-batch host, stream and wall times of the prefills and of the
      graphs' warm-ups and captures on 1 and on 4 workers.
    - falcon-mamba-7b, full width and depth, bf16: 32 requests in 8 batches
@@ -229,10 +231,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    beside the step's. Then (a) checkpointed sharded training:
    falcon-mamba-7b at every published width and 2 of 64 layers (f32,
    batch 4 x 1024, remat full, the seed and lr of 10) trains 4 steps
-   uninterrupted on the (1, 1) mesh, then 2 steps of the same 4-step
-   schedule (``total_steps=4``) with a checkpoint at step 2 (gathered
-   leaf by leaf, written by rank 0), resumed to 4 steps on the mesh and
-   again, from the same directory, unsharded. Fails unless both resumed
+   uninterrupted on the (1, 1) mesh with a checkpoint at step 2 and the
+   final one at step 4 (each gathered leaf by leaf, written by rank 0);
+   step 4 is deleted, as a crash after step 2 would leave the directory,
+   and the run resumed to 4 steps on the mesh, then, step 4 deleted
+   again, unsharded. Fails unless both resumed
    runs' losses, grad norms and final parameters are within the f32 train
    tolerances of the uninterrupted run's (whether the bits match is
    printed), the scan and RMSNorm launches of the resumed steps are
@@ -2129,12 +2132,12 @@ class PhaseClock:
 def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
                 n_layers=None, requests: int = 32):
     """One main path: ``arch`` at every published width (depth cut to
-    ``n_layers`` if given) in bf16 through ``serve()``, each pool worker's
-    prefill and decode step replayed from CUDA graphs, with every kernel's
-    launch count checked exactly; then one batch alone (the probe and the
-    worker's reserve against the observed peak: fails below 1.0) and, with
-    ``wide``, the same requests on four pool workers sharing the card
-    (fails where they serve fewer tokens/s than one)."""
+    ``n_layers`` if given) in bf16 through ``serve()``, the prefill and
+    each pool worker's decode step replayed from CUDA graphs, with every
+    kernel's launch count checked exactly; then one batch alone (the probe
+    and the pool's reserve against the observed peak: fails below 1.0)
+    and, with ``wide``, the same requests on four pool workers sharing the
+    card (fails where they serve fewer tokens/s than one)."""
     from repro_torch.launch.serve import serve
     cfg = full_cfg(arch, n_layers)
     kw = dict(full=True, param_dtype=torch.bfloat16, batch=4,
@@ -2167,14 +2170,16 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
           f"{res['p50_tpot_s'] * 1e3:.2f}/{res['p99_tpot_s'] * 1e3:.2f} ms; "
           f"{res['sched_attempts']} admission attempts; scheduler HBM "
           f"{res['hbm_per_device'] / 2**30:.2f} GiB/device", flush=True)
-    kept = res["kept_per_worker"]
+    kept, shared = res["kept_per_worker"], res["kept_per_card"]
     print(f"[serve] {arch} probe per batch (a replayed prefill's first "
           f"tokens; the weights as its arguments): hbm {vec.hbm_bytes} B "
           f"({vec.hbm_bytes / 2**30:.3f} GiB); kept by each pool worker "
-          f"(its captured prefill's pool, the prefill's peak; its decoder: "
-          f"padded cache, buffers, one step; cuBLAS workspace): "
-          f"{kept.hbm_bytes} B, {kept.flops:.4e} flops a prefill and a "
-          f"decode step; {res['prefill_graphs']} prefill and "
+          f"(its decoder: padded cache, buffers, one step; cuBLAS "
+          f"workspace): {kept.hbm_bytes} B, {kept.flops:.4e} flops a "
+          f"decode step; kept once by the card (the captured prefill's "
+          f"pool, the prefill's peak; its stream's cuBLAS workspace): "
+          f"{shared.hbm_bytes} B, {shared.flops:.4e} flops a prefill; "
+          f"{res['prefill_graphs']} prefill and "
           f"{res['decode_graphs']} decode graph(s) captured for "
           f"{res['batches']} batches", flush=True)
     for err in res["errors"]:
@@ -2195,31 +2200,35 @@ def phase_serve(torch, arch: str, prompt_len: int, wide: bool,
     if alone["crashed"] or alone["completed"] != 1:
         fail(f"serve {arch}: the single-batch run did not complete")
     # what the scheduler sets aside for the batch: its probe, and what the
-    # pool worker that runs it keeps (``pool_reserve``)
-    charged = alone["probe"].hbm_bytes + alone["kept_per_worker"].hbm_bytes
+    # pool worker that runs it and the card keep (``pool_reserve``)
+    charged = alone["probe"].hbm_bytes + alone["kept_per_worker"].hbm_bytes \
+        + alone["kept_per_card"].hbm_bytes
     ratio = charged / peak
     print(f"[serve] {arch} one batch alone: probe hbm "
           f"{alone['probe'].hbm_bytes} B + kept by its worker "
-          f"{alone['kept_per_worker'].hbm_bytes} B = {charged} B vs observed "
+          f"{alone['kept_per_worker'].hbm_bytes} B + by the card "
+          f"{alone['kept_per_card'].hbm_bytes} B = {charged} B vs observed "
           f"max_memory_allocated {peak} B ({left} B allocated before the "
           f"run; probe/observed {ratio:.4f}); batch wall "
           f"{alone['wall_s']:.2f} s, TTFT "
           f"{alone['p50_ttft_s'] * 1e3:.1f} ms, TPOT "
           f"{alone['p50_tpot_s'] * 1e3:.2f} ms", flush=True)
     if ratio < 1.0:
-        fail(f"serve {arch}: the probe and the worker's reserve ({charged} "
+        fail(f"serve {arch}: the probe and the pool's reserve ({charged} "
              f"B) are below the observed peak ({peak} B)")
     if not wide:
         return launches
 
-    # the same requests on four pool workers, each on its own stream: 4
-    # probed reservations fit the card, so 4 batches share it at once
+    # the same requests on four pool workers, each on its own stream,
+    # taking turns on the card's captured prefill: 4 probed reservations
+    # fit the card, so 4 batches share it at once
     del alone
     fresh_card(torch)
     free = torch.cuda.mem_get_info()[0]
+    need = 4 * (vec.hbm_bytes + kept.hbm_bytes) + shared.hbm_bytes
     print(f"[serve] {arch} 4 workers, reckoned before serving: 4 x (probe "
-          f"{vec.hbm_bytes} B + kept {kept.hbm_bytes} B) = "
-          f"{4 * (vec.hbm_bytes + kept.hbm_bytes)} B against {free} B free",
+          f"{vec.hbm_bytes} B + kept {kept.hbm_bytes} B) + the card's "
+          f"{shared.hbm_bytes} B = {need} B against {free} B free",
           flush=True)
     with PhaseClock(torch) as four_clock:
         wide_res = serve(arch, requests=requests, workers=4, **kw)
@@ -2965,7 +2974,7 @@ def params_close(got, want, lr: float):
     return top / lr, far, n
 
 
-def dist_checkpoints(torch, sharded_scheduler) -> dict:
+def dist_checkpoints(torch) -> dict:
     """Leg (a) of ``phase_dist``: checkpointed sharded training on the
     (1, 1) mesh (module docstring, 13). Returns the resumed runs' launches."""
     import math
@@ -2975,37 +2984,34 @@ def dist_checkpoints(torch, sharded_scheduler) -> dict:
     dev = torch.device("cuda", 0)
     arch, steps, at = DIST_CKPT_ARCH, DIST_CKPT_STEPS, DIST_CKPT_AT
     cfg = full_cfg(arch, DIST_CKPT_LAYERS)
-    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
+    kw = dict(steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduced=False,
               n_layers=DIST_CKPT_LAYERS, lr=TRAIN_LR, log_every=1,
-              total_steps=steps)
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+              ckpt_dir=tempfile.mkdtemp(prefix="chip_smoke_ckpt_"),
+              keep_state=True)
     launches = {}
     try:
         fresh_card(torch)
-        full = train(arch, steps=steps, mesh_shape=(1, 1), keep_state=True,
-                     scheduler=sharded_scheduler(), **kw)
+        full = train(arch, mesh_shape=(1, 1), ckpt_every=at,
+                     scheduler=sharded_scheduler(torch, dev), **kw)
         del full["opt_state"]
-        fresh_card(torch)
-        part = train(arch, steps=at, mesh_shape=(1, 1), ckpt_dir=ckpt_dir,
-                     ckpt_every=at, scheduler=sharded_scheduler(), **kw)
-        ck = part["checkpoint"]
-        print(f"[dist] checkpoint of {arch}, every published width, "
-              f"{DIST_CKPT_LAYERS} of 64 layers, at step {at} on the (1, 1) "
-              f"mesh: {ck['nbytes']} B written by rank 0; gather "
-              f"{ck['gather_s']:.3f} s, copy to the host {ck['copy_s']:.3f} "
-              f"s (the gather included), write {ck['write_s']:.3f} s",
-              flush=True)
+        ck = full["checkpoint"]
+        print(f"[dist] checkpoints of {arch}, every published width, "
+              f"{DIST_CKPT_LAYERS} of 64 layers, at steps {at} and {steps} "
+              f"on the (1, 1) mesh: {ck['nbytes']} B each, written by rank "
+              f"0; the last: gather {ck['gather_s']:.3f} s, copy to the host "
+              f"{ck['copy_s']:.3f} s (the gather included), write "
+              f"{ck['write_s']:.3f} s; run {full['wall_s']:.1f} s (set-up, "
+              f"steps, saves and the state's copy to the host)", flush=True)
         for name, mesh_shape in (("mesh", (1, 1)), ("unsharded", None)):
-            if name == "unsharded":
-                # the mesh's resumed run committed step 4 beside step 2
-                shutil.rmtree(os.path.join(ckpt_dir, f"step_{steps:08d}"))
+            # the run before committed step 4 beside step 2
+            shutil.rmtree(os.path.join(kw["ckpt_dir"], f"step_{steps:08d}"))
             left = fresh_card(torch)
             for c in counters().values():
                 c.reset()
-            more = {"scheduler": sharded_scheduler()} if mesh_shape else {}
-            res = train(arch, steps=steps, mesh_shape=mesh_shape,
-                        ckpt_dir=ckpt_dir, resume=True, keep_state=True,
-                        **more, **kw)
+            more = ({"scheduler": sharded_scheduler(torch, dev)}
+                    if mesh_shape else {})
+            res = train(arch, mesh_shape=mesh_shape, resume=True, **more,
+                        **kw)
             counts = read_counts()
             peak = torch.cuda.max_memory_allocated(dev)
             want = expected_train_launches(cfg, steps - at)
@@ -3024,7 +3030,8 @@ def dist_checkpoints(torch, sharded_scheduler) -> dict:
             print(f"[dist] {arch} resumed from step "
                   f"{res['start_step']} to {steps} "
                   + ("on the (1, 1) mesh" if mesh_shape else "unsharded")
-                  + f": {res['status']}; restore "
+                  + f": {res['status']}; run {res['wall_s']:.1f} s, "
+                  f"restore "
                   f"{res['attempts'][0].get('restore_s', float('nan')):.3f} "
                   f"s; losses {[round(x, 6) for x in res['losses']]} "
                   f"(uninterrupted {[round(x, 6) for x in full['losses']]}, "
@@ -3044,7 +3051,7 @@ def dist_checkpoints(torch, sharded_scheduler) -> dict:
                      f"uninterrupted one, or its launches or probe are off")
             del res
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(kw["ckpt_dir"], ignore_errors=True)
     return {k: launches["mesh"][k] + launches["unsharded"][k]
             for k in launches["mesh"]}
 
@@ -3120,24 +3127,31 @@ def dist_pipeline(torch) -> dict:
     return got
 
 
+def sharded_scheduler(torch, dev):
+    """A ``ShardedScheduler`` of one chip over the memory free on ``dev``,
+    less the pool's reserve."""
+    from repro_torch.core.scheduler import ShardedScheduler
+    from repro_torch.launch.serve import pool_reserve
+    free = torch.cuda.mem_get_info(dev)[0]
+    return ShardedScheduler(pods=1, rows=1, cols=1,
+                            hbm_per_chip=free - pool_reserve([dev], 1))
+
+
 def phase_dist(torch) -> dict:
     """The sharded control plane and the distributed train step, world
     size 1 (module docstring, 13). Returns the launches of its paths: the
     sharded run, the checkpointed runs and the pipeline."""
-    import dataclasses
     import math
     import shutil
     import tempfile
     import torch.distributed as dist
     from torch.utils._pytree import tree_leaves
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.scheduler import ShardedScheduler
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.data.pipeline import to_device as batch_to
     from repro_torch.dist import compression as C
     from repro_torch.dist import sharding as SH
     from repro_torch.launch.mesh import init_file_group, make_mesh
-    from repro_torch.launch.serve import pool_reserve
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_params
     from repro_torch.optim import adamw
@@ -3155,13 +3169,8 @@ def phase_dist(torch) -> dict:
                   n_layers=TRAIN_LAYERS, lr=TRAIN_LR, log_every=1,
                   mesh_shape=(1, 1))
 
-        def sharded_scheduler():
-            free = torch.cuda.mem_get_info(dev)[0]
-            return ShardedScheduler(
-                pods=1, rows=1, cols=1,
-                hbm_per_chip=free - pool_reserve([dev], 1))
         fresh_card(torch)
-        sched = sharded_scheduler()
+        sched = sharded_scheduler(torch, dev)
         for c in counters().values():
             c.reset()
         t0 = time.perf_counter()
@@ -3209,7 +3218,8 @@ def phase_dist(torch) -> dict:
         del res
 
         left = fresh_card(torch)
-        alone = train(DIST_ARCH, steps=1, scheduler=sharded_scheduler(), **kw)
+        alone = train(DIST_ARCH, steps=1,
+                      scheduler=sharded_scheduler(torch, dev), **kw)
         peak = torch.cuda.max_memory_allocated(dev)
         ratio = alone["probe"].hbm_bytes / peak
         print(f"[dist] {DIST_ARCH} one sharded step alone: probe hbm "
@@ -3275,8 +3285,7 @@ def phase_dist(torch) -> dict:
 
         t_leg = time.perf_counter()
         paths = {"dist": launches,
-                 "dist checkpoint": dist_checkpoints(torch,
-                                                     sharded_scheduler)}
+                 "dist checkpoint": dist_checkpoints(torch)}
         t_ckpt = time.perf_counter() - t_leg
         t_leg = time.perf_counter()
         paths["dist pipeline"] = dist_pipeline(torch)
@@ -4062,7 +4071,26 @@ def phase_paper_nn(torch, gpu: str, dev=None) -> None:
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
 
+def time_phases(mod) -> None:
+    """Wrap every ``phase_*`` function of ``mod`` (this script, or another
+    commit's ``chip_smoke.py`` loaded as a module, so two commits' phases
+    are timed alike) to print each call's wall seconds as ``[time] <phase>
+    [arch] <s> s``; a phase that calls another prints both."""
+    for name in [n for n in vars(mod) if n.startswith("phase_")]:
+        def timed(*args, _fn=getattr(mod, name), _name=name, **kw):
+            arch = [a for a in args if isinstance(a, str) and " " not in a]
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                print(f"[time] {' '.join([_name] + arch[:1])} "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+        setattr(mod, name, timed)
+
+
 def main() -> None:
+    t_run = time.perf_counter()
+    time_phases(sys.modules[__name__])
     torch = setup()
     print(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
           f", CUDA {torch.version.cuda}", flush=True)
@@ -4122,6 +4150,8 @@ def main() -> None:
         entry["launches"] = sum(entry["launches_by_path"].values())
         if not entry["launches"]:
             fail(f"{name} was never launched on a main path")
+    print(f"[time] chip_smoke {time.perf_counter() - t_run:.1f} s",
+          flush=True)
     print(gpu)
     print(json.dumps({"kernels": list(table.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -37,19 +37,20 @@ Differences from the reference:
     the worker's stream and replayed for every later step of every
     batch), where the reference runs a jitted ``lax.scan`` over the
     prefill's cache. A batch's prefill cache is copied into them;
-  * on the card each pool worker also captures its prefill once per
-    prompt shape (``serve.decode.PrefillGraph``) and replays it for every
-    batch, where the reference runs a jitted prefill: its launches leave
-    the interpreter, whose lock otherwise serialises the pool's eager
-    prefills. The graph's pool holds the prefill's peak for the worker's
-    life, so what a batch allocates (``replayed_task``) shrinks by that
-    much and what the worker keeps (``kept_by_worker``) grows by it. On the
-    CPU the prefill runs eagerly;
+  * on the card the prefill is captured once per card and prompt shape
+    (``serve.decode.PrefillGraph``, on a stream of its own) and replayed
+    for every batch, the pool workers taking turns, where the reference
+    runs one jitted prefill: its launches leave the interpreter, whose
+    lock otherwise serialises the pool's eager prefills. The graph's pool
+    holds the prefill's peak for the server's life, so what a batch
+    allocates (``replayed_task``) shrinks by that much, and the card keeps
+    it once (``kept_by_card``). On the CPU the prefill runs eagerly;
   * on a card the scheduler manages the memory free when serving starts,
-    less what each pool worker keeps between tasks (``pool_reserve``: its
-    stream's cuBLAS workspace and, when serving statically, its decoder
-    and captured prefill, probed by ``kept_by_worker``), where the
-    reference sizes it by the device.
+    less what the pool keeps between tasks (``pool_reserve``: each
+    worker's stream's cuBLAS workspace and, when serving statically, each
+    worker's decoder, probed by ``kept_by_worker``, and the captured
+    prefill, ``kept_by_card``), where the reference sizes it by the
+    device.
 
 With ``preempt=True`` (``--preempt``) the scheduler is the preemptive
 Algorithm 3 (reference ``:57-64``): an arriving batch that strictly
@@ -58,7 +59,8 @@ within one) may evict it. The static runner is cooperative: it checks its
 ``ExecJob.preempted`` after the prefill and before each decode step (a
 graph replay on the card; a host check, no synchronisation), and when
 evicted it lets the steps in flight finish and returns, dropping what the
-attempt made; its worker's decoder and captured prefill stay the worker's.
+attempt made; its worker keeps its decoder, and the card the captured
+prefill.
 Serving has no checkpoint: the evicted batch is requeued and served again
 from its prompt, and only the attempt that completes records tokens. The
 result counts ``preemptions`` and ``migrations``.
@@ -94,6 +96,7 @@ Usage (on a machine with an NVIDIA card):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import threading
 import time
@@ -106,7 +109,7 @@ from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.cluster import Cluster, JobStatus
 from repro_torch.core.executor import ExecJob
 from repro_torch.core.probe import (
-    CUDA_UNSEEN_BYTES, TensorSpec, probe_fn, trace_counts,
+    CUDA_UNSEEN_BYTES, TensorSpec, probe_fn,
 )
 from repro_torch.core.scheduler import (
     MGBAlg3Scheduler, PreemptiveAlg3Scheduler,
@@ -115,8 +118,7 @@ from repro_torch.core.scheduler.base import DEFAULT_HBM
 from repro_torch.core.task import Job, Task, UnitTask
 from repro_torch.models.model import FAMILIES, init_params
 from repro_torch.serve.decode import (
-    GreedyDecoder, PrefillGraph, capture_stream, decode_buffers,
-    make_prefill_step,
+    GreedyDecoder, PrefillGraph, decode_buffers, make_prefill_step,
 )
 from torch.utils._pytree import tree_map
 
@@ -156,9 +158,10 @@ def pool_reserve(devices, workers: int,
     worker keeps ``kept`` bytes for as long as the pool lives. Its stream
     keeps the cuBLAS workspace that its first task made (the probe's
     ``CUDA_UNSEEN_BYTES`` covers it while that task runs), the default;
-    a static server's worker also keeps its decoder and, on the card, its
-    captured prefill's pool (``kept_by_worker``, whose probe includes the
-    workspace once)."""
+    a static server's worker also keeps its decoder (``kept_by_worker``,
+    whose probe includes the workspace once). What the workers share, a
+    static server's captured prefill (``kept_by_card``), is set aside
+    beside it."""
     return workers * kept if devices[0].type == "cuda" else 0
 
 
@@ -177,10 +180,10 @@ def static_task(params, batch: dict, cfg):
 
 
 def replayed_task(params, batch: dict, logits: torch.Tensor):
-    """What one static serving task allocates when its worker replays a
-    captured prefill (``PrefillGraph``), for its probe: its first tokens.
-    The prefill's temporaries and outputs (``logits`` among them) live in
-    the graph's pool, which the worker keeps (``kept_by_worker``)."""
+    """What one static serving task allocates when it replays the captured
+    prefill (``PrefillGraph``), for its probe: its first tokens. The
+    prefill's temporaries and outputs (``logits`` among them) live in the
+    graph's pool, which the card keeps (``kept_by_card``)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -197,22 +200,22 @@ def decode_state(params, first: torch.Tensor, cfg, max_seq: int):
     return dec.tokens
 
 
-def kept_by_worker(params, batch: dict, cfg, first: torch.Tensor,
-                   max_seq: int):
-    """The probe of what a static server's pool worker keeps on the card:
-    its decoder (``decode_state``: buffers, one step, the cuBLAS workspace
-    of the worker's stream) and beside it the captured prefill's pool,
-    which holds the prefill's live peak whatever the decoder holds, and
-    the graph's static copy of the batch: the prefill traced alone, its
-    weights uncharged and its unseen bytes (the same workspace) left
-    out."""
-    pool = trace_counts(static_task, params, batch, cfg, uncharged=(0,))
-    dec = probe_fn(decode_state, params, first, cfg, max_seq,
-                   uncharged=(0,))
-    return dataclasses.replace(
-        dec, hbm_bytes=dec.hbm_bytes + pool["arg_bytes"]
-        + pool["peak_live_bytes"], flops=dec.flops + pool["flops"],
-        bytes_accessed=dec.bytes_accessed + pool["bytes_accessed"])
+def kept_by_worker(params, first: torch.Tensor, cfg, max_seq: int):
+    """The probe of what a static server's pool worker keeps: its decoder
+    (``decode_state``: buffers, one step and, on a card, the cuBLAS
+    workspace of the worker's stream), its weights uncharged."""
+    return probe_fn(decode_state, params, first, cfg, max_seq,
+                    uncharged=(0,))
+
+
+def kept_by_card(params, batch: dict, cfg):
+    """The probe of what a static server keeps on a card beside its
+    workers' decoders: the captured prefill (``PrefillGraph``), whose pool
+    holds the prefill's live peak and the graph's static copy of the
+    batch, and whose stream keeps a cuBLAS workspace of its own (the
+    probe's unseen bytes on a card): the prefill traced alone, its
+    weights uncharged."""
+    return probe_fn(static_task, params, batch, cfg, uncharged=(0,))
 
 
 def owned_batch_task(params, batch: dict, cfg, max_seq: int):
@@ -345,27 +348,43 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
 
     batches = [make_batch() for _ in range(n_batches)]
     # probe ONE representative batch's task body: all batches share
-    # shapes, so they share the resource vector; and what a pool worker
-    # keeps between them. Fake tensors only: nothing is allocated.
+    # shapes, so they share the resource vector; and what the pool keeps
+    # between them. Fake tensors only: nothing is allocated.
     first = devices[0]
     batch0 = {k: v.to(first) for k, v in batches[0].items()}
     tokens0 = torch.zeros(batch, dtype=torch.int32, device=first)
+    kept = kept_by_worker(params[first], tokens0, cfg, max_seq)
+    shared = None
     if first.type == "cuda":  # prefills replayed from graphs
         vec = probe_fn(replayed_task, params[first], batch0,
                        TensorSpec((batch, cfg.vocab), torch.float32, first),
                        uncharged=(2,))
-        kept = kept_by_worker(params[first], batch0, cfg, tokens0, max_seq)
+        shared = kept_by_card(params[first], batch0, cfg)
     else:
         vec = probe_fn(static_task, params[first], batch0, cfg)
-        kept = probe_fn(decode_state, params[first], tokens0, cfg, max_seq,
-                        uncharged=(0,))
-    managed = hbm - pool_reserve(devices, workers, kept.hbm_bytes)
+    managed = hbm - pool_reserve(devices, workers, kept.hbm_bytes) \
+        - (shared.hbm_bytes if shared else 0)
     sched = (PreemptiveAlg3Scheduler(num_devices, hbm_per_device=managed)
              if preempt else
              MGBAlg3Scheduler(num_devices, hbm_per_device=managed))
     # (pool thread, device) -> the decoder that thread keeps for it; on
-    # the card (pool thread, device, prompt shape) -> its captured prefill
+    # the card (device, prompt shape) -> the captured prefill, which the
+    # pool threads take turns to replay
     decoders, prefills = {}, {}
+    capturing = threading.Lock()
+
+    def prefilled(p, b, dev):
+        """The prefill's (logits, cache) for batch ``b``, the caller's
+        until the block ends."""
+        if dev.type != "cuda":
+            return contextlib.nullcontext(prefill(p, b))
+        key = (dev, tuple(b["tokens"].shape))
+        with capturing:
+            graph = prefills.get(key)
+            if graph is None:
+                graph = prefills[key] = PrefillGraph(
+                    prefill, p, b, torch.cuda.Stream(dev))
+        return graph.replayed(b)
 
     cluster = Cluster(sched, workers=workers, devices=devices,
                       shed_late=shed_late, preempt=preempt or None,
@@ -384,29 +403,23 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
         def runner(dev, i=i, ej=ej):
             p = params[dev]
             b = {k: v.to(dev) for k, v in batches[i].items()}
-            if dev.type == "cuda":
-                key = (threading.get_ident(), dev, tuple(b["tokens"].shape))
-                graph = prefills.get(key)
-                if graph is None:
-                    graph = prefills[key] = PrefillGraph(
-                        prefill, p, b, capture_stream(dev))
-                logits, cache = graph(b)
-            else:
-                logits, cache = prefill(p, b)
-            if not bool(torch.isfinite(logits).all()):
-                raise FloatingPointError(f"req{i}: non-finite prefill logits")
-            first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            _sync(dev)
-            marks[i][1] = time.time()
-            if ej.preempted.is_set():
-                return  # evicted: requeued and served again from its prompt
             key = (threading.get_ident(), dev)
             dec = decoders.get(key)
             if dec is None:
                 dec = decoders[key] = GreedyDecoder(cfg, p, decode_buffers(
                     cfg, batch, max_seq, p["embed"].dtype, dev))
-            dec.load(cache, first_tok, prompt_len)
-            del logits, cache  # the decoder holds what decode reads
+            with prefilled(p, b, dev) as (logits, cache):
+                if not bool(torch.isfinite(logits).all()):
+                    raise FloatingPointError(
+                        f"req{i}: non-finite prefill logits")
+                first_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                # the decoder holds what decode reads
+                dec.load(cache, first_tok, prompt_len)
+                del logits, cache
+            _sync(dev)
+            marks[i][1] = time.time()
+            if ej.preempted.is_set():
+                return  # evicted: requeued and served again from its prompt
             out = dec.generate(gen_len - 1, stop=ej.preempted.is_set)
             if out is None:
                 return
@@ -460,7 +473,8 @@ def serve(arch: str, *, requests: int = 16, batch: int = 4,
             "migrations": stats["migrations"],
             "sched_attempts": stats["sched_attempts"],
             "placements": sched.placements,
-            "probe": vec, "kept_per_worker": kept, "decode_graphs": graphs,
+            "probe": vec, "kept_per_worker": kept, "kept_per_card": shared,
+            "decode_graphs": graphs,
             "prefill_graphs": prefill_graphs,
             "hbm_per_device": sched.devices[0].total_hbm,
             "generated": generated}

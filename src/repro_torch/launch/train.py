@@ -29,11 +29,8 @@ Port of ``src/repro/launch/train.py``. Differences from the reference:
     sharded run is not evicted (the sharded and gang schedulers do not
     preempt). Gradient compression stays a ``make_train_step`` argument,
     as in the reference, whose launcher exposes none;
-  * ``total_steps`` (default ``steps``) is the length of the learning
-    rate's schedule, which the reference ties to ``steps``: a run of 4
-    steps with ``total_steps=6`` is the first 4 steps of a 6-step run, as
-    a crash after step 4 would leave it, so its resumed run can equal the
-    uninterrupted one;
+  * the final save is skipped where ``ckpt_every`` has just saved the
+    last step (the same state), where the reference saves it again;
   * the straggler detector records each step's host time, as the
     reference's does, and the result carries its ``stragglers``;
   * the run goes through the paper's loop on every call: ``probe_fn`` of
@@ -167,7 +164,7 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
               on_step: Optional[Callable[[int], None]] = None,
               keep_state: bool = False,
               num_microbatches: Optional[int] = None,
-              mesh=None, total_steps: Optional[int] = None) -> TrainRun:
+              mesh=None) -> TrainRun:
     """The training run as one task, not yet submitted: its probe (one step
     on ``TensorSpec``s of the state on ``device``, nothing allocated) and
     its runner, which makes the state on the device it is given and trains
@@ -207,9 +204,8 @@ def train_job(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     dev = torch.device(device) if device is not None \
         else serving_devices(1, None)[0][0]
     shape = ShapeConfig("train", seq, batch, "train")
-    total = steps if total_steps is None else total_steps
-    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, total // 5 + 1),
-                                total_steps=total,
+    opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 + 1),
+                                total_steps=steps,
                                 moment_dtype=cfg.optimizer_moment_dtype)
     step_fn = make_train_step(cfg, opt_cfg, attn_impl=attn_impl,
                               num_microbatches=num_microbatches)
@@ -380,7 +376,7 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           scheduler: Optional[Scheduler] = None,
           keep_state: bool = False,
           num_microbatches: Optional[int] = None,
-          mesh_shape=None, total_steps: Optional[int] = None) -> dict:
+          mesh_shape=None) -> dict:
     """Train ``arch`` for ``steps`` steps as one scheduled task
     (``train_job``) at ``priority`` with ``deadline_s``, under
     ``scheduler`` (default: MGB Algorithm 3 over the memory free on the
@@ -400,10 +396,9 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     (default: a ``GangScheduler`` of the mesh's size over the memory free
     on this rank's card, less the pool's reserve) places the gang. Its
     checkpoints (``ckpt_dir``, ``ckpt_every``, ``resume``) are an
-    unsharded run's and resume on any mesh. ``total_steps`` (default
-    ``steps``) is the length of the learning rate's schedule. With
-    ``ckpt_dir`` the result's ``checkpoint`` has the last save's
-    ``nbytes``, ``gather_s``, ``copy_s`` and ``write_s``."""
+    unsharded run's and resume on any mesh. With ``ckpt_dir`` the result's
+    ``checkpoint`` has the last save's ``nbytes``, ``gather_s``,
+    ``copy_s`` and ``write_s``."""
     mesh = None
     if mesh_shape is None:
         devices, hbm = serving_devices(1, device)
@@ -420,8 +415,7 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
                     seed=seed, attn_impl=attn_impl, lr=lr,
                     log_every=log_every, keep_state=keep_state,
-                    num_microbatches=num_microbatches, mesh=mesh,
-                    total_steps=total_steps)
+                    num_microbatches=num_microbatches, mesh=mesh)
     if scheduler is None:
         per_chip = hbm - pool_reserve(devices, 1)
         scheduler = (MGBAlg3Scheduler(1, hbm_per_device=per_chip)

@@ -9,8 +9,9 @@ Port of ``src/repro/serve/decode.py`` for every family the port runs.
 compiled loop, so a step costs no host time per kernel. A
 ``GreedyDecoder`` keeps its buffers and its graph between batches of one
 shape, so a static server's pool worker captures once. A static server's
-prefill is captured the same way (``PrefillGraph``), once per pool worker
-and prompt shape, and replayed for every batch. ``make_serve_step`` is the
+prefill is captured the same way (``PrefillGraph``), once per card and
+prompt shape on a stream of its own, and replayed for every batch, its pool
+workers taking turns (``PrefillGraph.replayed``). ``make_serve_step`` is the
 plain one-token step the dry run traces (``launch/dryrun.py``), and
 ``abstract_cache`` its cache as ``TensorSpec``s, nothing allocated.
 
@@ -28,6 +29,7 @@ window (reference ``serve/decode.py:37-59``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -262,18 +264,26 @@ class PrefillGraph:
     ``(last-token logits, cache)``, valid until the next call: the caller
     copies what it keeps (``GreedyDecoder.load``). The graph's private
     memory pool holds the prefill's temporaries and outputs for as long as
-    the graph lives, so it is the worker's, charged where the worker's
-    decoder is (``launch.serve.prefill_state``). The kernels' TMA
-    descriptors are made on the host during the capture and point into
-    that pool, where every replay finds the same tensors. The warm-up's
-    outputs are dropped before the capture begins, so its cache and the
-    pool's are never held at once."""
+    the graph lives. The kernels' TMA descriptors are made on the host
+    during the capture and point into that pool, where every replay finds
+    the same tensors; its GEMMs use the cuBLAS workspace of ``stream``,
+    so every replay runs there. The warm-up's outputs are dropped before
+    the capture begins, so its cache and the pool's are never held at once.
+
+    Pool threads share one graph through ``replayed``, which hands it to
+    one batch at a time (``launch.serve``: one graph a card and prompt
+    shape, its pool and its stream's workspace charged once, beside each
+    worker's decoder). The card then holds one prefill's pool where each
+    worker held one, so four full gemma2-9b batches fit on an 80 GB card
+    at once, where three did (ROADMAP C25)."""
 
     def __init__(self, prefill: Callable, params, batch: Dict[str, torch.Tensor],
                  stream: "torch.cuda.Stream"):
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
         with torch.cuda.stream(stream):
             self.inputs = {k: v.clone() for k, v in batch.items()}
         self.outputs = None
+        self._turns = threading.Lock()
 
         def run() -> None:
             out = prefill(params, self.inputs)
@@ -293,6 +303,17 @@ class PrefillGraph:
         self.graph.replay()
         caller.wait_stream(stream)
         return self.outputs
+
+    @contextlib.contextmanager
+    def replayed(self, batch: Dict[str, torch.Tensor]):
+        """``self(batch)``'s outputs, the caller's alone until the block
+        ends: another thread's replay waits for the block, and on the
+        card for the work the block queued on the caller's stream (its
+        copies out of the outputs)."""
+        with self._turns:
+            yield self(batch)
+            self.graph.stream.wait_stream(
+                torch.cuda.current_stream(self.graph.stream.device))
 
 
 def decode_buffers(cfg: ArchConfig, rows: int, max_seq: int,

@@ -116,12 +116,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_leaves(ckpt_dir: str, step: Optional[int] = None,
-                   mmap: bool = False) -> Tuple[int, List[np.ndarray], dict]:
-    """(step, the stored leaves as numpy arrays in flatten order with bf16
-    as uint16 bits, the manifest) of a committed checkpoint (the newest
-    when ``step`` is None), whichever package wrote it; with ``mmap`` the
-    leaves are read-only memory maps, read where they are indexed."""
+def _committed(ckpt_dir: str, step: Optional[int]) -> Tuple[int, str, dict]:
+    """(step, its directory, its manifest) of a committed checkpoint (the
+    newest when ``step`` is None)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -129,8 +126,16 @@ def restore_leaves(ckpt_dir: str, step: Optional[int] = None,
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, _MANIFEST)) as f:
         manifest = json.load(f)
-    leaves = [np.load(os.path.join(d, _leaf_path(i)),
-                      mmap_mode="r" if mmap else None)
+    return step, d, manifest
+
+
+def restore_leaves(ckpt_dir: str, step: Optional[int] = None
+                   ) -> Tuple[int, List[np.ndarray], dict]:
+    """(step, the stored leaves as numpy arrays in flatten order with bf16
+    as uint16 bits, the manifest) of a committed checkpoint (the newest
+    when ``step`` is None), whichever package wrote it."""
+    step, d, manifest = _committed(ckpt_dir, step)
+    leaves = [np.load(os.path.join(d, _leaf_path(i)))
               for i in range(manifest["n_leaves"])]
     return step, leaves, manifest
 
@@ -160,7 +165,10 @@ def restore_into(ckpt_dir: str, state: Any, step: Optional[int] = None
     are replaced. A DTensor leaf takes its local shard's slice of the
     stored leaf. Returns (step, the state)."""
     from repro_torch.dist import sharding as SH
-    step, arrays, manifest = restore_leaves(ckpt_dir, step, mmap=True)
+    step, d, manifest = _committed(ckpt_dir, step)
+    # read-only memory maps, read where they are indexed
+    arrays = [np.load(os.path.join(d, _leaf_path(i)), mmap_mode="r")
+              for i in range(manifest["n_leaves"])]
     leaves, treedef = tree_flatten(state)
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "

@@ -423,15 +423,16 @@ CKPT_STEPS, CKPT_AT = 6, 4
 
 def case_ckpt(rank, mesh, workdir):
     """Checkpoints of a sharded run through ``launch.train.train``: 6 steps
-    uninterrupted on (2, 2); the first 4 of them (``total_steps=6``) with a
-    checkpoint at step 4 (copied, by rank 0, to ``ckpt_b`` and ``ckpt_c``
-    before anything resumes); resumed to 6 steps on (2, 2) from ``ckpt_a``
-    and on (4, 1) from ``ckpt_b``. Each run's losses, grad norms and final
-    parameters (whole, on the host)."""
+    uninterrupted on (2, 2) with a checkpoint at step 4 (``ckpt_every=4``)
+    and the final one at step 6 in ``ckpt_a``; rank 0 deletes step 6, as a
+    crash after step 4 would leave the directory, and copies it to
+    ``ckpt_b`` and ``ckpt_c`` before anything resumes; resumed to 6 steps
+    on (2, 2) from ``ckpt_a`` and on (4, 1) from ``ckpt_b``. Each run's
+    losses, grad norms and final parameters (whole, on the host)."""
     import shutil
     from repro_torch.launch.train import train
-    kw = dict(batch=CKPT_BATCH, seq=CKPT_SEQ, device="cpu", lr=LR,
-              log_every=100, keep_state=True, total_steps=CKPT_STEPS)
+    kw = dict(steps=CKPT_STEPS, batch=CKPT_BATCH, seq=CKPT_SEQ,
+              device="cpu", lr=LR, log_every=100, keep_state=True)
     dirs = {k: os.path.join(workdir, f"ckpt_{k}") for k in "abc"}
 
     def run(**more):
@@ -439,17 +440,15 @@ def case_ckpt(rank, mesh, workdir):
         return {"losses": res["losses"], "gnorms": res["grad_norms"],
                 "start": res["start_step"], "params": res["params"],
                 "status": res["status"]}
-    out = {"full": run(steps=CKPT_STEPS, mesh_shape=(2, 2)),
-           "part": run(steps=CKPT_AT, mesh_shape=(2, 2),
-                       ckpt_dir=dirs["a"], ckpt_every=CKPT_AT)}
+    out = {"full": run(mesh_shape=(2, 2), ckpt_dir=dirs["a"],
+                       ckpt_every=CKPT_AT)}
     if rank == 0:
+        shutil.rmtree(os.path.join(dirs["a"], f"step_{CKPT_STEPS:08d}"))
         for k in "bc":
             shutil.copytree(dirs["a"], dirs[k])
     dist.barrier()
-    out["same"] = run(steps=CKPT_STEPS, mesh_shape=(2, 2),
-                      ckpt_dir=dirs["a"], resume=True)
-    out["other"] = run(steps=CKPT_STEPS, mesh_shape=(4, 1),
-                       ckpt_dir=dirs["b"], resume=True)
+    out["same"] = run(mesh_shape=(2, 2), ckpt_dir=dirs["a"], resume=True)
+    out["other"] = run(mesh_shape=(4, 1), ckpt_dir=dirs["b"], resume=True)
     return out
 
 

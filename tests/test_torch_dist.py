@@ -65,7 +65,8 @@ package.
       - checkpoints of a sharded run (reduced qwen1.5-32b, batch 4 x 32,
         the reference's ``test_train_resume_matches_uninterrupted``):
         ``launch.train.train(mesh_shape=(2, 2), ckpt_dir=..., ckpt_every=4,
-        steps=4, total_steps=6)``, then resumed to 6 steps on (2, 2) (bit
+        steps=6)``, its step 6 deleted, then resumed from step 4 to 6 steps
+        on (2, 2) (bit
         for bit the uninterrupted 6-step (2, 2) run), on (4, 1) and in
         this process unsharded (within the f32 parity tolerances), all
         three within ``case_step``'s tolerances of 6 steps of the
@@ -642,21 +643,21 @@ def test_reference_pipeline_gradient_refuses_the_default_explicit_mesh(
 
 @pytest.fixture(scope="module")
 def unsharded_ckpt(ranks, tmp_path_factory):
-    """In this process, unsharded: the first 4 steps of the 6-step run with
-    a checkpoint at step 4, and the sharded run's checkpoint (a copy of
-    ``ckpt_c``) resumed to 6 steps."""
+    """In this process, unsharded: the 6-step run with a checkpoint at step
+    4, and the sharded run's checkpoint (a copy of ``ckpt_c``) resumed to 6
+    steps."""
     import shutil
     from repro_torch.launch.train import train
-    kw = dict(batch=CKPT_BATCH, seq=CKPT_SEQ, device="cpu", lr=LR,
-              log_every=100, keep_state=True, total_steps=CKPT_STEPS)
+    kw = dict(steps=CKPT_STEPS, batch=CKPT_BATCH, seq=CKPT_SEQ,
+              device="cpu", lr=LR, log_every=100, keep_state=True)
     tmp = tmp_path_factory.mktemp("unsharded_ckpt")
-    part = train(CKPT_ARCH, steps=CKPT_AT, ckpt_dir=str(tmp / "part"),
-                 ckpt_every=CKPT_AT, **kw)
+    full = train(CKPT_ARCH, ckpt_dir=str(tmp / "full"), ckpt_every=CKPT_AT,
+                 **kw)
     shutil.copytree(os.path.join(ranks[1]["workdir"], "ckpt_c"),
                     tmp / "resumed")
-    resumed = train(CKPT_ARCH, steps=CKPT_STEPS, ckpt_dir=str(tmp / "resumed"),
-                    resume=True, **kw)
-    return str(tmp / "part"), part, resumed
+    resumed = train(CKPT_ARCH, ckpt_dir=str(tmp / "resumed"), resume=True,
+                    **kw)
+    return str(tmp / "full"), full, resumed
 
 
 def _ckpt_params_close(got, want):
@@ -670,11 +671,12 @@ def _ckpt_params_close(got, want):
 
 def test_a_sharded_checkpoint_resumes_bit_equal_on_its_mesh(ranks):
     got = ranks[0]["ckpt"]
-    full, part, same = got["full"], got["part"], got["same"]
-    assert full["status"] == part["status"] == same["status"] == "done"
-    assert same["start"] == CKPT_AT and part["start"] == 0
-    assert part["losses"] + same["losses"] == full["losses"]
-    assert part["gnorms"] + same["gnorms"] == full["gnorms"]
+    full, same = got["full"], got["same"]
+    assert full["status"] == same["status"] == "done"
+    assert full["start"] == 0 and same["start"] == CKPT_AT
+    assert len(full["losses"]) == CKPT_STEPS
+    assert same["losses"] == full["losses"][CKPT_AT:]
+    assert same["gnorms"] == full["gnorms"][CKPT_AT:]
     for a, b in zip(tree_leaves(same["params"]), tree_leaves(full["params"])):
         assert np.array_equal(a, b)
 
@@ -708,8 +710,9 @@ def tree_map_np(tree):
 @pytest.mark.parametrize("run", ["full", "same", "other", "unsharded"])
 def test_sharded_checkpoint_runs_match_the_unsharded_jitted_jax_steps(
         ranks, unsharded_ckpt, run):
-    """Each run's losses and grad norms (the part before the checkpoint,
-    then the resumed steps) and final parameters against 6 steps of the
+    """Each run's losses and grad norms (the uninterrupted run's before
+    the checkpoint, then the resumed steps) and final parameters against
+    6 steps of the
     unsharded jitted JAX step from the same start: ``case_step``'s
     tolerances."""
     got = ranks[0]["ckpt"]
@@ -720,12 +723,12 @@ def test_sharded_checkpoint_runs_match_the_unsharded_jitted_jax_steps(
                                   got["full"]["params"])
     elif run == "unsharded":
         res = unsharded_ckpt[2]
-        losses = got["part"]["losses"] + res["losses"]
-        gnorms = got["part"]["gnorms"] + res["grad_norms"]
+        losses = got["full"]["losses"][:CKPT_AT] + res["losses"]
+        gnorms = got["full"]["gnorms"][:CKPT_AT] + res["grad_norms"]
         params = tree_map_np(res["params"])
     else:
-        losses = got["part"]["losses"] + got[run]["losses"]
-        gnorms = got["part"]["gnorms"] + got[run]["gnorms"]
+        losses = got["full"]["losses"][:CKPT_AT] + got[run]["losses"]
+        gnorms = got["full"]["gnorms"][:CKPT_AT] + got[run]["gnorms"]
         params = got[run]["params"]
     assert len(losses) == CKPT_STEPS
     for gl, gn, (wl, wn) in zip(losses, gnorms, want_m):
@@ -743,7 +746,8 @@ def test_a_sharded_checkpoint_has_an_unsharded_runs_layout(ranks,
     from repro_torch.train import checkpoint as CK
     sharded = os.path.join(ranks[1]["workdir"], "ckpt_c")
     step, leaves, manifest = CK.restore_leaves(sharded)
-    ustep, uleaves, umanifest = CK.restore_leaves(unsharded_ckpt[0])
+    ustep, uleaves, umanifest = CK.restore_leaves(unsharded_ckpt[0],
+                                                  CKPT_AT)
     assert step == ustep == CKPT_AT
     assert manifest == umanifest
     assert os.listdir(sharded) == [f"step_{CKPT_AT:08d}"]

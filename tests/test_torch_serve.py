@@ -114,7 +114,8 @@ def test_a_kept_decoder_gives_each_batch_greedy_generates_tokens(arch):
 def test_static_serve_probes_the_prefill_and_reserves_each_workers_decoder():
     """The static path probes the prefill as the task and the decoder as
     what each worker keeps; on a card both are charged (the task's probe
-    to the scheduler, the decoder in ``pool_reserve``)."""
+    to the scheduler, the decoder in ``pool_reserve``, once a worker, and
+    beside them once what the workers share, the captured prefill)."""
     res = serve("gemma2-9b", device="cpu", requests=8, batch=2,
                 prompt_len=12, gen_len=6, workers=2)
     assert res["completed"] == 4 and res["decode_graphs"] == 0  # CPU: eager
@@ -126,6 +127,7 @@ def test_static_serve_probes_the_prefill_and_reserves_each_workers_decoder():
     card = [torch.device("cuda", 0)]
     assert LS.pool_reserve(card, 2, kept.hbm_bytes) == 2 * kept.hbm_bytes
     assert LS.pool_reserve([torch.device("cpu")], 2, kept.hbm_bytes) == 0
+    assert res["kept_per_card"] is None  # CPU: the prefill runs eagerly
 
 
 @pytest.mark.gpu
@@ -155,13 +157,13 @@ def _specs(cfg, device, dtype=torch.bfloat16):
                                   "mixtral-8x7b"])
 def test_captured_prefill_is_charged_to_its_worker_once(arch):
     """With the prefill captured (on a card), its peak moves from the
-    batch's vector into what the worker keeps, charged once: the worker
-    keeps the prefill's pool (``static_task``'s live peak) and the graph's
-    copy of the tokens beside its decoder, the unseen bytes once; a batch
-    is charged its weights, its tokens and its first tokens. Together they
-    charge what the eager path did, plus only the graph's static copy of
-    the tokens and the first tokens. Probed on ``TensorSpec``s (fake
-    tensors): nothing allocated, no card needed."""
+    batch's vector into what the card keeps, charged once however many
+    workers share the graph: the card keeps the prefill's pool
+    (``static_task``'s live peak) and the graph's copy of the tokens, a
+    worker its decoder; a batch is charged its weights, its tokens and its
+    first tokens. Together they charge what the eager path did, plus only
+    the graph's static copy of the tokens and the first tokens. Probed on
+    ``TensorSpec``s (fake tensors): nothing allocated, no card needed."""
     from repro_torch.core.probe import TensorSpec, probe_fn, trace_counts
     cfg = get_arch(arch).reduced()
     dev = torch.device("cpu")
@@ -174,7 +176,8 @@ def test_captured_prefill_is_charged_to_its_worker_once(arch):
                       uncharged=(2,))
     pool = trace_counts(LS.static_task, params, batch, cfg, uncharged=(0,))
     dec = probe_fn(LS.decode_state, params, first, cfg, 18, uncharged=(0,))
-    kept = LS.kept_by_worker(params, batch, cfg, first, 18)
+    kept = LS.kept_by_worker(params, first, cfg, 18)
+    card = LS.kept_by_card(params, batch, cfg)
     # the first tokens: argmax's int64 and their int32 copy
     first_tokens = trace_counts(
         LS.replayed_task, params, batch,
@@ -183,10 +186,11 @@ def test_captured_prefill_is_charged_to_its_worker_once(arch):
     tokens = 2 * 12 * 8
     assert first_tokens == 2 * 8 + 2 * 4
     assert pool["arg_bytes"] == tokens
-    assert kept.hbm_bytes == dec.hbm_bytes + tokens + pool["peak_live_bytes"]
+    assert kept.hbm_bytes == dec.hbm_bytes
+    assert card.hbm_bytes == tokens + pool["peak_live_bytes"]
     assert eager.hbm_bytes - replay.hbm_bytes \
         == pool["peak_live_bytes"] - first_tokens
-    extra = (replay.hbm_bytes + kept.hbm_bytes) \
+    extra = (replay.hbm_bytes + kept.hbm_bytes + card.hbm_bytes) \
         - (eager.hbm_bytes + dec.hbm_bytes)
     assert extra == tokens + first_tokens
 

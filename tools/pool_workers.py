@@ -3,8 +3,9 @@ where each batch's time goes.
 
     python3 tools/pool_workers.py [--arch gemma2-9b] [--prompt-len 1000]
 
-Each pool worker replays its batch's prefill from the graph it captured
-at its first batch (``serve.decode.PrefillGraph``), then decodes over the
+Each pool worker replays its batch's prefill from the card's captured
+graph (``serve.decode.PrefillGraph``: captured at the first batch, the
+workers taking turns on it), then decodes over the
 decoder it keeps (``serve.decode.GreedyDecoder.generate``: at the worker's
 first batch an eager warm-up step and a graph capture, then graph replays;
 at its later batches replays only). The eager parts (the warm-ups) are
@@ -15,7 +16,7 @@ each run:
 
 * tokens/s, TTFT and TPOT, with the card's name and power limit;
 * for each phase of a batch (``prefill``, a replay with its input copy,
-  and at a worker's first batch the prefill graph's warm-up and capture;
+  and at the first batch the prefill graph's warm-up and capture;
   ``decode``, the whole of ``generate``; inside either ``warm-up``,
   ``capture`` and, inside the capture, ``capture_end``, the graph's
   instantiation) the mean per span
@@ -36,8 +37,9 @@ each run:
   waiting for it or inside native code that released it.
 
 Then one batch alone on a card with nothing else allocated: the task's
-probe plus what its worker keeps (``launch.serve.pool_reserve``) against
-``torch.cuda.max_memory_allocated``. Needs one CUDA card; imports no JAX.
+probe plus what its worker and the card keep (``launch.serve.
+pool_reserve``) against ``torch.cuda.max_memory_allocated``. Needs one
+CUDA card; imports no JAX.
 """
 from __future__ import annotations
 
@@ -248,11 +250,13 @@ def main() -> None:
                         param_dtype=torch.bfloat16, workers=1)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        task, kept = alone["probe"].hbm_bytes, alone["kept_per_worker"]
+        task = alone["probe"].hbm_bytes
+        kept = alone["kept_per_worker"].hbm_bytes
+        shared = alone["kept_per_card"].hbm_bytes
         print(f"[pool] {args.arch} one batch alone: probe {task} B + kept "
-              f"by its worker {kept.hbm_bytes} B = {task + kept.hbm_bytes} "
-              f"B vs observed max_memory_allocated {peak} B "
-              f"({(task + kept.hbm_bytes) / peak:.4f})", flush=True)
+              f"by its worker {kept} B + by the card {shared} B = "
+              f"{task + kept + shared} B vs observed max_memory_allocated "
+              f"{peak} B ({(task + kept + shared) / peak:.4f})", flush=True)
     finally:
         rec.stop.set()
         rec.watcher.join(timeout=5)
