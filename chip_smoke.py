@@ -274,6 +274,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    experts) summed must equal the whole layer within the grouped matmul's
    tolerances (bf16 2e-2, f32 1e-4), its launches the kernels table's
    ``dryrun`` path.
+15. examples (``phase_examples``, after ``phase_obs``): the six examples
+   of ``repro_torch.examples`` through their ``main`` on the card, in this
+   process: quickstart, gang_placement, preemptive_cluster and
+   trace_viewer, each beside its CPU run (quickstart's results within
+   1e-4 relative, the sim sections equal); shared_cluster (reduced
+   gemma2-9b and qwen1.5-32b train jobs, mixtral-8x7b, falcon-mamba-7b,
+   zamba2-2.7b and musicgen-large prefills, under MGB and SA on two
+   virtual devices of the card, a device death, a fleet of 64 zamba2
+   prefills beside a gemma2 train job): nothing crashed outside the
+   device death, 65 completed in the fleet; train_100m (lm-100m, 115M
+   parameters at its full width and depth, f32, 300 steps of 8 x 256,
+   checkpoints every 50): the loss falls, the launches are the formula's,
+   and ``--resume`` restores step 300 and runs no step. Every kernel but
+   the scan's and the grouped matmul's backward must launch; the counts
+   are the kernel table's ``examples`` path.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; imports no JAX.
@@ -283,6 +298,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -571,7 +587,8 @@ def flex_library(torch, q, k, v, cap: float, win: int):
 # of 4 x ~1000 tokens and decode steps of 4 rows in bf16, continuous
 # prefills of 1 x ~1000 tokens and the continuous loop's steps of 8 rows in
 # bf16, f32 training batches of 4 x 1024 (zamba2: microbatches of 1 x
-# 1024); then a narrow edge case.
+# 1024); lm-100m's (d 640, the examples' full-width training) f32 batches
+# of 8 x 256; then a narrow edge case.
 RMSNORM_ROWS = (
     ((4000, 3584), "bfloat16", "gemma2 static prefill"),
     ((4000, 3584), "float32", "gemma2 f32 rows"),
@@ -603,6 +620,7 @@ RMSNORM_ROWS = (
     ((4, 5120), "float32", "zamba2 f32 decode, gated norm"),
     ((8, 2560), "bfloat16", "zamba2 continuous loop"),
     ((8, 5120), "bfloat16", "zamba2 continuous loop, gated norm"),
+    ((2048, 640), "float32", "lm-100m train"),
     ((1000, 512), "float32", "narrow rows"),
     ((1000, 512), "bfloat16", "narrow rows"),
 )
@@ -702,9 +720,10 @@ def phase_flash(torch, randn, table) -> None:
     top-left causal with Sq != Sk, windows below, at and above a tile,
     softcaps on scores scaled up, non-causal, and q, k, v as the model's
     einsum views (a [B, S, H, D] buffer seen as [B, H, S, D]). Last, the
-    train path's forward (f32, with lse) at gemma2's training shape and at
-    D 128 with a window, timed beside its bound, its plain version and
-    flex_attention's (gemma2) or SDPA's (D 128) f32 forward."""
+    train path's forward (f32, with lse) at gemma2's training shape, at
+    lm-100m's and at D 128 with a window, timed beside its bound, its plain
+    version and flex_attention's (gemma2) or SDPA's (D 128, lm-100m) f32
+    forward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     bf16, f32 = torch.bfloat16, torch.float32
@@ -874,11 +893,13 @@ def phase_flash(torch, randn, table) -> None:
         = worst[f32]
 
     # the train path's forward, f32 with lse, at the backward's timed shapes
-    # (gemma2-9b's training case, D 128 with a window of 256) beside its
-    # bound, its plain version and the same library's f32 forward
+    # (gemma2-9b's training case, D 128 with a window of 256, lm-100m's 10 /
+    # 5 heads of 64 at 8 x 256) beside its bound, its plain version and the
+    # same library's f32 forward
     for (b, hq, hkv, s, d), cap, win, name in [
             ((4, 16, 8, 1024, 256), 50.0, 4096, "train_case"),
-            ((2, 32, 8, 1024, 128), 0.0, 256, "d128_case")]:
+            ((2, 32, 8, 1024, 128), 0.0, 256, "d128_case"),
+            ((8, 10, 5, 256, 64), 0.0, 0, "lm100m_case")]:
         q = randn((b, hq, s, d), f32)
         k, v = randn((b, hkv, s, d), f32), randn((b, hkv, s, d), f32)
         args = (True, win, cap)
@@ -1185,7 +1206,8 @@ def phase_gmm(torch, randn, table) -> None:
 # the flash backward's cases, (b, hq, hkv, sq, sk, d, softcap, window) and
 # whether it is timed: gemma2-9b's training shape with window 4096 and 0, D
 # 128 with a window of 256, zamba2-2.7b's heads (32 of 80, no GQA) and
-# nemotron-4-340b's (96 / 8 of 192) at S 1024, ragged Sq/Sk tails at D 256,
+# nemotron-4-340b's (96 / 8 of 192) at S 1024, lm-100m's (10 / 5 of 64) at
+# 8 x 256, ragged Sq/Sk tails at D 256,
 # 192, 80, 64 and 32, and Sq > Sk with a window (48 rows that see no key)
 # at every head dim
 FLASH_BWD_CASES = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
@@ -1193,6 +1215,7 @@ FLASH_BWD_CASES = [((4, 16, 8, 1024, 1024, 256, 50.0, 4096), True),
                    ((2, 32, 8, 1024, 1024, 128, 0.0, 256), True),
                    ((1, 32, 32, 1024, 1024, 80, 0.0, 0), True),
                    ((1, 96, 8, 1024, 1024, 192, 0.0, 0), True),
+                   ((8, 10, 5, 256, 256, 64, 0.0, 0), True),
                    ((1, 4, 2, 1000, 1000, 256, 50.0, 0), False),
                    ((1, 4, 2, 300, 500, 192, 50.0, 0), False),
                    ((2, 4, 4, 333, 333, 80, 0.0, 96), False),
@@ -1209,12 +1232,13 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
     f32 and bf16. Flash (bf16 on the tensor cores, f32 on the CUDA cores):
     ``cases``; dq, dk and dv must be the same bits on two calls. Timed at
     gemma2's shape against the backward of flex_attention (softcap as a
-    score_mod, causal + window as a block mask) and at D 128 against SDPA's
-    backward. RMSNorm: the train path's rows [4096, 3584] and row tails,
-    timed against the backward of ``F.rms_norm``; its dscale must be the
-    same bits from run to run (no atomics). A library's backward is timed
-    alone, graph-replayed, as the kernel is (``time_grad_ms``). Needs no
-    other phase: a short check can call it alone with its own cases."""
+    score_mod, causal + window as a block mask), and at D 128 and lm-100m's
+    shape against SDPA's backward. RMSNorm: the train path's rows [4096,
+    3584] and row tails, timed against the backward of ``F.rms_norm``; its
+    dscale must be the same bits from run to run (no atomics). A library's
+    backward is timed alone, graph-replayed, as the kernel is
+    (``time_grad_ms``). Needs no other phase: a short check can call it
+    alone with its own cases."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
@@ -1331,10 +1355,10 @@ def phase_backward(torch, randn, table, cases=FLASH_BWD_CASES) -> None:
 
     # the train path's rows, nemotron-4-340b's (18432: in f32 past the
     # registers, the wide path), zamba2-2.7b's gated norm (5120) and its d
-    # 2560, at 4 x 1024 and at a 1 x 1024 training microbatch, a row past
-    # 32768 bf16 elements, tails
+    # 2560, at 4 x 1024 and at a 1 x 1024 training microbatch, lm-100m's d
+    # 640 at 8 x 256, a row past 32768 bf16 elements, tails
     for shape in [(4096, 3584), (4096, 18432), (4096, 5120), (4096, 2560),
-                  (1024, 2560), (1024, 5120), (4097, 3584),
+                  (1024, 2560), (1024, 5120), (2048, 640), (4097, 3584),
                   (33, 40000), (1000, 512), (7, 100), (3, 5, 128)]:
         for dtype in (f32, bf16):
             x, dy = randn(shape, dtype), randn(shape, dtype)
@@ -4037,6 +4061,231 @@ def phase_obs(torch, gpu: str) -> dict:
     return launches
 
 
+# the kernels the examples' path launches: every forward and the flash and
+# RMSNorm backwards (no example trains a Mamba or MoE model)
+EXAMPLES_KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "moe_gmm",
+                    "moe_gmm_gated", "flash_attention_bwd", "rmsnorm_bwd")
+
+
+def phase_examples(torch, gpu: str) -> dict:
+    """The six examples (``repro_torch.examples``) on the card, in this
+    process, each through its ``main`` as a user runs it, with the launch
+    counters zeroed just before the first and read after the last. Each
+    that has a device-independent part also runs on the CPU
+    (``--device cpu``), and that part must equal the card's: quickstart's
+    results within 1e-4 relative, the sim sections of gang_placement,
+    preemptive_cluster and trace_viewer exactly. Fails where an example's
+    own assertion fails (it raises), where quickstart's jobs do not both
+    complete or the card's gang is not bound as 4 devices, where
+    shared_cluster crashes a job outside its fault-injection section or its
+    fleet completes fewer than 65, where a kernel of the path (every one
+    but the scan's and the grouped matmul's backward) was never launched,
+    or where train_100m (lm-100m at its full width and depth, f32, 300
+    steps of 8 x 256, a checkpoint every 50) launches other than 300 steps
+    of the formula's kernels, its loss does not fall, or its ``--resume``
+    does not restore step 300 and run no step. Then one lm-100m step
+    profiled (``profile_100m``). Returns the launches by kernel."""
+    import shutil
+    from repro_torch.examples import (
+        gang_placement, preemptive_cluster, quickstart, shared_cluster,
+        trace_viewer, train_100m,
+    )
+    t_phase = time.perf_counter()
+    fresh_card(torch)
+    cpu = ["--device", "cpu"]
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    for c in counters().values():
+        c.reset()
+
+    card = quickstart.main([])
+    ref = quickstart.main(cpu)
+    err = max(abs(card["results"][k] - v) / abs(v)
+              for k, v in ref["results"].items())
+    print(f"[examples] quickstart on {gpu}: results "
+          f"{ {k: round(v, 3) for k, v in sorted(card['results'].items())} }"
+          f" (CPU {round(ref['results']['app1'], 3)}, largest relative "
+          f"difference {err:.3e}); placements {card['placements']}; probe A "
+          f"{card['probe_a'].hbm_bytes} B, {card['probe_a'].flops:.4e} flops",
+          flush=True)
+    if set(card["results"]) != set(ref["results"]) or err > 1e-4 \
+            or card["stats"]["completed"] != 2 or card["stats"]["crashed"] \
+            or {d for _, d in card["placements"]} != {0, 1}:
+        fail("examples: quickstart on the card differs from the CPU run")
+
+    card = gang_placement.main([])
+    ref = gang_placement.main(cpu)
+    print(f"[examples] gang_placement on {gpu}: all jobs done at virtual "
+          f"t={card['t']:.1f} s (CPU {ref['t']:.1f}); the live gang bound "
+          f"as {len(card['bound'])} devices {sorted(set(map(str, card['bound'])))}"
+          f"; shedding {card['shed_stats']}", flush=True)
+    if (card["t"], card["placements"], card["shed_stats"]) != (
+            ref["t"], ref["placements"], ref["shed_stats"]) \
+            or card["bound"] != [torch.device("cuda", 0)] * 4:
+        fail("examples: gang_placement's sim differs from the CPU's or the "
+             "gang was not bound as 4 devices of the card")
+
+    card = preemptive_cluster.main([])
+    ref = preemptive_cluster.main(cpu)
+    sim = card["sim"]
+    print(f"[examples] preemptive_cluster on {gpu}: urgent deadlines met "
+          f"{sim['met']}/{sim['total']} admission-only, "
+          f"{sim['met_preemptive']}/{sim['total_preemptive']} preemptive, "
+          f"{sim['preemptions']} preemptions, {sim['migrations']} "
+          f"migrations; live events {card['live']['events']}", flush=True)
+    if sim != ref["sim"] or card["live"]["preemptions"] != 1 \
+            or any(s != "done" for _, s in card["live"]["statuses"]):
+        fail("examples: preemptive_cluster differs from the CPU run")
+
+    card = trace_viewer.main(["--out", os.path.join(build,
+                                                    "trace_viewer.json")])
+    ref = trace_viewer.main(cpu + ["--out", os.path.join(
+        build, "trace_viewer_cpu.json")])
+    s = card["summary"]
+    print(f"[examples] trace_viewer on {gpu}: {s['slices']} slices, "
+          f"{s['flows']} flows ({s['cross_device_flows']} cross-device), "
+          f"{s['counter_samples']} counter samples, queueing delay p99 "
+          f"{card['queueing_delay']['p99']:.3f} s", flush=True)
+    # a verdict names its preemptor by task uid, which counts on across
+    # runs in one process
+    for r in (card, ref):
+        r["verdicts"] = [(n, re.sub(r"by=\d+", "by=#", v))
+                         for n, v in r["verdicts"]]
+    if card != ref:
+        fail("examples: trace_viewer differs from the CPU run")
+
+    res = shared_cluster.main([])
+    fl = res["fleet"]
+    print(f"[examples] shared_cluster on {gpu}: MGB {res['mgb']['completed']}"
+          f" completed / {res['mgb']['crashed']} crashed, makespan "
+          f"{res['mgb']['makespan_s']:.3f} s; SA {res['sa']['completed']} / "
+          f"{res['sa']['crashed']}, makespan {res['sa']['makespan_s']:.3f} s "
+          f"({res['speedup']:.2f}x); device 0 dead: {res['evicted']} "
+          f"evicted, {res['fault']['completed']} completed / "
+          f"{res['fault']['crashed']} crashed; fleet {fl['done']}/"
+          f"{shared_cluster.FLEET_REQUESTS} + "
+          f"background {fl['background']}, {fl['stats']['completed']} "
+          f"completed / {fl['stats']['crashed']} crashed in "
+          f"{fl['wall_s']:.2f} s", flush=True)
+    if res["mgb"]["completed"] != 6 or res["mgb"]["crashed"] \
+            or res["sa"]["completed"] != 6 or res["sa"]["crashed"] \
+            or res["fault"]["completed"] + res["fault"]["crashed"] != 6 \
+            or fl["stats"]["completed"] != shared_cluster.FLEET_REQUESTS + 1 \
+            or fl["stats"]["crashed"]:
+        fail("examples: shared_cluster crashed a job or left one undone")
+
+    # lm-100m from a fresh directory, then resumed from it
+    ckpt = os.path.join(build, "examples_100m_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    before = read_counts()
+    res = train_100m.main(["--ckpt-dir", ckpt])
+    again = train_100m.main(["--ckpt-dir", ckpt, "--resume"])
+    counts = read_counts()
+    cfg = train_100m.CONFIG_100M
+    n, steps = cfg.n_layers, len(res["losses"])
+    # remat "nothing": each forward kernel once a layer, each backward once;
+    # the final norm once each way
+    want = {"rmsnorm": (2 * n + 1) * steps, "flash_attention": n * steps,
+            "flash_attention_bwd": n * steps,
+            "rmsnorm_bwd": (2 * n + 1) * steps}
+    got = {k: counts[k] - before[k] for k in want}
+    step_ms = sorted(res["step_ms"])[len(res["step_ms"]) // 2]
+    ck = res["checkpoint"]
+    print(f"[examples] train_100m on {gpu}: lm-100m, {cfg.param_count()} "
+          f"parameters, {n} layers, f32, {steps} steps of 8 x 256: loss "
+          f"{res['losses'][0]:.4f} -> {res['final_loss']:.4f}; "
+          f"{steps / res['wall_s']:.2f} steps/s over the run "
+          f"({res['wall_s']:.1f} s, probe and saves included), median "
+          f"step {step_ms:.2f} ms host, "
+          f"{sorted(res['device_ms'])[steps // 2]:.2f} ms device; the last "
+          f"checkpoint {ck['nbytes']} B, copy {ck['copy_s']:.3f} s, write "
+          f"{ck['write_s']:.3f} s; --resume restored step "
+          f"{again['start_step']} in {again['attempts'][0]['restore_s']:.3f}"
+          f" s and ran {len(again['losses'])} steps; launches {got}",
+          flush=True)
+    if steps != 300 or res["final_loss"] >= res["losses"][0] \
+            or again["start_step"] != 300 or again["losses"] or got != want:
+        fail("examples: train_100m did not train, resume or launch as "
+             f"expected (launches {got}, expected {want})")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    profile_100m(torch, cfg, len(res["losses"]))
+
+    launches = {k: counts[k] for k in dict.fromkeys(EXAMPLES_KERNELS
+                                                   + BWD_KERNELS)}
+    missing = [k for k in EXAMPLES_KERNELS if not launches[k]]
+    print(f"[launches] examples: {launches}", flush=True)
+    if missing:
+        fail(f"examples: {missing} never launched")
+    print(f"[examples] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# the kernel classes of an lm-100m step's profile: (what, name parts)
+PROFILE_100M = (("flash forward", ("flash_fwd_kernel",)),
+                ("flash backward", ("flash_bwd_delta_kernel",
+                                    "flash_bwd_dkdv_kernel",
+                                    "flash_bwd_dq_kernel")),
+                ("RMSNorm forward", ("rmsnorm_kernel",)),
+                ("RMSNorm backward", ("rmsnorm_bwd_kernel",
+                                      "rmsnorm_dscale_kernel")),
+                ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass")))
+
+
+def profile_100m(torch, cfg, steps: int) -> None:
+    """One lm-100m step as train_100m's launcher builds it (f32, 8 x 256,
+    AdamW at lr 1e-3 with the launcher's warm-up over ``steps``, the hand
+    kernels), from a seeded init: five steps timed between CUDA events,
+    host and device, then one under ``torch.profiler`` (``device_breakdown``),
+    with each class of ``PROFILE_100M``'s share of the device busy time and
+    the device's idle share of the timed steps' mean device span."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.data.pipeline import to_device as batch_to
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    dev = torch.device("cuda", 0)
+    fresh_card(torch)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=min(20, steps // 5 + 1),
+                            total_steps=steps,
+                            moment_dtype=cfg.optimizer_moment_dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    state = adamw.init_state(opt, params)
+    step = make_train_step(cfg, opt, attn_impl="flash_kernel")
+    pipe = TokenPipeline(cfg, ShapeConfig("train", 256, 8, "train"), seed=0)
+    batch = batch_to(pipe.batch_at(0), dev)
+    step(params, state, batch)  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(5):
+        step(params, state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / 5
+    span_ms = start.elapsed_time(end) / 5
+    label = "lm-100m train step, 12 layers, f32, batch 8 x 256"
+    rows, _ = device_breakdown(torch, label,
+                               lambda: step(params, state, batch), top=12)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] {label}: unprofiled {host_ms:.2f} ms host, "
+          f"{span_ms:.2f} ms device span a step (5 steps); device busy "
+          f"{busy:.2f} ms a step, idle {100 * (1 - busy / span_ms):.1f}% of "
+          f"the span", flush=True)
+    for what, names in PROFILE_100M:
+        mine = [(ms, n) for ms, n, name in rows
+                if any(k in name.lower() for k in names)]
+        ms = sum(m for m, _ in mine)
+        print(f"[profile] {label}: {what} {ms:.3f} ms a step over "
+              f"{sum(n for _, n in mine)} launches, {100 * ms / busy:.1f}% "
+              f"of the device busy time", flush=True)
+    del params, state, batch
+
+
 # the JAX package's NN vectors (``src/repro/core/workloads.py::_nn_vector``
 # on a CPU, virtual seconds): hbm, flops, bytes, core, bw
 REFERENCE_NN = {"predict": (166458120, 7.731e12, 3.401e11, 0.014, 0.150),
@@ -4144,6 +4393,7 @@ def main() -> None:
     by_path["dryrun"] = phase_dryrun(torch, dryrun)
     by_path["preempt"] = phase_preempt(torch, gpu)
     by_path["obs"] = phase_obs(torch, gpu)
+    by_path["examples"] = phase_examples(torch, gpu)
     for name, entry in table.items():
         entry["launches_by_path"] = {arch: launches[name]
                                      for arch, launches in by_path.items()}

@@ -251,7 +251,13 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.dist.kernel_sharding, repro_torch.train.elastic, "
             "repro_torch.launch.mesh, repro_torch.launch.train, "
             "repro_torch.core.scheduler.sharded, "
-            "repro_torch.core.scheduler.slice; "
+            "repro_torch.core.scheduler.slice, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.gang_placement, "
+            "repro_torch.examples.preemptive_cluster, "
+            "repro_torch.examples.trace_viewer, "
+            "repro_torch.examples.shared_cluster, "
+            "repro_torch.examples.train_100m; "
             "repro_torch.dist.kernel_sharding.register(); print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -277,7 +283,10 @@ def test_no_module_of_the_port_imports_jax_or_repro():
     rel = {os.path.relpath(f, PORT) for f in files}
     assert {"dist/sharding.py", "dist/compression.py", "dist/pipeline.py",
             "dist/kernel_sharding.py", "train/elastic.py", "launch/mesh.py",
-            "core/scheduler/sharded.py", "core/scheduler/slice.py"} <= rel
+            "core/scheduler/sharded.py", "core/scheduler/slice.py",
+            "examples/quickstart.py", "examples/gang_placement.py",
+            "examples/preemptive_cluster.py", "examples/trace_viewer.py",
+            "examples/shared_cluster.py", "examples/train_100m.py"} <= rel
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
     assert bad == []
