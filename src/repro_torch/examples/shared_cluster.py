@@ -19,6 +19,9 @@ Port of ``examples/shared_cluster.py``. What differs:
   * the scheduler's 2 virtual devices map onto the one card (or the CPU),
     so ``mark_dead(0)`` moves work from one virtual device to the other on
     the same card;
+  * device 0 dies as the first job's runner starts, where the reference
+    sleeps 0.3 s first: on a card the whole run takes about that long, so
+    a timed death could land before any task ran or after the last;
   * each job's ``est`` is the probe's roofline estimate on the H100's
     datasheet peaks (``core/probe.py``), labelled so, where the reference
     prints its TPU estimate;
@@ -143,6 +146,14 @@ def make_serve_job(arch: str, idx: int, device, params=None) -> ModelJob:
     return ModelJob(_single(f"serve-{arch}-{idx}", vec, runner), out)
 
 
+def _signalling(runner, begun: threading.Event):
+    """``runner`` that sets ``begun`` as it starts."""
+    def run(dev):
+        begun.set()
+        return runner(dev)
+    return run
+
+
 def build_jobs(device) -> List[ModelJob]:
     jobs = [make_train_job(arch, i, device)
             for i, arch in enumerate(TRAIN_ARCHS)]
@@ -231,16 +242,22 @@ def main(argv=None) -> dict:
     jobs3 = build_jobs(device)
     ex3 = Executor(sched3, workers=4, devices=[device])
     evicted: List[Optional[int]] = [None]
+    begun = threading.Event()
+    for j in jobs3:
+        j.ej.runners[0] = _signalling(j.ej.runners[0], begun)
 
     def killer():
-        time.sleep(0.3)
+        begun.wait()
         evicted[0] = len(sched3.mark_dead(0))
         print(f"  [failure injected] device 0 dead, {evicted[0]} task(s) "
               "evicted; survivors reschedule on device 1")
     kill = threading.Thread(target=killer)
     kill.start()
-    stats3 = ex3.run([j.ej for j in jobs3])
-    kill.join()
+    try:
+        stats3 = ex3.run([j.ej for j in jobs3])
+    finally:
+        begun.set()  # a run that raised before any runner frees the killer
+        kill.join()
     print(f"completed={stats3['completed']} crashed={stats3['crashed']} "
           f"(all work landed on the surviving device)")
     assert stats3["completed"] + stats3["crashed"] == len(jobs3)

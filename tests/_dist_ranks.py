@@ -1,6 +1,6 @@
 """One rank of a multi-rank check of the port's distribution on the CPU.
 
-``tests/test_torch_dist.py`` starts ``world`` processes of this script,
+``tests/test_torch_dist*.py`` start ``world`` processes of this script,
 one per rank, over a gloo process group on a ``FileStore``::
 
     python tests/_dist_ranks.py CASE RANK WORLD STORE WORKDIR

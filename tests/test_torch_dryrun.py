@@ -30,13 +30,17 @@ traces (``serve.decode.make_serve_step``, ``abstract_cache``).
 """
 import json
 import os
-import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _spawn import reaped, spawn, tail, wait  # noqa: E402
+from _worker_threads import share_cores  # noqa: E402
+
+share_cores()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -57,33 +61,33 @@ sys.path.insert(0, HERE)
 import _dryrun_cells as CELLS  # noqa: E402
 
 CELL_NAMES = [f"{a}:{s}" for a, s in CELLS.CELLS]
-TIMEOUT_S = 300
+# both sides' deadline from the fixture's start: inside ``conftest.py``'s
+# 300 s guard a test, so a late side fails with its log, not its worker
+TIMEOUT_S = 280
 
 
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
     """Both sides' results: (reference, port)."""
+    deadline = time.monotonic() + TIMEOUT_S
     out = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), HERE]), JAX_PLATFORMS="cpu",
         OMP_NUM_THREADS="2")
-    procs = {side: subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "_dryrun_cells.py"), side,
-         str(out / f"{side}.json")],
-        env=dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4")
-        if side == "ref" else env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for side in ("ref", "port")}
     res = {}
-    for side, p in procs.items():
-        try:
-            _, err = p.communicate(timeout=TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            for q in procs.values():
-                q.kill()
-            pytest.fail(f"{side} dry run past {TIMEOUT_S} s")
-        assert p.returncode == 0, err[-3000:]
-        with open(out / f"{side}.json") as f:
-            res[side] = json.load(f)
+    with reaped([]) as procs:
+        for side in ("ref", "port"):
+            procs.append(spawn(
+                [sys.executable, os.path.join(HERE, "_dryrun_cells.py"),
+                 side, str(out / f"{side}.json")],
+                str(out / f"{side}.log"),
+                dict(env, XLA_FLAGS="--xla_force_host_platform_device_count"
+                     "=4") if side == "ref" else env))
+        for side, p in zip(("ref", "port"), procs):
+            log = str(out / f"{side}.log")
+            assert wait(p, log, deadline, f"{side} dry run") == 0, tail(log)
+            with open(out / f"{side}.json") as f:
+                res[side] = json.load(f)
     return res["ref"], res["port"]
 
 

@@ -27,6 +27,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _worker_threads import share_cores  # noqa: E402
+
+share_cores()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -21,6 +21,9 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+from _worker_threads import share_cores  # noqa: E402
+
+share_cores()
 
 from repro.core import workloads as JW  # noqa: E402
 from repro_torch.bench import common as TC  # noqa: E402

@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _worker_threads import share_cores  # noqa: E402
+
+share_cores()
 
 from repro.core import scheduler as JSCH  # noqa: E402
 from repro.core import workloads as JW  # noqa: E402

@@ -12,6 +12,9 @@ import pytest
 from _hypothesis_fallback import given, settings, st
 
 torch = pytest.importorskip("torch")
+from _worker_threads import share_cores  # noqa: E402
+
+share_cores()
 
 from repro.core import scheduler as JSCH  # noqa: E402
 from repro.core import task as JT  # noqa: E402
